@@ -1,0 +1,7 @@
+"""``repro_torch`` — the PyTorch/CUDA port of the ``repro`` HPO engine.
+
+The define-by-run study loop of ``repro.core`` on in-memory storage, with the
+TPE sampler's device engine in PyTorch and its Parzen scorer as a
+hand-written CUDA kernel for Hopper (``kernels/csrc/parzen.cu``).  The
+package imports ``torch`` and numpy, never ``jax`` and nothing of ``repro``.
+"""

@@ -1,0 +1,113 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into one
+shared library with a plain C interface, at first use, and loaded with
+``ctypes``.  The library lands in ``build/repro_torch/`` at the root of the
+checkout (git-ignored), named by a hash of the sources and the compiler
+flags, so an edited source is rebuilt and an unchanged one is loaded as it
+is.  Nothing here runs at import time: the CPU tests import every module of
+the package on machines that have no ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+__all__ = ["load", "build_seconds", "build_log", "NVCC_FLAGS"]
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+)
+
+_lock = threading.Lock()
+_lib: "ctypes.CDLL | None" = None
+_build_seconds: "float | None" = None
+_build_log = ""
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+#: C signatures of the entry points (every pointer and the stream as void*)
+_SIGNATURES = {
+    "parzen_score_launch": (_I, [_P, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P]),
+}
+
+
+def _nvcc() -> str:
+    for cand in (
+        os.environ.get("CUDA_HOME") and os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"),
+        shutil.which("nvcc"),
+        "/usr/local/cuda/bin/nvcc",
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on a machine with the CUDA toolkit")
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu*")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _compile(sources: list[Path], target: Path) -> None:
+    global _build_log
+    target.parent.mkdir(parents=True, exist_ok=True)
+    tmp = target.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+        )
+    _build_log = proc.stdout + proc.stderr  # ptxas: registers, shared memory, spills
+    os.replace(tmp, target)  # atomic: a concurrent process never loads half a file
+
+
+def load() -> ctypes.CDLL:
+    """The kernels' shared library, built on first use."""
+    global _lib, _build_seconds
+    if _lib is not None:
+        return _lib
+    with _lock:
+        if _lib is None:
+            t0 = time.perf_counter()
+            sources = _sources()
+            target = BUILD_DIR / f"libkernels-{_digest()}.so"
+            if not target.exists():
+                _compile(sources, target)
+            lib = ctypes.CDLL(str(target))
+            for name, (restype, argtypes) in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.restype = restype
+                fn.argtypes = argtypes
+            _build_seconds = time.perf_counter() - t0
+            _lib = lib
+    return _lib
+
+
+def build_seconds() -> "float | None":
+    """Seconds the first :func:`load` took (compile included when it built)."""
+    return _build_seconds
+
+
+def build_log() -> str:
+    """What ``nvcc`` printed when this process built the library ("" if it
+    loaded an existing one)."""
+    return _build_log

@@ -1,0 +1,136 @@
+"""Engine policy of the PyTorch port: which path scores a TPE acquisition.
+
+The sampler stack (``core/samplers/tpe.py``) dispatches every hot reduction
+through :func:`resolve_engine`:
+
+* ``"numpy"`` — the float64 host path, bit-identical to the reference
+  package's numpy engine;
+* ``"torch"`` — the plain PyTorch version (``kernels/ref.py``), float32, on
+  whatever device its tensors live on;
+* ``"cuda"`` — the hand-written kernels (``kernels/parzen.py``), float32, on
+  a CUDA device only;
+* ``"auto"`` — numpy below a work threshold (device dispatch costs more than
+  it saves there), above it ``"cuda"`` on a CUDA device or ``"torch"`` when
+  the caller asked for ``device="cpu"``.
+
+There is no environment opt-in and no probe that downgrades a requested
+engine: an engine that cannot run raises.  Device inputs are padded to
+power-of-two buckets (:func:`pad_pow2_vec` / :func:`pad_pow2_rows`) so a
+kernel sees O(log n) distinct shapes as the history grows.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+__all__ = [
+    "ENGINES",
+    "MIN_PAD",
+    "TPE_JIT_THRESHOLD",
+    "SCORE_TABLE_SIZE",
+    "validate_engine",
+    "resolve_engine",
+    "resolve_device",
+    "pad_pow2_len",
+    "pad_pow2_vec",
+    "pad_pow2_rows",
+]
+
+# -- pow2 padding ---------------------------------------------------------------
+
+#: smallest padded bucket — below this every input shares one shape
+MIN_PAD = 8
+
+
+def pad_pow2_len(n: int, min_pad: int = MIN_PAD) -> int:
+    """Next power-of-two bucket >= ``n`` (floored at ``min_pad``)."""
+    size = min_pad
+    while size < n:
+        size *= 2
+    return size
+
+
+def pad_pow2_vec(vec: np.ndarray, fill: float, min_pad: int = MIN_PAD) -> np.ndarray:
+    """Pad a 1-D array to its power-of-two bucket with ``fill``.
+
+    Device mixtures pad with ``log_norm = -inf``: padding components
+    contribute ``exp(-inf) = 0`` to the logsumexp row sums (the kernel clamps
+    each exponent at ``-1e30`` first), so the score is exactly the unpadded
+    one while the shape only changes at power-of-two crossings."""
+    n = len(vec)
+    size = pad_pow2_len(n, min_pad)
+    if size == n:
+        return vec
+    out = np.full(size, fill, dtype=vec.dtype if vec.dtype.kind == "f" else float)
+    out[:n] = vec
+    return out
+
+
+def pad_pow2_rows(arr2d: np.ndarray, fill: float, min_pad: int = MIN_PAD) -> np.ndarray:
+    """Pad a ``(n, d)`` array to a power-of-two row count with ``fill``."""
+    n = len(arr2d)
+    size = pad_pow2_len(n, min_pad)
+    if size == n:
+        return arr2d
+    out = np.full((size, arr2d.shape[1]), fill)
+    out[:n] = arr2d
+    return out
+
+
+# -- engine resolution ------------------------------------------------------------
+
+ENGINES = ("auto", "numpy", "torch", "cuda")
+
+#: auto-engine work threshold: below it the numpy path wins outright (device
+#: dispatch overhead dominates).  TPE work = n_candidates x n_components
+#: (both estimators).
+TPE_JIT_THRESHOLD = 16384
+#: grid resolution of the TPE device score table (see samplers/tpe.py)
+SCORE_TABLE_SIZE = 4096
+
+
+def validate_engine(engine: str) -> str:
+    if engine not in ENGINES:
+        raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
+    return engine
+
+
+def resolve_device(engine: str, device=None):
+    """The ``torch.device`` a sampler with ``engine`` scores on.
+
+    ``device=None`` means the card (``cuda``).  Every engine but ``"numpy"``
+    needs a CUDA device unless the caller passed ``device="cpu"``;
+    ``engine="cuda"`` needs one in any case.  Raises instead of falling back."""
+    validate_engine(engine)
+    dev = torch.device("cuda" if device is None else device)
+    if engine == "numpy":
+        return dev
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"engine={engine!r} runs on a CUDA device and none is available; "
+                "pass device='cpu' to run the plain PyTorch version on the host, "
+                "or engine='numpy'"
+            )
+    elif engine == "cuda":
+        raise RuntimeError(
+            f"engine='cuda' launches CUDA kernels and cannot run on device {dev}"
+        )
+    elif dev.type != "cpu":
+        raise RuntimeError(f"unsupported device {dev} (use 'cuda' or 'cpu')")
+    return dev
+
+
+def resolve_engine(engine: str, work: int, threshold: int, device) -> str:
+    """Resolve a requested engine to a concrete path for one call site.
+
+    ``"numpy"``, ``"torch"`` and ``"cuda"`` pass through.  ``"auto"`` stays on
+    numpy below ``threshold`` units of work and above it picks ``"cuda"`` on
+    a CUDA ``device`` and ``"torch"`` on a CPU one."""
+    validate_engine(engine)
+    if engine != "auto":
+        return engine
+    if work < threshold:
+        return "numpy"
+    return "cuda" if device.type == "cuda" else "torch"

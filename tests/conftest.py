@@ -14,6 +14,9 @@ if SRC not in sys.path:
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running chaos/storm tests")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (the port's kernels); skipped without one"
+    )
 
 
 @pytest.fixture

@@ -1,0 +1,141 @@
+"""The port's hand-written CUDA kernels on the card.
+
+Every test here is marked ``cuda`` and skips without a CUDA device (the
+kernels have no CPU mode).  On a machine with one:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+The file imports no ``jax``, so it runs where only the port is installed.
+Tolerance atol 2e-4 / rtol 1e-4 against the plain PyTorch version on the
+same tensors: the reference's own engine tolerance, since the kernel sums
+its online logsumexp in another order than ``torch.logsumexp``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch.core as hpo
+from repro_torch.core.samplers.tpe import _ParzenEstimator, _pad_est
+from repro_torch.kernels import parzen
+from repro_torch.kernels.ref import parzen_score_ref
+
+ATOL, RTOL = 2e-4, 1e-4
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def _args(device, cands, l_side, g_side):
+    return [
+        torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+        for a in (cands, *l_side, *g_side)
+    ]
+
+
+@pytest.mark.parametrize(
+    "n_cands,n_below,n_above",
+    [(24, 31, 4095), (4096, 25, 2022), (1000, 7, 7), (1, 0, 0), (129, 2, 1500)],
+)
+def test_kernel_matches_plain_version(cuda_device, n_cands, n_below, n_above):
+    rng = np.random.RandomState(n_cands + n_above)
+    l_est = _ParzenEstimator(rng.uniform(-3, 3, n_below), -3.0, 3.0, np.ones(n_below))
+    g_est = _ParzenEstimator(rng.uniform(-3, 3, n_above), -3.0, 3.0, np.ones(n_above))
+    cands = rng.uniform(-3.5, 3.5, n_cands)
+    raw = lambda e: (e.mus, e.sigmas, e._log_norm)  # noqa: E731
+    for l_side, g_side in ((raw(l_est), raw(g_est)), (_pad_est(l_est), _pad_est(g_est))):
+        args = _args(cuda_device, cands, l_side, g_side)
+        before = parzen.launches()
+        out = parzen.parzen_score(*args)
+        torch.cuda.synchronize()
+        assert parzen.launches() == before + 1
+        assert out.device.type == "cuda" and out.shape == (n_cands,)
+        torch.testing.assert_close(out, parzen_score_ref(*args), atol=ATOL, rtol=RTOL)
+
+
+def test_padding_alone_on_one_side_is_inert(cuda_device):
+    """A side made of one real component and many ``-inf`` pads scores as
+    that component alone."""
+    rng = np.random.RandomState(3)
+    cands = rng.uniform(-3, 3, 300)
+    one = (np.array([0.5]), np.array([0.7]), np.array([-1.2]))
+    padded = tuple(np.concatenate([a, np.full(2047, f)]) for a, f in zip(one, (0.0, 1.0, -np.inf)))
+    g_side = (rng.uniform(-3, 3, 64), rng.uniform(0.2, 1, 64), np.full(64, -4.0))
+    direct = parzen.parzen_score(*_args(cuda_device, cands, one, g_side))
+    via_pad = parzen.parzen_score(*_args(cuda_device, cands, padded, g_side))
+    torch.testing.assert_close(via_pad, direct, atol=1e-5, rtol=0)
+
+
+def test_cuda_tensor_of_the_wrong_type_raises(cuda_device):
+    rng = np.random.RandomState(4)
+    args = _args(cuda_device, rng.uniform(-3, 3, 8), *[(np.zeros(3), np.ones(3), np.zeros(3))] * 2)
+    with pytest.raises(TypeError):
+        parzen.parzen_score(args[0].double(), *args[1:])
+    with pytest.raises(ValueError):
+        parzen.parzen_score(args[0].cpu(), *args[1:])
+
+
+def test_cuda_engine_agrees_with_numpy(cuda_device):
+    """The reference's 14-trial engine-agreement study, on the card."""
+    objective = lambda t: t.suggest_float("x", -4, 4) ** 2  # noqa: E731
+    params = {}
+    for engine in ("numpy", "cuda"):
+        study = hpo.create_study(sampler=hpo.TPESampler(seed=11, engine=engine))
+        before = parzen.launches()
+        study.optimize(objective, n_trials=14)
+        params[engine] = [t.params["x"] for t in study.trials]
+        if engine == "cuda":
+            assert parzen.launches() == before + 4  # one per trial after 10 startup trials
+    np.testing.assert_allclose(params["cuda"], params["numpy"], rtol=1e-5)
+
+
+def test_default_study_runs_on_the_card(cuda_device):
+    """``create_study()`` needs no device argument on a machine with a card;
+    a wave of asks against one history builds the score table."""
+    study = hpo.create_study(sampler=hpo.TPESampler(seed=0, engine="cuda"))
+    study.optimize(lambda t: (t.suggest_float("x", -3, 3) - 1) ** 2, n_trials=20)
+    before = parzen.launches()
+    for trial in study.ask(8):
+        trial.suggest_float("x", -3, 3)
+    assert parzen.launches() == before + 3  # two direct scores, then the table build
+    assert hpo.create_study().sampler._device.type == "cuda"
+
+
+def test_joint_scorer_on_the_card_agrees_with_numpy_and_keeps_tf32(cuda_device):
+    """The multivariate gemm scorer runs full float32 products on the card
+    and leaves the caller's TF32 setting as it found it."""
+    from repro_torch.core import distributions as dists
+    from repro_torch.core.samplers.tpe import _GroupParzen
+
+    group = [
+        dists.FloatDistribution(-2.0, 2.0),
+        dists.FloatDistribution(1e-4, 1e-1, log=True),
+        dists.IntDistribution(1, 9),
+        dists.CategoricalDistribution(["a", "b", "c"]),
+    ]
+    rng = np.random.RandomState(7)
+
+    def rows(n):
+        return np.stack([
+            rng.uniform(-2, 2, n), rng.uniform(np.log(1e-4), np.log(1e-1), n),
+            rng.randint(1, 10, n).astype(float), rng.randint(0, 3, n).astype(float),
+        ], axis=1)
+
+    l_est = _GroupParzen(rows(25), group, rng.uniform(0.5, 1, 25))
+    g_est = _GroupParzen(rows(600), group, rng.uniform(0.5, 1, 600))
+    cands = l_est.sample(np.random.RandomState(8), 96)
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        on_card = hpo.TPESampler(seed=0, engine="cuda")._joint_score_inner(l_est, g_est, cands)
+        assert torch.backends.cuda.matmul.allow_tf32 is True
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+    on_host = hpo.TPESampler(seed=0, engine="numpy")._joint_score_inner(l_est, g_est, cands)
+    np.testing.assert_allclose(on_card, on_host, atol=ATOL, rtol=RTOL)

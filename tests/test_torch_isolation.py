@@ -1,0 +1,151 @@
+"""The port stands alone and never falls back.
+
+* No module of ``src/repro_torch`` and not ``chip_smoke.py`` imports
+  ``jax`` or anything of ``repro`` (AST scan), and the port runs a study in
+  a process where both are blocked.
+* Without a CUDA device every engine but ``"numpy"`` raises unless the
+  caller passes ``device="cpu"``; ``engine="cuda"`` never runs on the CPU.
+* The sampling path holds no broad ``except`` that could hide a device
+  error, and the parts of later slices raise ``NotImplementedError``.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+import torch
+
+import repro_torch.core as hpo
+from repro_torch.core.pruners import pruner_from_spec
+from repro_torch.kernels import ops
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_and_no_reference_imports(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), f"{path}: imports {mod}"
+
+
+def test_port_runs_with_jax_and_reference_blocked():
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["repro"] = None
+        import repro_torch.core as hpo
+
+        study = hpo.create_study(
+            sampler=hpo.TPESampler(seed=0, engine="torch", device="cpu"),
+            pruner=hpo.MedianPruner(),
+        )
+        def objective(t):
+            x = t.suggest_float("x", -3, 3)
+            for step in range(3):
+                t.report(x * x + 1.0 / (step + 1), step)
+                if t.should_prune():
+                    raise hpo.TrialPruned()
+            return x * x
+        study.optimize(objective, n_trials=20, ask_batch=4)
+        assert len(study.trials) == 20
+        assert not any(m == "jax" or m.startswith(("jax.", "repro.")) for m in sys.modules
+                       if sys.modules[m] is not None)
+        print("ok", study.best_value)
+    """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=120
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok ")
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+@pytest.mark.parametrize("engine", ["auto", "torch", "cuda"])
+def test_device_engines_need_cuda_or_an_explicit_cpu(no_cuda, engine):
+    with pytest.raises(RuntimeError, match="CUDA"):
+        hpo.TPESampler(engine=engine)
+    if engine == "cuda":
+        with pytest.raises(RuntimeError):
+            hpo.TPESampler(engine="cuda", device="cpu")
+    else:
+        assert hpo.TPESampler(engine=engine, device="cpu")._device == torch.device("cpu")
+
+
+def test_default_study_needs_cuda_or_an_explicit_cpu(no_cuda):
+    with pytest.raises(RuntimeError, match="CUDA"):
+        hpo.create_study()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        hpo.create_study(engine="cuda")
+    assert hpo.create_study(device="cpu").sampler._device == torch.device("cpu")
+    hpo.create_study(engine="numpy")  # the host path needs no device
+
+
+def test_resolve_device(no_cuda):
+    assert ops.resolve_device("numpy") == torch.device("cuda")
+    assert ops.resolve_device("torch", "cpu") == torch.device("cpu")
+    with pytest.raises(RuntimeError):
+        ops.resolve_device("auto")
+    with pytest.raises(RuntimeError):
+        ops.resolve_device("cuda", "cpu")
+    with pytest.raises(RuntimeError):
+        ops.resolve_device("torch", "meta")
+
+
+def _broad_handlers(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ExceptHandler):
+            if node.type is None or (
+                isinstance(node.type, ast.Name) and node.type.id in ("Exception", "BaseException")
+            ):
+                yield node.lineno
+
+
+@pytest.mark.parametrize(
+    "rel",
+    ["core/samplers/tpe.py", "kernels/ops.py", "kernels/parzen.py",
+     "kernels/ref.py", "kernels/_build.py"],
+)
+def test_sampling_path_has_no_broad_except(rel):
+    assert list(_broad_handlers(PORT / rel)) == []
+
+
+def test_later_slices_raise_not_implemented():
+    with pytest.raises(NotImplementedError, match="multi-objective"):
+        hpo.TPESampler(multi_objective=True, engine="numpy")
+    with pytest.raises(NotImplementedError, match="multi-objective"):
+        pruner_from_spec({"name": "pareto", "wrapped": {"name": "median"}})
+    for url in ("sqlite:///x.db", "journal://x.journal", "remote://127.0.0.1:1"):
+        with pytest.raises(NotImplementedError, match="storage slice"):
+            hpo.get_storage(url)
+    storage = hpo.InMemoryStorage()
+    with pytest.raises(NotImplementedError):
+        storage.get_observation_block(0)
+    study = hpo.create_study(engine="numpy", directions=["minimize", "maximize"])
+    with pytest.raises(NotImplementedError, match="multi-objective"):
+        study.best_trials
