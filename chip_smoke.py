@@ -25,7 +25,20 @@ Phases, each of which fails the run by raising:
    spans; each kernel is then timed at the shapes the study's final
    history gives it;
 5. engine agreement: a seeded 14-trial study on ``engine="numpy"`` and on
-   ``engine="cuda"`` picks the same parameters.
+   ``engine="cuda"`` picks the same parameters;
+6. the Monte-Carlo hypervolume counting kernel against its plain PyTorch
+   version, exactly (integer counts), at the reference's test shapes, NaN
+   point rows, exact ties, one point, the estimator's 25 x 8192 x 5 and a
+   4096 x 65536 x 8 shape that needs several staged point tiles;
+7. the multi-objective main path: MOTPE (``TPESampler(multi_objective=True,
+   engine="cuda")``) on 5-objective DTLZ2 with 14 variables, 512 trials as
+   waves of 32 (half of a 1024-trial study, which ran 303 s on an H100).
+   Both kernels' launch counts are set to 0 just before the study and read
+   just after; the final split is held identical between the ``"cuda"``
+   and ``"torch"`` engines on the card, and the counting kernel is checked
+   at the below-set and front-0 shapes the final history gives it;
+8. NSGA-II (``engine="cuda"``) on the same DTLZ2, 1024 trials as waves of
+   24, and ``study.best_trials`` on the card against the pairwise loop.
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -58,6 +71,11 @@ FP32_OPS_PER_S = 67e12
 EXP_PER_CLOCK_PER_SM = 16
 #: FP32 operations per (candidate, component) besides the exp
 PARZEN_OPS_PER_PAIR = 8
+#: DTLZ2 (Deb, Thiele, Laumanns, Zitzler 2005): objectives and distance
+#: variables (the authors' k = 10), so 14 variables in [0, 1]
+DTLZ2_M, DTLZ2_K = 5, 10
+#: the hypervolume estimator's default sample count
+MC_SAMPLES = 8192
 
 
 def nvidia_smi(query: str) -> str:
@@ -352,6 +370,310 @@ def phase_agreement() -> None:
     print(f"  params agree: max abs difference {err:.3e} (rtol 1e-5)")
 
 
+# -- multi-objective slice ---------------------------------------------------------
+
+
+def dtlz2(x: np.ndarray, m: int = DTLZ2_M) -> list[float]:
+    """DTLZ2's objective vector of ``x`` in [0, 1]^(m - 1 + k)."""
+    g = float(np.sum((x[m - 1:] - 0.5) ** 2))
+    out = []
+    for i in range(m):
+        v = 1.0 + g
+        for j in range(m - 1 - i):
+            v *= math.cos(x[j] * math.pi / 2)
+        if i > 0:
+            v *= math.sin(x[m - 1 - i] * math.pi / 2)
+        out.append(v)
+    return out
+
+
+def run_dtlz2_wave(study, n: int) -> None:
+    """One wave of ``n`` DTLZ2 evaluations, asked together and told together."""
+    results = []
+    for trial in study.ask(n):
+        x = np.array([trial.suggest_float(f"x{i}", 0.0, 1.0)
+                      for i in range(DTLZ2_M - 1 + DTLZ2_K)])
+        results.append((trial, dtlz2(x)))
+    study.tell_batch(results)
+
+
+def mc_compares(pts: torch.Tensor, smp: torch.Tensor) -> int:
+    """Compares this data needs: each sample scans the points in order up to
+    its second dominator (all of them when it has fewer), m compares each."""
+    n, m = pts.shape
+    scanned = 0
+    chunk = max(1, (1 << 27) // (n * m))
+    for start in range(0, len(smp), chunk):
+        dom = (pts[None] <= smp[start:start + chunk, None]).all(dim=2)
+        reached = dom.cumsum(dim=1) >= 2
+        first = reached.to(torch.int8).argmax(dim=1) + 1
+        scanned += int(torch.where(reached.any(dim=1), first, n).sum())
+    return scanned * m
+
+
+def raw_mc_launch(pts: torch.Tensor, smp: torch.Tensor):
+    """A call of the counting kernel alone, into a buffer allocated once
+    (the counts pile up across calls, which the timing does not read): the
+    wrapper's allocation and float32 cast left out."""
+    from repro_torch.kernels import _build
+
+    lib = _build.load()
+    n, m = pts.shape
+    counts = torch.zeros(n + 1, dtype=torch.int32, device=pts.device)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        err = lib.mc_hv_counts_launch(pts.data_ptr(), n, smp.data_ptr(), len(smp), m,
+                                      counts.data_ptr(), counts[n:].data_ptr(), stream)
+        assert err == 0, err
+
+    return launch
+
+
+def check_mc(pts: torch.Tensor, smp: torch.Tensor, label: str, reps: int) -> dict:
+    """The counting kernel against its plain version, exactly, with times
+    from CUDA events and the bound from the real sizes."""
+    from repro_torch.kernels.hypervolume import mc_hv_counts
+    from repro_torch.kernels.ref import mc_hv_counts_ref
+
+    excl, total = mc_hv_counts(pts, smp)
+    excl_r, total_r = mc_hv_counts_ref(pts, smp)
+    torch.cuda.synchronize()
+    mismatches = int((excl != excl_r).sum()) + int(total != total_r)
+    err = max(float((excl - excl_r).abs().max()) if len(excl) else 0.0,
+              float((total - total_r).abs()))
+    assert mismatches == 0, (label, mismatches, err)
+    n, m = pts.shape
+    s = len(smp)
+    ms = time_ms(lambda: mc_hv_counts(pts, smp), reps)
+    kernel_ms = time_ms(raw_mc_launch(pts, smp), reps)
+    plain_ms = time_ms(lambda: mc_hv_counts_ref(pts, smp), max(3, reps // 10))
+    compares = mc_compares(pts, smp)
+    ops_s = compares / FP32_OPS_PER_S
+    bytes_s = (4 * (n + s) * m + 4 * (n + 1)) / HBM_BYTES_PER_S
+    bound_ms = 1e3 * max(ops_s, bytes_s)
+    bound_by = "bytes" if bytes_s >= ops_s else "operations"
+    row = {
+        "label": label, "n": n, "s": s, "m": m, "mismatches": mismatches,
+        "max_abs_err": err, "total": float(total), "compares": compares,
+        "compares_all": s * n * m, "ms": ms, "kernel_only_ms": kernel_ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+    print(f"  mc_hv {label:<22} n={n:<5} s={s:<6} m={m} mismatches={mismatches} "
+          f"total={int(total):<6} wrapper={ms:.4f} ms (kernel alone {kernel_ms:.4f}) "
+          f"plain={plain_ms:.4f} ms "
+          f"bound={bound_ms:.6f} ms ({bound_by}; {compares} of {s * n * m} compares)")
+    return row
+
+
+def estimator_samples(pts: np.ndarray, reference: np.ndarray) -> np.ndarray:
+    """The estimator's own draw for ``pts``: uniform in ``[min(pts),
+    reference]`` from a fresh ``RandomState(0)``, rounded once to float32."""
+    rng = np.random.RandomState(0)
+    smp = rng.uniform(pts.min(axis=0), reference, size=(MC_SAMPLES, pts.shape[1]))
+    return smp.astype(np.float32)
+
+
+def phase_mc_kernel() -> list[dict]:
+    """Phase 6: the counting kernel against its plain version."""
+    print("phase 6: mc_hv_counts kernel vs plain PyTorch version (exact)")
+    rng = np.random.RandomState(0)
+    dev = torch.device("cuda")
+    cases = []
+    # the reference kernel's own test shapes (n, m, s)
+    for n, m, s in ((8, 3, 256), (20, 4, 1000), (64, 6, 2048), (3, 2, 100)):
+        cases.append((f"reference {n}x{m}x{s}", rng.uniform(0, 1, (n, m)),
+                      rng.uniform(0, 1.1, (s, m)), 100))
+    pts = rng.uniform(0, 1, (30, 5))
+    pts[::7, 1] = np.nan
+    pts[11] = np.nan
+    cases.append(("NaN point rows", pts, rng.uniform(0, 1.1, (3000, 5)), 100))
+    pts = rng.randint(0, 4, size=(40, 3)).astype(float)
+    pts[7] = pts[3]
+    smp = rng.randint(0, 5, size=(2000, 3)).astype(float)
+    smp[:40] = pts
+    cases.append(("exact ties", pts, smp, 100))
+    pts = rng.uniform(0, 1, (1, 5))
+    cases.append(("one point", pts, estimator_samples(pts, np.ones(5) * 1.1), 100))
+    pts = rng.uniform(0, 1, (25, 5))
+    cases.append(("estimator 25x8192x5", pts, estimator_samples(pts, np.ones(5) * 1.1), 100))
+    cases.append(("large 4096x65536x8", rng.uniform(0, 1, (4096, 8)),
+                  rng.uniform(0, 1.1, (65536, 8)), 10))
+    rows = []
+    for label, pts, smp, reps in cases:
+        P = torch.from_numpy(np.ascontiguousarray(pts, np.float32)).to(dev)
+        S = torch.from_numpy(np.ascontiguousarray(smp, np.float32)).to(dev)
+        rows.append(check_mc(P, S, label, reps))
+    return rows
+
+
+class StageTimer:
+    """Wall seconds and calls of a few functions of the multi-objective
+    engine, wrapped for one phase and put back after it."""
+
+    def __init__(self, targets):
+        self.targets = targets  # (owner, attribute name, label)
+        self.seconds = {label: 0.0 for _, _, label in targets}
+        self.calls = {label: 0 for _, _, label in targets}
+        self._saved = []
+
+    def __enter__(self):
+        for owner, name, label in self.targets:
+            fn = getattr(owner, name)
+            self._saved.append((owner, name, fn))
+            setattr(owner, name, self._wrap(fn, label))
+        return self
+
+    def _wrap(self, fn, label):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.seconds[label] += time.perf_counter() - t0
+                self.calls[label] += 1
+        return timed
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self._saved:
+            setattr(owner, name, fn)
+
+
+def phase_motpe() -> tuple[dict, list[dict]]:
+    """Phase 7: MOTPE on 5-objective DTLZ2 as waves of 32 on the card."""
+    import repro_torch.core as hpo
+    from repro_torch.core import moo, telemetry
+    from repro_torch.core.samplers.tpe import _motpe_split
+    from repro_torch.kernels import hypervolume, parzen
+
+    n_trials, wave = 512, 32
+    print(f"phase 7: MOTPE on DTLZ2 ({DTLZ2_M} objectives, {DTLZ2_M - 1 + DTLZ2_K} "
+          f"variables), {n_trials} trials in waves of {wave}, engine='cuda'")
+    sampler = hpo.TPESampler(seed=0, multi_objective=True, engine="cuda")
+    study = hpo.create_study(directions=["minimize"] * DTLZ2_M, sampler=sampler)
+    est = moo.HypervolumeEstimator
+    stages = StageTimer([
+        (est, "_mc_stats", "mc_call"), (est, "_counts", "mc_counts"),
+        (moo, "solve_hssp", "hssp"), (moo, "nondomination_ranks", "ranks"),
+    ])
+    telemetry.reset()
+    telemetry.enable()
+    with stages:
+        parzen.reset_launches()
+        hypervolume.reset_launches()
+        t0 = time.perf_counter()
+        for _ in range(n_trials // wave):
+            run_dtlz2_wave(study, wave)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        mc_launches = hypervolume.launches()
+        parzen_launches = parzen.launches()
+    telemetry.disable()
+    hists = telemetry.snapshot()["histograms"]
+    assert mc_launches > 0, "the MOTPE study never launched the counting kernel"
+    assert parzen_launches > 0, "the MOTPE study never launched the Parzen kernel"
+    assert parzen_launches == hists["tpe.score"]["count"], (parzen_launches, hists["tpe.score"])
+    assert stages.calls["mc_counts"] == mc_launches, (stages.calls, mc_launches)
+
+    trials = study.trials
+    assert len(trials) == n_trials
+    V = np.array([t.values for t in trials])
+    assert V.shape == (n_trials, DTLZ2_M) and np.isfinite(V).all()
+    for t in trials:
+        assert all(0.0 <= v <= 1.0 for v in t.params.values()), t.params
+    L = moo.loss_matrix(V, study.directions)
+    front0 = moo.pareto_front_mask(L, engine="cuda")
+    assert np.array_equal(front0, moo.pareto_front_mask(L, engine="numpy"))
+    n_below = sampler._gamma(len(L))
+    split = {eng: _motpe_split(L, n_below, engine=eng, device="cuda")
+             for eng in ("cuda", "torch")}
+    (b_c, a_c, w_c), (b_t, a_t, w_t) = split["cuda"], split["torch"]
+    assert np.array_equal(b_c, b_t) and np.array_equal(a_c, a_t), "final split differs"
+    np.testing.assert_allclose(w_c, w_t, atol=1e-12, rtol=0)
+    # DTLZ2's Pareto-optimal front is the unit sphere: every objective vector
+    # has norm 1 + g >= 1, so the smallest norm on front 0 says how close the
+    # search came
+    g_min = float(np.min(np.linalg.norm(L[front0], axis=1)))
+    assert g_min >= 1.0 - 1e-9, g_min
+
+    spans = {
+        name: {"count": hists[name]["count"], "total_s": hists[name]["sum"],
+               "mean_ms": 1e3 * hists[name]["mean"], "p99_ms": 1e3 * hists[name]["p99"]}
+        for name in ("study.ask", "study.tell_batch", "tpe.fit", "tpe.score")
+        if name in hists
+    }
+    breakdown = {
+        "mc_calls": stages.calls["mc_call"],
+        "mc_call_s": stages.seconds["mc_call"],
+        "mc_host_draw_s": stages.seconds["mc_call"] - stages.seconds["mc_counts"],
+        "mc_counts_s": stages.seconds["mc_counts"],
+        "hssp_s": stages.seconds["hssp"],
+        "hssp_calls": stages.calls["hssp"],
+        "ranks_s": stages.seconds["ranks"],
+        "tpe_fit_s": spans.get("tpe.fit", {}).get("total_s", 0.0),
+        "tpe_score_s": spans.get("tpe.score", {}).get("total_s", 0.0),
+    }
+    result = {
+        "n_trials": n_trials, "wave": wave, "seconds": seconds,
+        "trials_per_s": n_trials / seconds, "mc_hv_launches": mc_launches,
+        "parzen_launches": parzen_launches, "front0": int(front0.sum()),
+        "n_below": int(len(b_c)), "min_front_norm": g_min,
+        "spans": spans, "breakdown": breakdown,
+    }
+    print(f"  {n_trials} trials in {seconds:.3f} s = {n_trials / seconds:.2f} trials/s; "
+          f"front 0 holds {int(front0.sum())} trials (closest to the unit sphere: "
+          f"norm {g_min:.4f}); below set {len(b_c)}")
+    print(f"  launches: mc_hv_counts {mc_launches}, parzen_score {parzen_launches} "
+          f"(== tpe.score spans)")
+    print(f"  final split identical on 'cuda' and 'torch' (max |dw| "
+          f"{float(np.max(np.abs(w_c - w_t))):.3e})")
+    for name, sp in spans.items():
+        print(f"  span {name:<26} count={sp['count']:<7} total={sp['total_s']:.4f} s "
+              f"mean={sp['mean_ms']:.4f} ms p99={sp['p99_ms']:.4f} ms")
+    print("  where the time goes: " + ", ".join(
+        f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}" for k, v in breakdown.items()))
+
+    rows = []
+    dev = torch.device("cuda")
+    for label, pts in (("MOTPE below set", L[b_c]), ("MOTPE front 0", L[front0])):
+        ref = moo.default_reference_point(pts)
+        P = torch.from_numpy(np.ascontiguousarray(pts, np.float32)).to(dev)
+        S = torch.from_numpy(estimator_samples(pts, ref)).to(dev)
+        rows.append(check_mc(P, S, label, 100))
+    return result, rows
+
+
+def phase_nsga2() -> dict:
+    """Phase 8: NSGA-II on the same DTLZ2, then the front on the card."""
+    import repro_torch.core as hpo
+    from repro_torch.core.study import _pairwise_best_trials
+
+    n_trials = 1024
+    sampler = hpo.NSGAIISampler(seed=0, engine="cuda")
+    study = hpo.create_study(directions=["minimize"] * DTLZ2_M, sampler=sampler, engine="cuda")
+    wave = sampler.joint_wave_size(study, 1 << 30)
+    print(f"phase 8: NSGA-II on DTLZ2, {n_trials} trials in waves of {wave}, engine='cuda'")
+    t0 = time.perf_counter()
+    while len(study.trials) < n_trials:
+        run_dtlz2_wave(study, min(wave, n_trials - len(study.trials)))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    best = study.best_trials
+    best_s = time.perf_counter() - t1
+    completed = study.get_trials(deepcopy=False, states=(hpo.TrialState.COMPLETE,))
+    pairwise = _pairwise_best_trials(completed, study.directions)
+    assert [t.number for t in best] == [t.number for t in pairwise], "best_trials differs"
+    assert [t.values for t in best] == [t.values for t in pairwise]
+    assert len(study.trials) == n_trials and len(best) > 0
+    print(f"  {n_trials} trials in {seconds:.3f} s = {n_trials / seconds:.2f} trials/s; "
+          f"best_trials on the card: {len(best)} trials in {1e3 * best_s:.3f} ms "
+          f"== the pairwise loop")
+    return {"n_trials": n_trials, "wave": wave, "seconds": seconds,
+            "trials_per_s": n_trials / seconds, "front0": len(best),
+            "best_trials_ms": 1e3 * best_s}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every measurement to this JSON file")
@@ -377,6 +699,9 @@ def main() -> int:
     optimize, optimize_rows = phase_optimize(sm_clock_hz)
     waves, wave_rows = phase_waves(sm_clock_hz)
     phase_agreement()
+    mc_rows = phase_mc_kernel()
+    motpe, motpe_rows = phase_motpe()
+    nsga2 = phase_nsga2()
 
     shape_rows = optimize_rows + wave_rows
     table = wave_rows[-1]  # the score-table build: the kernel's large shape
@@ -395,13 +720,31 @@ def main() -> int:
         "library_ms": None,
         "shapes": shape_rows,
     }]
+    # the main path's own shape: the below set's contributions (25 x 8192 x 5)
+    mc_main = motpe_rows[0]
+    kernels.append({
+        "name": "mc_hv_counts",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/hypervolume.cu",
+        "replaces": "src/repro/kernels/hypervolume.py:38",
+        "launches": motpe["mc_hv_launches"],
+        "mismatches": sum(r["mismatches"] for r in mc_rows + motpe_rows),
+        "max_abs_err": max(r["max_abs_err"] for r in mc_rows + motpe_rows),
+        "ms": mc_main["ms"],
+        "plain_ms": mc_main["plain_ms"],
+        "bound_ms": mc_main["bound_ms"],
+        "bound_by": mc_main["bound_by"],
+        "library_ms": None,
+        "shapes": mc_rows + motpe_rows,
+    })
+    kernels[0]["launches_motpe"] = motpe["parzen_launches"]
     if opts.out:
         os.makedirs(os.path.dirname(os.path.abspath(opts.out)), exist_ok=True)
         with open(opts.out, "w") as f:
             json.dump({"nvidia_smi": smi, "sm_clock_hz": sm_clock_hz,
                        "build_seconds": _build.build_seconds(),
                        "kernel_checks": kernel_rows, "optimize": optimize, "waves": waves,
-                       "kernels": kernels}, f, indent=1)
+                       "motpe": motpe, "nsga2": nsga2, "kernels": kernels}, f, indent=1)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

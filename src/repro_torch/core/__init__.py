@@ -1,8 +1,10 @@
 """``repro_torch.core`` — the define-by-run study loop of the port.
 
-The same API as ``repro.core`` for what this slice carries: live trials with
-a suggest API, the TPE and random samplers, the pruners, and in-memory
-storage.  The TPE sampler's device engine runs on the card by default::
+The same API as ``repro.core`` for what the port carries: live trials with
+a suggest API, the TPE (with MOTPE), NSGA-II, CMA-ES, GP, grid and random
+samplers, the pruners (with the Pareto-aware wrapper), the multi-objective
+engine (``moo``: dominance, fronts, exact and Monte-Carlo hypervolume) and
+in-memory storage.  The device engines run on the card by default::
 
     import repro_torch.core as hpo
 
@@ -18,6 +20,7 @@ storage.  The TPE sampler's device engine runs on the card by default::
 
 from __future__ import annotations
 
+from . import moo
 from . import telemetry
 from .distributions import (
     BaseDistribution,
@@ -32,6 +35,7 @@ from .pruners import (
     HyperbandPruner,
     MedianPruner,
     NopPruner,
+    ParetoPruner,
     PatientPruner,
     PercentilePruner,
     SuccessiveHalvingPruner,
@@ -39,7 +43,17 @@ from .pruners import (
     make_pruner,
 )
 from .records import ObservationStore
-from .samplers import BaseSampler, RandomSampler, TPESampler
+from .samplers import (
+    CMA,
+    BaseSampler,
+    CmaEsSampler,
+    GPSampler,
+    GridSampler,
+    NSGAIISampler,
+    RandomSampler,
+    TPESampler,
+    make_sampler,
+)
 from .search_space import IntersectionSearchSpace, intersection_search_space
 from .storage import BaseStorage, InMemoryStorage, get_storage
 from .study import Study, create_study, delete_study, load_study
@@ -53,11 +67,14 @@ __all__ = [
     # distributions
     "BaseDistribution", "FloatDistribution", "IntDistribution", "CategoricalDistribution",
     # samplers
-    "BaseSampler", "RandomSampler", "TPESampler",
+    "BaseSampler", "RandomSampler", "GridSampler", "TPESampler", "CmaEsSampler",
+    "CMA", "GPSampler", "NSGAIISampler", "make_sampler",
     # pruners
     "BasePruner", "NopPruner", "SuccessiveHalvingPruner", "MedianPruner",
     "PercentilePruner", "HyperbandPruner", "ThresholdPruner", "PatientPruner",
-    "make_pruner",
+    "ParetoPruner", "make_pruner",
+    # multi-objective engine
+    "moo",
     # observability
     "telemetry",
     # storage

@@ -4,6 +4,7 @@ from .base import BasePruner, NopPruner
 from .hyperband import HyperbandPruner
 from .median import MedianPruner, PercentilePruner
 from .misc import PatientPruner, ThresholdPruner
+from .moo import ParetoPruner
 from .successive_halving import SuccessiveHalvingPruner
 
 __all__ = [
@@ -15,6 +16,7 @@ __all__ = [
     "HyperbandPruner",
     "ThresholdPruner",
     "PatientPruner",
+    "ParetoPruner",
     "make_pruner",
     "pruner_from_spec",
 ]
@@ -55,7 +57,8 @@ def pruner_from_spec(spec: dict) -> BasePruner:
             pruner_from_spec(wrapped) if wrapped is not None else None, **kwargs
         )
     if spec["name"] == "pareto":
-        raise NotImplementedError(
-            "ParetoPruner arrives with the multi-objective slice of the port"
-        )
+        wrapped = kwargs.pop("wrapped", None)
+        if wrapped is None:
+            raise ValueError("pareto spec needs a wrapped pruner spec")
+        return ParetoPruner(pruner_from_spec(wrapped), **kwargs)
     return make_pruner(spec["name"], **kwargs)

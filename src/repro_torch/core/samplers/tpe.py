@@ -534,6 +534,97 @@ class _TrialFit:
         return out
 
 
+def _motpe_split(
+    L: np.ndarray, n_below: int, engine: str = "auto",
+    device: "str | torch.device | None" = None,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """MOTPE below/above split of a loss matrix ``L`` (rows = observations,
+    already minimize-oriented and finite): fill the below set by
+    nondomination rank; break ties on the boundary rank by greedy
+    hypervolume subset selection; weight the below rows by their normalized
+    hypervolume contributions.  Returns ``(below_pos, above_pos, w_below)``
+    with both index arrays sorted (chronological order, so the above set's
+    recency weights stay meaningful).
+
+    Hypervolume evaluations route through a ``HypervolumeEstimator``
+    (exact WFG for m <= 4, seeded Monte-Carlo counting above — the exact
+    recursion is exponential in m).  Its counting passes and the
+    nondomination sort run on ``engine`` and ``device``."""
+    from .. import moo
+
+    n = len(L)
+    n_below = int(min(max(n_below, 0), n))
+    est = moo.HypervolumeEstimator(engine=engine, device=device)
+    ranks = moo.nondomination_ranks(L, engine=engine, device=device)
+    below = np.zeros(0, dtype=np.int64)
+    for r in np.unique(ranks):
+        members = np.flatnonzero(ranks == r)
+        if len(below) + len(members) <= n_below:
+            below = np.concatenate([below, members])
+            continue
+        want = n_below - len(below)
+        if want > 0:
+            ref = moo.default_reference_point(L[members])
+            sel = moo.solve_hssp(L[members], want, ref, estimator=est)
+            below = np.concatenate([below, members[sel]])
+        break
+    below = np.sort(below)
+    above = np.setdiff1d(np.arange(n), below)
+    if len(below) <= 1:
+        w_below = np.ones(len(below))
+    else:
+        ref = moo.default_reference_point(L[below])
+        contrib = moo.hypervolume_contributions(L[below], ref, estimator=est) + EPS
+        w_below = np.clip(contrib / contrib.max(), 0.0, 1.0)
+    return below, above, w_below
+
+
+class _MOFit:
+    """Multi-objective sibling of :class:`_TrialFit`: one rank+HSSP split of
+    the values matrix per store version, shared by every suggest call (and
+    every pending trial of a wave) on that history.  Per-parameter
+    below/above slices drop NaN cells with their weights kept aligned."""
+
+    __slots__ = ("version", "cols", "below_rows", "above_rows", "w_below", "weights_fn", "splits")
+
+    def __init__(self, version, cols, below_rows, above_rows, w_below, weights_fn):
+        self.version = version
+        self.cols: dict[str, np.ndarray] = cols
+        self.below_rows = below_rows      # absolute store rows, sorted
+        self.above_rows = above_rows
+        self.w_below = w_below            # aligned with below_rows
+        self.weights_fn = weights_fn
+        self.splits: dict[str, "tuple | None"] = {}
+
+    def split(self, param_name: str) -> "tuple | None":
+        """(n, below, above, w_below, w_above) in model space — the same
+        tuple shape the single-objective :class:`_TrialFit` hands out, so
+        the numeric/categorical samplers downstream are shared."""
+        if param_name in self.splits:
+            return self.splits[param_name]
+        col = self.cols.get(param_name)
+        if col is None:
+            self.splits[param_name] = None
+            return None
+        b_vals = col[self.below_rows]
+        b_keep = ~np.isnan(b_vals)
+        a_vals = col[self.above_rows]
+        a_keep = ~np.isnan(a_vals)
+        n = int(b_keep.sum() + a_keep.sum())
+        if n == 0:
+            self.splits[param_name] = None
+            return None
+        out = (
+            n,
+            b_vals[b_keep],
+            a_vals[a_keep],
+            self.w_below[b_keep],
+            np.asarray(self.weights_fn(int(a_keep.sum())), dtype=float),
+        )
+        self.splits[param_name] = out
+        return out
+
+
 class TPESampler(BaseSampler):
     def __init__(
         self,
@@ -569,15 +660,18 @@ class TPESampler(BaseSampler):
         correlations the per-parameter univariate path cannot.  The default
         ``False`` keeps the univariate path.
 
-        ``multi_objective=True`` (the MOTPE split) arrives with the
-        multi-objective slice of the port and raises
-        ``NotImplementedError`` until then; a multi-objective study with the
-        default ``False`` samples uniformly, as in the reference."""
-        if multi_objective:
-            raise NotImplementedError(
-                "TPESampler(multi_objective=True) arrives with the "
-                "multi-objective slice of the port"
-            )
+        ``multi_objective=True`` enables the MOTPE split (Ozaki et al.,
+        2020) on studies with several directions: the below/"good" set is
+        chosen by nondomination rank over the observation store's values
+        matrix, ties on the boundary rank broken by greedy hypervolume
+        subset selection, and the below observations are weighted by their
+        hypervolume contributions (``core/moo.py``; past four objectives by
+        Monte-Carlo counting, on the CUDA kernel under ``engine="cuda"``).
+        The split runs on the sampler's ``engine`` and ``device``.
+        Everything downstream — Parzen fits, candidate scoring, the joint
+        gemm path — is the existing machinery, so it composes with
+        ``multivariate=True`` for block-sampled multi-objective waves.  With
+        the default ``False`` a multi-objective study samples uniformly."""
         self._n_startup = n_startup_trials
         self._n_ei = n_ei_candidates
         self._gamma = gamma
@@ -590,6 +684,8 @@ class TPESampler(BaseSampler):
         self._engine = kops.validate_engine(engine)
         self._device = kops.resolve_device(engine, device)
         self._multivariate = multivariate
+        self._multi_objective = multi_objective
+        self._mo_fit: tuple[Any, "_MOFit"] | None = None  # (cache key, fit)
         self._fit: tuple[Any, _TrialFit] | None = None  # (cache key, fit)
         # fitted estimators are deterministic functions of (observations,
         # bounds); memoize them per store version so back-to-back asks with
@@ -676,6 +772,36 @@ class TPESampler(BaseSampler):
         below_i, above_i = order[:n_below], order[n_below:]
         return version, n_obs, Mi[below_i], Mi[above_i], w_all[below_i], w_all[above_i]
 
+    def _group_split_mo(self, study: "Study", names: list[str]):
+        """Multi-objective sibling of :meth:`_group_split`: same return
+        tuple, but the below set is selected by nondomination rank + greedy
+        hypervolume subset selection over the values matrix and weighted by
+        hypervolume contributions (MOTPE), restricted to trials that
+        observed every parameter of the group."""
+        from .. import moo
+
+        store = study.observations()
+        version, states, Vmat, arity, _, cols = store.snapshot_mo()
+        directions = study.directions
+        valid = self._mo_valid_rows(states, Vmat, arity, len(directions))
+        n_rows = len(states)
+        M = (
+            np.stack([cols.get(n, np.full(n_rows, np.nan)) for n in names], axis=1)
+            if names and n_rows else np.empty((n_rows, len(names)))
+        )
+        rows = valid & ~np.isnan(M).any(axis=1)
+        idx = np.flatnonzero(rows)
+        n_obs = len(idx)
+        if n_obs < self._n_startup:
+            return None
+        L = moo.loss_matrix(Vmat[idx], directions)
+        below_pos, above_pos, w_below = _motpe_split(
+            L, self._gamma(n_obs), engine=self._engine, device=self._device
+        )
+        Mi = M[idx]
+        w_above = np.asarray(self._weights(len(above_pos)), dtype=float)
+        return version, n_obs, Mi[below_pos], Mi[above_pos], w_below, w_above
+
     def _joint_score(self, l_est: _GroupParzen, g_est: _GroupParzen, cands: np.ndarray) -> np.ndarray:
         with telemetry.span("tpe.score"):
             return self._joint_score_inner(l_est, g_est, cands)
@@ -708,12 +834,13 @@ class TPESampler(BaseSampler):
         """Multivariate TPE block: **one** Parzen fit per group covers all
         ``n`` pending trials — ``n * n_ei_candidates`` candidate rows drawn
         from the good-set density, scored with one broadcasted
-        ``log l - log g`` matrix op, argmax per pending trial.  Declines on
-        multi-objective studies (MOTPE arrives with the multi-objective
-        slice)."""
+        ``log l - log g`` matrix op, argmax per pending trial.  On
+        multi-objective studies (``multi_objective=True``) the below/above
+        split comes from the MOTPE rank+hypervolume machinery instead of the
+        gamma-quantile loss split; the fit and scoring are identical."""
         if not self._multivariate:
             return None
-        if len(study.directions) > 1:
+        if len(study.directions) > 1 and not self._multi_objective:
             return None
         with telemetry.span("tpe.sample_joint"):
             return self._sample_joint_inner(study, group, n)
@@ -731,7 +858,10 @@ class TPESampler(BaseSampler):
         key = group.names
         ests = cache.get(key, _UNFIT)
         if ests is _UNFIT:
-            split = self._group_split(study, names)
+            if len(study.directions) > 1:
+                split = self._group_split_mo(study, names)
+            else:
+                split = self._group_split(study, names)
             if split is None:
                 cache[key] = ests = None  # sub-startup: stays cheap per wave
             else:
@@ -757,6 +887,49 @@ class TPESampler(BaseSampler):
 
     # -- sampling -----------------------------------------------------------------
 
+    def _mo_valid_rows(
+        self, states: np.ndarray, Vmat: np.ndarray, arity: np.ndarray, m: int
+    ) -> np.ndarray:
+        """Observation mask for the MOTPE split: COMPLETE trials with a
+        finite full-arity objective vector.  ``consider_pruned_trials=True``
+        additionally admits PRUNED trials that recorded a full vector —
+        unlike the single-objective path there is no last-intermediate-value
+        substitute (a scalarized report is one number, not an objective
+        vector), so partially-reported pruned trials stay excluded."""
+        ok = states == int(TrialState.COMPLETE)
+        if self._consider_pruned:
+            ok = ok | (states == int(TrialState.PRUNED))
+        with np.errstate(invalid="ignore"):
+            return ok & (arity == m) & np.isfinite(Vmat).all(axis=1)
+
+    def _mo_trial_fit(self, study: "Study") -> "_MOFit | None":
+        """The MOTPE split for the study's current history, memoized per
+        store version (the split is a function of the values matrix alone,
+        so every trial and every suggest on one history shares it)."""
+        store = study.observations()
+        version, states, Vmat, arity, _, cols = store.snapshot_mo()
+        key = (id(study), version)
+        cached = self._mo_fit
+        if cached is not None and cached[0] == key:
+            return cached[1]
+        from .. import moo
+
+        directions = study.directions
+        valid = self._mo_valid_rows(states, Vmat, arity, len(directions))
+        rows = np.flatnonzero(valid)
+        if len(rows) == 0:
+            return None
+        L = moo.loss_matrix(Vmat[rows], directions)
+        with telemetry.span("tpe.fit"):
+            below_pos, above_pos, w_below = _motpe_split(
+                L, self._gamma(len(rows)), engine=self._engine, device=self._device
+            )
+        fit = _MOFit(
+            version, cols, rows[below_pos], rows[above_pos], w_below, self._weights
+        )
+        self._mo_fit = (key, fit)
+        return fit
+
     def sample_independent(
         self,
         study: "Study",
@@ -765,12 +938,16 @@ class TPESampler(BaseSampler):
         param_distribution: BaseDistribution,
     ) -> Any:
         if len(study.directions) > 1:
-            # multi-objective study without the MOTPE split: uniform
-            # sampling, as the reference does with multi_objective=False
-            internal = sample_uniform_internal(self._rng, param_distribution)
-            return param_distribution.to_external_repr(internal)
-        fit = self._trial_fit(study, trial)
-        split = fit.split(param_name)
+            if not self._multi_objective:
+                # multi-objective study without the MOTPE switch: uniform
+                # sampling
+                internal = sample_uniform_internal(self._rng, param_distribution)
+                return param_distribution.to_external_repr(internal)
+            fit = self._mo_trial_fit(study)
+            split = fit.split(param_name) if fit is not None else None
+        else:
+            fit = self._trial_fit(study, trial)
+            split = fit.split(param_name)
         if split is None or split[0] < self._n_startup:
             internal = sample_uniform_internal(self._rng, param_distribution)
             return param_distribution.to_external_repr(internal)

@@ -37,11 +37,6 @@ ObjectiveFunc = Callable[[Trial], float]
 
 _log = get_logger(__name__)
 
-_MOO_SLICE = (
-    "pareto_front / best_trials need the dominance engine, which arrives with "
-    "the multi-objective slice of the port"
-)
-
 
 class Study:
     def __init__(
@@ -53,17 +48,21 @@ class Study:
         engine: str = "auto",
         device: "str | None" = None,
     ):
-        """``engine`` and ``device`` configure the default sampler:
-        ``"auto"`` dispatches to the device past the shared work threshold,
-        ``"numpy"``/``"torch"``/``"cuda"`` force a path (``kernels/ops.py``);
-        ``device=None`` means the card, ``device="cpu"`` runs the plain
-        PyTorch version on the host.  Without a CUDA device every engine but
-        ``"numpy"`` raises unless ``device="cpu"`` is given.  An explicitly
-        passed sampler keeps its own ``engine`` and ``device``."""
+        """``engine`` and ``device`` select the compute path of the study's
+        own columnar reductions (``pareto_front``) and of the default
+        sampler: ``"auto"`` dispatches to the device past the shared work
+        thresholds, ``"numpy"``/``"torch"``/``"cuda"`` force a path
+        (``kernels/ops.py``); ``device=None`` means the card,
+        ``device="cpu"`` runs the plain PyTorch version on the host.
+        Without a CUDA device every engine but ``"numpy"`` raises unless
+        ``device="cpu"`` is given (``pareto_front`` only when its reduction
+        leaves the host).  An explicitly passed sampler keeps its own
+        ``engine`` and ``device``."""
         self._storage = get_storage(storage)
         self.study_name = study_name
         self._study_id = self._storage.get_study_id_from_name(study_name)
         self._engine = kops.validate_engine(engine)
+        self._device = device
         self.sampler = sampler or TPESampler(engine=engine, device=device)
         self.pruner = pruner or NopPruner()
         self._stop_requested = False
@@ -160,13 +159,42 @@ class Study:
 
     @property
     def best_trials(self) -> list[FrozenTrial]:
-        """Pareto-optimal completed trials (multi-objective slice)."""
-        raise NotImplementedError(_MOO_SLICE)
+        """Pareto-optimal completed trials, computed on the multi-objective
+        engine: one vectorized dominance reduction over the observation
+        store's values matrix (``core/moo.py``) instead of the historical
+        O(n²·m) pure-Python pairwise loop (kept as
+        :func:`_pairwise_best_trials` and pinned bit-identical to it by
+        ``tests/test_torch_moo.py``)."""
+        front_numbers = set(self.pareto_front()[1].tolist())
+        directions = self.directions
+        out = []
+        for t in self.get_trials(deepcopy=False, states=(TrialState.COMPLETE,)):
+            if t.values is None or len(t.values) != len(directions):
+                continue
+            if t.number in front_numbers:
+                out.append(t.copy())
+        return out
 
     def pareto_front(self) -> "tuple[np.ndarray, np.ndarray]":
-        """``(values, numbers)`` of the non-dominated COMPLETE trials
-        (multi-objective slice)."""
-        raise NotImplementedError(_MOO_SLICE)
+        """``(values, numbers)`` of the non-dominated COMPLETE trials, as
+        arrays straight off the columnar engine: ``values`` is the
+        ``(n_front, n_objectives)`` slice of the observation store's values
+        matrix (raw study orientation, number-ordered), ``numbers`` the
+        matching trial numbers.  No ``FrozenTrial`` materialization — this is
+        the fast path dashboards, samplers and benchmarks read."""
+        from . import moo
+
+        store = self.observations()
+        directions = self.directions
+        # one consistent snapshot: a concurrent refresh from another worker
+        # thread must not pair this mask with a re-sorted values matrix
+        _, states, V, arity, numbers, _ = store.snapshot_mo()
+        mask = (states == int(TrialState.COMPLETE)) & (arity == len(directions))
+        front = moo.pareto_front_mask(
+            moo.loss_matrix(V, directions), mask=mask,
+            engine=self._engine, device=self._device,
+        )
+        return V[front], numbers[front]
 
     # -- attrs -------------------------------------------------------------------------
 
@@ -616,6 +644,34 @@ class Study:
                 row[f"user_attrs_{k}"] = v
             rows.append(row)
         return rows
+
+
+def _pairwise_best_trials(
+    completed: "list[FrozenTrial]", directions: "list[StudyDirection]"
+) -> list[FrozenTrial]:
+    """The frozen pre-engine Pareto front: the pure-Python pairwise dominance
+    loop ``Study.best_trials`` shipped before the columnar multi-objective
+    engine existed.  Kept verbatim as the parity reference: the tests pin
+    the engine bit-identical to this."""
+    completed = [
+        t for t in completed
+        if t.values is not None and len(t.values) == len(directions)
+    ]
+
+    def dominates(a: FrozenTrial, b: FrozenTrial) -> bool:
+        better = False
+        for av, bv, d in zip(a.values, b.values, directions):
+            sa = av if d == StudyDirection.MINIMIZE else -av
+            sb = bv if d == StudyDirection.MINIMIZE else -bv
+            if sa > sb:
+                return False
+            if sa < sb:
+                better = True
+        return better
+
+    return [
+        t for t in completed if not any(dominates(o, t) for o in completed if o is not t)
+    ]
 
 
 def create_study(

@@ -1,12 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, at first use, and loaded with
-``ctypes``.  The library lands in ``build/repro_torch/`` at the root of the
-checkout (git-ignored), named by a hash of the sources and the compiler
-flags, so an edited source is rebuilt and an unchanged one is loaded as it
-is.  Nothing here runs at import time: the CPU tests import every module of
-the package on machines that have no ``nvcc``.
+Every ``csrc/*.cu`` source is compiled by its own ``nvcc`` for ``sm_90a``,
+all of them at once, and the objects are linked into one shared library with
+a plain C interface, at first use, and loaded with ``ctypes``.  The library
+lands in ``build/repro_torch/`` at the root of the checkout (git-ignored),
+named by a hash of the sources and the compiler flags, so an edited source
+is rebuilt and an unchanged one is loaded as it is.  Nothing here runs at
+import time: the CPU tests import every module of the package on machines
+that have no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 _lock = threading.Lock()
@@ -39,6 +40,7 @@ _I = ctypes.c_int
 #: C signatures of the entry points (every pointer and the stream as void*)
 _SIGNATURES = {
     "parzen_score_launch": (_I, [_P, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P]),
+    "mc_hv_counts_launch": (_I, [_P, _I, _P, _I, _I, _P, _P, _P]),
 }
 
 
@@ -68,15 +70,28 @@ def _digest() -> str:
 def _compile(sources: list[Path], target: Path) -> None:
     global _build_log
     target.parent.mkdir(parents=True, exist_ok=True)
-    tmp = target.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    tag = f"{target.stem}.{os.getpid()}"
+    objs = [target.parent / f"{tag}.{src.stem}.o" for src in sources]
+    tmp = target.parent / f"{tag}.tmp"
+    nvcc = _nvcc()
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)] for src, obj in zip(sources, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    failed = [(c, p.returncode, log) for c, p, log in zip(cmds, procs, logs) if p.returncode]
+    if not failed:
+        link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        logs.append(proc.stdout)
+        if proc.returncode:
+            failed.append((link, proc.returncode, proc.stdout))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
-    _build_log = proc.stdout + proc.stderr  # ptxas: registers, shared memory, spills
+        cmd, rc, log = failed[0]
+        raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{log}")
+    _build_log = "".join(logs)  # ptxas: registers, shared memory, spills
     os.replace(tmp, target)  # atomic: a concurrent process never loads half a file
 
 

@@ -1,17 +1,20 @@
-"""Engine policy of the PyTorch port: which path scores a TPE acquisition.
+"""Engine policy of the PyTorch port: which path runs a hot reduction.
 
-The sampler stack (``core/samplers/tpe.py``) dispatches every hot reduction
-through :func:`resolve_engine`:
+The sampler stack (``core/samplers/tpe.py``) and the multi-objective engine
+(``core/moo.py``) dispatch every hot reduction through :func:`resolve_engine`:
 
 * ``"numpy"`` — the float64 host path, bit-identical to the reference
   package's numpy engine;
 * ``"torch"`` — the plain PyTorch version (``kernels/ref.py``), float32, on
   whatever device its tensors live on;
-* ``"cuda"`` — the hand-written kernels (``kernels/parzen.py``), float32, on
-  a CUDA device only;
+* ``"cuda"`` — the hand-written kernels (``kernels/parzen.py``,
+  ``kernels/hypervolume.py``), float32, on a CUDA device only;
 * ``"auto"`` — numpy below a work threshold (device dispatch costs more than
   it saves there), above it ``"cuda"`` on a CUDA device or ``"torch"`` when
   the caller asked for ``device="cpu"``.
+
+The multi-objective dominance compare has no kernel: under both device
+engines it is one torch compare on the float64 values (``core/moo.py``).
 
 There is no environment opt-in and no probe that downgrades a requested
 engine: an engine that cannot run raises.  Device inputs are padded to
@@ -28,6 +31,8 @@ __all__ = [
     "ENGINES",
     "MIN_PAD",
     "TPE_JIT_THRESHOLD",
+    "DOM_JIT_THRESHOLD",
+    "DOM_CPU_CEILING",
     "SCORE_TABLE_SIZE",
     "validate_engine",
     "resolve_engine",
@@ -82,10 +87,17 @@ def pad_pow2_rows(arr2d: np.ndarray, fill: float, min_pad: int = MIN_PAD) -> np.
 
 ENGINES = ("auto", "numpy", "torch", "cuda")
 
-#: auto-engine work threshold: below it the numpy path wins outright (device
-#: dispatch overhead dominates).  TPE work = n_candidates x n_components
-#: (both estimators).
+#: auto-engine work thresholds: below these the numpy path wins outright
+#: (device dispatch overhead dominates).  TPE work = n_candidates x
+#: n_components (both estimators); dominance work = n_rows x n_objectives;
+#: Monte-Carlo hypervolume work = n_points x n_samples.
 TPE_JIT_THRESHOLD = 16384
+DOM_JIT_THRESHOLD = 4096
+#: on a CPU device, ``"auto"`` dominance goes back to numpy past this much
+#: work, as the reference package does off its accelerator (the broadcast
+#: compare would hold a large (n, n) working set in host memory); the card
+#: has no ceiling.
+DOM_CPU_CEILING = 64 * 1024
 #: grid resolution of the TPE device score table (see samplers/tpe.py)
 SCORE_TABLE_SIZE = 4096
 

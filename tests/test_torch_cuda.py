@@ -6,9 +6,10 @@ kernels have no CPU mode).  On a machine with one:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 The file imports no ``jax``, so it runs where only the port is installed.
-Tolerance atol 2e-4 / rtol 1e-4 against the plain PyTorch version on the
-same tensors: the reference's own engine tolerance, since the kernel sums
-its online logsumexp in another order than ``torch.logsumexp``.
+Parzen tolerance atol 2e-4 / rtol 1e-4 against the plain PyTorch version on
+the same tensors: the reference's own engine tolerance, since the kernel
+sums its online logsumexp in another order than ``torch.logsumexp``.  The
+Monte-Carlo hypervolume counts are integers and are held exactly.
 """
 
 import numpy as np
@@ -17,8 +18,9 @@ import torch
 
 import repro_torch.core as hpo
 from repro_torch.core.samplers.tpe import _ParzenEstimator, _pad_est
-from repro_torch.kernels import parzen
-from repro_torch.kernels.ref import parzen_score_ref
+from repro_torch.core import moo
+from repro_torch.kernels import hypervolume, parzen
+from repro_torch.kernels.ref import mc_hv_counts_ref, parzen_score_ref
 
 ATOL, RTOL = 2e-4, 1e-4
 
@@ -139,3 +141,106 @@ def test_joint_scorer_on_the_card_agrees_with_numpy_and_keeps_tf32(cuda_device):
         torch.backends.cuda.matmul.allow_tf32 = before
     on_host = hpo.TPESampler(seed=0, engine="numpy")._joint_score_inner(l_est, g_est, cands)
     np.testing.assert_allclose(on_card, on_host, atol=ATOL, rtol=RTOL)
+
+
+# -- Monte-Carlo hypervolume counts -------------------------------------------------
+
+
+def _mc_inputs(device, n, s, m, seed, nan_rows=False, ties=False):
+    rng = np.random.RandomState(seed)
+    if ties:
+        pts = rng.randint(0, 4, size=(n, m)).astype(np.float32)
+        smp = rng.randint(0, 5, size=(s, m)).astype(np.float32)
+        smp[: min(n, s)] = pts[: min(n, s)]
+    else:
+        pts = rng.uniform(0, 1, (n, m)).astype(np.float32)
+        smp = rng.uniform(0, 1.1, (s, m)).astype(np.float32)
+    if nan_rows:
+        pts[::7, 1] = np.nan
+    return (torch.from_numpy(pts).to(device), torch.from_numpy(smp).to(device))
+
+
+@pytest.mark.parametrize(
+    "n,s,m,kw",
+    [
+        (8, 256, 3, {}), (20, 1000, 4, {}), (64, 2048, 6, {}), (3, 100, 2, {}),
+        (30, 3000, 5, {"nan_rows": True}), (40, 2000, 3, {"ties": True}),
+        (1, 8192, 5, {}), (25, 8192, 5, {}), (4096, 65536, 8, {}),
+        (5000, 3000, 5, {}),  # past the per-block exclusive counters
+        (10, 500, 20, {}),  # past the register-held sample coordinates
+    ],
+)
+def test_mc_hv_kernel_equals_plain_version(cuda_device, n, s, m, kw):
+    pts, smp = _mc_inputs(cuda_device, n, s, m, seed=n + s + m, **kw)
+    before = hypervolume.launches()
+    excl, total = hypervolume.mc_hv_counts(pts, smp)
+    torch.cuda.synchronize()
+    assert hypervolume.launches() == before + 1
+    excl_r, total_r = mc_hv_counts_ref(pts, smp)
+    assert excl.device.type == "cuda" and excl.dtype == torch.float32 and excl.shape == (n,)
+    assert torch.equal(excl, excl_r) and torch.equal(total, total_r)
+
+
+def test_mc_hv_cuda_tensor_of_the_wrong_type_or_shape_raises(cuda_device):
+    pts, smp = _mc_inputs(cuda_device, 5, 50, 3, seed=0)
+    with pytest.raises(TypeError):
+        hypervolume.mc_hv_counts(pts.double(), smp)
+    with pytest.raises(ValueError):
+        hypervolume.mc_hv_counts(pts, smp[:, :2].contiguous())
+    with pytest.raises(ValueError):
+        hypervolume.mc_hv_counts(pts[0], smp)
+    with pytest.raises(ValueError):
+        hypervolume.mc_hv_counts(pts.cpu(), smp)
+
+
+def _dtlz2_wave_study(engine, n_trials=48, wave=16):
+    study = hpo.create_study(
+        directions=["minimize"] * 5,
+        sampler=hpo.TPESampler(seed=0, multi_objective=True, engine=engine),
+    )
+    for _ in range(n_trials // wave):
+        results = []
+        for trial in study.ask(wave):
+            x = np.array([trial.suggest_float(f"x{i}", 0.0, 1.0) for i in range(6)])
+            g = float(np.sum((x[4:] - 0.5) ** 2))
+            f = []
+            for i in range(5):
+                v = 1.0 + g
+                for j in range(4 - i):
+                    v *= np.cos(x[j] * np.pi / 2)
+                if i > 0:
+                    v *= np.sin(x[4 - i] * np.pi / 2)
+                f.append(float(v))
+            results.append((trial, f))
+        study.tell_batch(results)
+    return study
+
+
+def test_motpe_cuda_and_torch_engines_pick_identical_parameters(cuda_device):
+    """A seeded 5-objective MOTPE study: the kernel's counts equal the plain
+    version's, so the two card engines split, fit and sample alike."""
+    params = {}
+    for engine in ("torch", "cuda"):
+        hypervolume.reset_launches()
+        study = _dtlz2_wave_study(engine)
+        params[engine] = [sorted(t.params.items()) for t in study.trials]
+        if engine == "cuda":
+            assert hypervolume.launches() > 0
+    assert params["cuda"] == params["torch"]
+
+
+def test_pareto_front_on_the_card_equals_numpy(cuda_device):
+    rng = np.random.RandomState(9)
+    V = rng.uniform(size=(3000, 5))
+    V[:10] = V[10:20]  # duplicated rows
+    V[20:30] = V[30:40] * (1.0 + 1e-12)  # apart in float64, tied in float32
+    assert np.array_equal(
+        moo.pareto_front_mask(V, engine="cuda"), moo.pareto_front_mask(V, engine="numpy")
+    )
+    assert np.array_equal(
+        moo.nondomination_ranks(V[:600], engine="cuda"), moo.nondomination_ranks(V[:600])
+    )
+    study = _dtlz2_wave_study("numpy", n_trials=32)
+    on_card = hpo.Study(study.study_name, study._storage, engine="cuda")
+    assert [t.number for t in on_card.best_trials] == [t.number for t in study.best_trials]
+    assert on_card.pareto_front()[1].tolist() == study.pareto_front()[1].tolist()

@@ -107,8 +107,9 @@ def test_default_study_runs_on_cpu_when_asked():
     study.optimize(quickstart_objective(port_hpo), n_trials=25, ask_batch=5)
     assert len(study.trials) == 25
     assert math.isfinite(study.best_value)
-    with pytest.raises(NotImplementedError):
-        study.pareto_front()
+    values, numbers = study.pareto_front()  # one objective: the best trial
+    assert numbers.tolist() == [study.best_trial.number]
+    assert values[:, 0].tolist() == [study.best_value]
 
 
 # -- a history carried across ------------------------------------------------------
