@@ -38,7 +38,27 @@ Phases, each of which fails the run by raising:
    and ``"torch"`` engines on the card, and the counting kernel is checked
    at the below-set and front-0 shapes the final history gives it;
 8. NSGA-II (``engine="cuda"``) on the same DTLZ2, 1024 trials as waves of
-   24, and ``study.best_trials`` on the card against the pairwise loop.
+   24, and ``study.best_trials`` on the card against the pairwise loop;
+9. the flash-attention kernel against its plain PyTorch version (atol /
+   rtol 1e-4 in float32, 2e-2 in bfloat16, each at most a tenth of the
+   reference output's root mean square) at the reference's test shapes,
+   a ``q_offset`` / ``kv_len`` shape and the main path's prefill shapes
+   (tinyllama-1.1b, gemma2-9b windowed and global), each with its time,
+   the plain version's, ``scaled_dot_product_attention``'s where it
+   computes the same function, the bound and the kernel's ``ptxas`` build;
+10. the serving main path at tinyllama-1.1b's full width (22 layers,
+    random weights from a seeded generator): (a) ``repro_torch.launch.
+    serve.main`` with its defaults; (b) the ``Engine`` with 16 requests of
+    512-2048 tokens, 8 slots, capacity 4096, 64 new tokens each; (c) the
+    first group's prefill and 64 teacher-forced decode steps on the
+    ``"cuda"`` and ``"torch"`` attention engines, held to each other.
+    The flash-attention launch count is set to 0 just before (a) and (b)
+    and must equal 22 layers x the prefill groups just after.  Between
+    (b) and (c) a ``torch.profiler`` trace of 16 decode steps of the first
+    group gives the card's idle share during decode;
+11. the same at gemma2-9b's full width cut to 2 superblocks (4 layers: two
+    sliding-window layers on ring caches, two global, softcap 50): two
+    requests of 4608 and 8192 tokens, capacity 8224, 16 new tokens.
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -48,8 +68,10 @@ exits with status 1 and prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
+import re
 import os
 import subprocess
 import sys
@@ -76,6 +98,15 @@ PARZEN_OPS_PER_PAIR = 8
 DTLZ2_M, DTLZ2_K = 5, 10
 #: the hypervolume estimator's default sample count
 MC_SAMPLES = 8192
+#: H100 SXM dense tensor-core bf16 rate (NVIDIA's data sheet); float32
+#: inputs use FP32_OPS_PER_S
+BF16_TC_OPS_PER_S = 989e12
+#: flash attention against its plain version: the reference's kernel
+#: tolerances (tests/test_kernels.py), and the prefill logits of the two
+#: attention engines: the reference's prefill / decode bound
+#: (tests/test_models_smoke.py)
+FA_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+LOGITS_TOL = 8e-2
 
 
 def nvidia_smi(query: str) -> str:
@@ -674,10 +705,450 @@ def phase_nsga2() -> dict:
             "best_trials_ms": 1e3 * best_s}
 
 
+# -- serving slice -----------------------------------------------------------------
+
+
+def flash_ptxas(build_log: str) -> dict:
+    """``ptxas`` lines of each flash-attention template instance, keyed by
+    (dtype name, head dim), from this process's build log."""
+    out: dict = {}
+    key = None
+    for line in build_log.splitlines():
+        m = re.search(r"entry function '(\S*flash_attention_kernel\S*)'", line)
+        if m:
+            name = m.group(1)
+            dims = re.search(r"Li(\d+)ELi(\d+)ELi(\d+)E", name)
+            dtype = "bfloat16" if "bfloat16" in name else "float32"
+            key = (dtype, int(dims.group(1))) if dims else None
+            if key:
+                out[key] = []
+            continue
+        if "entry function" in line:
+            key = None
+        elif key and ("Used" in line or "spill" in line):
+            out[key].append(line.strip().removeprefix("ptxas info    : "))
+    return out
+
+
+def attention_pairs(Sq: int, kw: dict, Skv: int) -> int:
+    """(query, key) pairs the function needs per (batch, head): each query
+    row's keys inside the causal / window band and below ``kv_len``."""
+    q_offset = kw.get("q_offset", 0)
+    kv_len = kw.get("kv_len") or Skv
+    window = kw.get("window", -1)
+    qp = q_offset + np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(kv_len - 1, qp) if kw.get("causal", True) else np.full(Sq, kv_len - 1)
+    lo = np.maximum(0, qp - window + 1) if window > 0 else np.zeros(Sq, np.int64)
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def flash_bound_ms(B, Hq, Hkv, Sq, Skv, D, dtype, kw) -> tuple[float, str, int]:
+    """Least time for one call: the larger of the QK^T and PV FLOPs this
+    data needs (4 D per visible pair) over the dtype's peak and the q/k/v/o
+    bytes (keys and values up to kv_len) over the memory rate."""
+    flops = 4 * D * B * Hq * attention_pairs(Sq, kw, Skv)
+    peak = BF16_TC_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
+    elem = torch.finfo(dtype).bits // 8
+    kv_used = min(Skv, kw.get("kv_len") or Skv)
+    nbytes = elem * (2 * B * Hq * Sq * D + 2 * B * Hkv * kv_used * D)
+    ops_s, bytes_s = flops / peak, nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(ops_s, bytes_s), ("operations" if ops_s >= bytes_s else "bytes"), flops
+
+
+def flash_inputs(gen, B, Hq, Hkv, Sq, Skv, D, dtype, model_layout, qk_scale=1.0):
+    """Random q, k, v as [B, H, S, D]; with ``model_layout`` they are views
+    of the model's [B, S, H, D] memory.  ``qk_scale`` multiplies q and k:
+    at 3 the scores have a standard deviation near 9, so a row's softmax
+    weight lies on a few keys and the output is of order 1 (at 1 and
+    thousands of keys it is a mean of near-uniform weights, of order
+    sqrt(e / keys), no larger than the bfloat16 tolerance)."""
+    def make(H, S, scale):
+        shape = (B, S, H, D) if model_layout else (B, H, S, D)
+        t = (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+        return t.transpose(1, 2) if model_layout else t
+
+    return make(Hq, Sq, qk_scale), make(Hkv, Skv, qk_scale), make(Hkv, Skv, 1.0)
+
+
+def check_flash(gen, label, B, Hq, Hkv, Sq, Skv, D, dtype, kw, model_layout, reps, ptxas,
+                qk_scale=1.0) -> dict:
+    """The kernel against its plain version on one shape, with times from
+    CUDA events, SDPA where it computes the same function, and the bound.
+    The tolerance is held to be small against the reference output: its
+    root mean square must be at least ten times the tolerance."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    q, k, v = flash_inputs(gen, B, Hq, Hkv, Sq, Skv, D, dtype, model_layout, qk_scale)
+    out = flash_attention(q, k, v, **kw)
+    ref = flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    tol = FA_TOL[dtype]
+    ref_rms = float(ref.float().pow(2).mean().sqrt())
+    assert ref_rms >= 10 * tol, (label, ref_rms, tol)
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol, msg=label)
+    err = float((out.float() - ref.float()).abs().max())
+    del out, ref
+    ms = time_ms(lambda: flash_attention(q, k, v, **kw), reps)
+    plain_ms = time_ms(lambda: flash_attention_ref(q, k, v, **kw), max(1, reps // 2))
+    # the yardstick: SDPA where one call computes the same function (no
+    # window, softcap or offset); its own distance from the plain version
+    # is recorded, not held to the kernel's tolerance
+    library_ms = library_err = None
+    same_function = (kw.get("window", -1) <= 0 and not kw.get("softcap") and
+                     kw.get("q_offset", 0) == 0 and (kw.get("kv_len") or Skv) == Skv and Sq == Skv)
+    if same_function:
+        F = torch.nn.functional
+        causal = kw.get("causal", True)
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, is_causal=causal, enable_gqa=Hq != Hkv)
+        library_err = float((sdpa().float() - flash_attention_ref(q, k, v, **kw).float())
+                            .abs().max())
+        library_ms = time_ms(sdpa, reps)
+    bound_ms, bound_by, flops = flash_bound_ms(B, Hq, Hkv, Sq, Skv, D, dtype, kw)
+    dname = "bfloat16" if dtype == torch.bfloat16 else "float32"
+    build = ptxas.get((dname, D), ["not in this process's build log"])
+    from repro_torch.kernels import _build
+
+    smem = _build.load().flash_attention_smem_bytes(D)  # dynamic: ptxas does not see it
+    row = {
+        "label": label, "B": B, "Hq": Hq, "Hkv": Hkv, "Sq": Sq, "Skv": Skv, "D": D,
+        "dtype": dname, "layout": "bshd" if model_layout else "bhsd", "qk_scale": qk_scale,
+        **{k_: v_ for k_, v_ in kw.items()}, "max_abs_err": err, "ref_rms": ref_rms, "tol": tol, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "library_max_abs_err": library_err,
+        "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
+        "tflops": flops / (ms * 1e9), "ptxas": build, "dynamic_smem_bytes": smem,
+    }
+    lib = (f"{library_ms:.4f} ms (max_abs_err {library_err:.3e})" if library_ms is not None
+           else "none")
+    print(f"  flash {label:<26} B={B} H={Hq}/{Hkv} S={Sq}/{Skv} D={D} {dname} {kw} "
+          f"max_abs_err={err:.3e} rms(ref)={ref_rms:.3e} kernel={ms:.4f} ms ({row['tflops']:.2f} TFLOP/s) "
+          f"plain={plain_ms:.4f} ms sdpa={lib} bound={bound_ms:.4f} ms ({bound_by})")
+    print(f"    ptxas ({dname}, D={D}): {'; '.join(build)}; {smem} bytes of dynamic "
+          f"shared memory a block")
+    return row
+
+
+def phase_flash(build_log: str) -> list[dict]:
+    """Phase 9: the flash-attention kernel against its plain version."""
+    print("phase 9: flash_attention kernel vs plain PyTorch version")
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    ptxas = flash_ptxas(build_log)
+    rows = []
+    f32, bf16 = torch.float32, torch.bfloat16
+    for dtype in (f32, bf16):
+        # the reference's own sweep (tests/test_kernels.py)
+        for B, Hq, Hkv, S, D in ((1, 2, 2, 64, 32), (2, 4, 2, 128, 32), (1, 8, 1, 96, 16),
+                                 (1, 2, 2, 128, 128)):
+            rows.append(check_flash(gen, "reference sweep", B, Hq, Hkv, S, S, D, dtype, {},
+                                    False, 20, ptxas))
+    for window in (8, 32, 100):
+        rows.append(check_flash(gen, f"window {window}", 1, 2, 2, 64, 64, 16, f32,
+                                {"window": window}, False, 20, ptxas))
+    for cap in (10.0, 50.0):
+        rows.append(check_flash(gen, f"softcap {cap:g}", 1, 2, 2, 64, 64, 16, f32,
+                                {"softcap": cap}, False, 20, ptxas, qk_scale=3.0))
+    rows.append(check_flash(gen, "non-causal", 1, 2, 2, 48, 48, 16, f32, {"causal": False},
+                            False, 20, ptxas))
+    # the model's layout, and q / k at 3 so the outputs are of order 1 (at 1
+    # they would be no larger than the tolerance) and softcap 50 bends the
+    # scores at D = 256
+    rows.append(check_flash(gen, "q_offset / kv_len", 2, 32, 4, 512, 4096, 64, bf16,
+                            {"q_offset": 1536, "kv_len": 2048}, True, 10, ptxas, qk_scale=3.0))
+    rows.append(check_flash(gen, "tinyllama prefill", 8, 32, 4, 2048, 2048, 64, bf16, {},
+                            True, 10, ptxas, qk_scale=3.0))
+    rows.append(check_flash(gen, "gemma2 prefill, window", 2, 16, 8, 8192, 8192, 256, bf16,
+                            {"window": 4096, "softcap": 50.0}, True, 3, ptxas, qk_scale=3.0))
+    rows.append(check_flash(gen, "gemma2 prefill, global", 2, 16, 8, 8192, 8192, 256, bf16,
+                            {"softcap": 50.0}, True, 3, ptxas, qk_scale=3.0))
+    return rows
+
+
+class StepTimer:
+    """Wall seconds of each call of a step function, synchronized with the
+    card on both sides, and the shape of its token input."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.seconds: list[float] = []
+        self.shapes: list[tuple] = []
+
+    def __call__(self, model, tokens, *args):
+        tok = tokens["tokens"] if isinstance(tokens, dict) else tokens
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.fn(model, tokens, *args)
+        torch.cuda.synchronize()
+        self.seconds.append(time.perf_counter() - t0)
+        self.shapes.append(tuple(tok.shape))
+        return out
+
+
+def prefill_attention_calls(cfg, B: int, S: int, capacity: int) -> list[tuple[int, tuple, dict]]:
+    """The flash-attention calls of one prefill, grouped: (count, (Skv,
+    kv heads), kwargs).  A ring-cache (window) layer attends over its fresh
+    k/v; any other layer over its cache with ``kv_len = S``."""
+    calls: dict = {}
+    for b in cfg.superblock:
+        kw = {"window": b.window, "softcap": cfg.attn_softcap or 0.0}
+        if b.window > 0:  # the cache of a window layer is a ring of min(capacity, window)
+            key = (S, tuple(sorted(kw.items())))
+        else:
+            kw["kv_len"] = S
+            key = (capacity, tuple(sorted(kw.items())))
+        calls[key] = calls.get(key, 0) + cfg.n_superblocks
+    return [(n, skv, dict(kw)) for (skv, kw), n in calls.items()]
+
+
+def kernel_seconds_of_prefills(cfg, shapes: list[tuple], capacity: int) -> tuple[float, list]:
+    """Kernel time of every flash-attention launch the prefills made, timed
+    again at each call's shape (bf16 inputs from a seeded generator)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    total, rows = 0.0, []
+    for B, S in shapes:
+        for n, Skv, kw in prefill_attention_calls(cfg, B, S, capacity):
+            q, k, v = flash_inputs(gen, B, cfg.n_heads, cfg.n_kv_heads, S, Skv, cfg.head_dim,
+                                   torch.bfloat16, True)
+            ms = time_ms(lambda: flash_attention(q, k, v, **kw), 3)
+            bound, by, _ = flash_bound_ms(B, cfg.n_heads, cfg.n_kv_heads, S, Skv, cfg.head_dim,
+                                          torch.bfloat16, kw)
+            rows.append({"B": B, "S": S, "Skv": Skv, **kw, "launches": n, "ms": ms,
+                         "bound_ms": bound, "bound_by": by})
+            total += n * ms / 1e3
+            del q, k, v
+    return total, rows
+
+
+def serve_engine(label: str, cfg, model, prompts, slots: int, capacity: int, max_new: int) -> dict:
+    """Greedy generation through ``Engine(engine="cuda")`` with the launch
+    count set to 0 just before and read just after; prefill and decode
+    steps timed; the kernel's share of the wall time."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.serve import Engine
+
+    engine = Engine(cfg, model, capacity=capacity, slots=slots, device="cuda", engine="cuda")
+    engine._prefill = prefill = StepTimer(engine._prefill)
+    engine._decode = decode = StepTimer(engine._decode)
+    n_layers = len(cfg.superblock) * cfg.n_superblocks
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    outs = engine.generate(prompts, max_new=max_new)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = fa.launches()
+    groups = len(prefill.seconds)
+    assert launches == n_layers * groups, (label, launches, n_layers, groups)
+    assert [len(o) for o in outs] == [max_new] * len(prompts)
+    assert all(0 <= t < cfg.vocab for o in outs for t in o)
+    n_tokens = sum(len(o) for o in outs)
+    kernel_s, kernel_rows = kernel_seconds_of_prefills(cfg, prefill.shapes, capacity)
+    decode_ms = [1e3 * s for s in decode.seconds]
+    result = {
+        "label": label, "requests": len(prompts), "prompt_lens": [len(p) for p in prompts],
+        "slots": slots, "capacity": capacity, "max_new": max_new, "groups": groups,
+        "seconds": seconds, "tokens": n_tokens, "tokens_per_s": n_tokens / seconds,
+        "prefill_s": prefill.seconds, "prefill_shapes": prefill.shapes,
+        "decode_steps": len(decode_ms), "decode_ms_mean": float(np.mean(decode_ms)),
+        "decode_ms_p50": float(np.median(decode_ms)), "decode_s_total": sum(decode.seconds),
+        "flash_launches": launches, "kernel_s": kernel_s, "kernel_share": kernel_s / seconds,
+        "kernel_calls": kernel_rows, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+    }
+    print(f"  {label}: {len(prompts)} requests in {groups} groups, {n_tokens} tokens in "
+          f"{seconds:.3f} s = {n_tokens / seconds:.2f} tokens/s; peak memory "
+          f"{result['peak_mem_gib']:.2f} GiB")
+    for (B, S), s in zip(prefill.shapes, prefill.seconds):
+        print(f"    prefill group B={B} S={S}: {s:.4f} s")
+    print(f"    decode: {len(decode_ms)} steps, mean {result['decode_ms_mean']:.3f} ms, "
+          f"median {result['decode_ms_p50']:.3f} ms a step ({sum(decode.seconds):.3f} s)")
+    print(f"    flash_attention launches {launches} == {n_layers} layers x {groups} prefills; "
+          f"kernel {kernel_s:.4f} s = {100 * kernel_s / seconds:.2f}% of the wall time")
+    for r in kernel_rows:
+        print(f"      kernel at B={r['B']} S={r['S']} Skv={r['Skv']} "
+              f"window={r['window']} kv_len={r.get('kv_len')}: {r['ms']:.4f} ms x {r['launches']} "
+              f"(bound {r['bound_ms']:.4f} ms, {r['bound_by']})")
+    return result
+
+
+def decode_idle_share(cfg, model, prompts, capacity: int, steps: int) -> dict:
+    """The card's idle share during ``steps`` decode steps of one group
+    through ``Engine(engine="cuda")``, from a ``torch.profiler`` trace: each
+    step is synchronized on both sides as in phase 10(b), and the union of
+    the card's kernel, copy and memset intervals inside each step's span is
+    its busy time.  The trace is written to ``build/decode_trace.json``."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.serve import Engine
+
+    engine = Engine(cfg, model, capacity=capacity, slots=len(prompts), device="cuda",
+                    engine="cuda")
+    step = engine._decode
+
+    def traced(*args):
+        torch.cuda.synchronize()
+        with record_function("decode_step"):
+            out = step(*args)
+            torch.cuda.synchronize()
+        return out
+
+    engine._decode = traced
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        engine.generate(prompts, max_new=steps + 1)
+    path = os.path.join(ROOT, "build", "decode_trace.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("cat") == "user_annotation" and e["name"] == "decode_step")
+    device = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    assert len(spans) == steps, (len(spans), steps)
+    busy = wall = 0.0
+    kernels = 0
+    for lo, hi in spans:
+        wall += hi - lo
+        inside = [(max(a, lo), min(b, hi)) for a, b in device if a < hi and b > lo]
+        kernels += len(inside)
+        end = lo
+        for a, b in inside:  # union of the sorted intervals
+            if b > end:
+                busy += b - max(a, end)
+                end = b
+    result = {"steps": steps, "B": len(prompts), "traced_ms_per_step": wall / steps / 1e3,
+              "device_ops_per_step": kernels / steps,
+              "busy_ms_per_step": busy / steps / 1e3 if device else None,
+              "idle_share": 1.0 - busy / wall if device else None}
+    if device:
+        print(f"  decode trace (torch.profiler, {steps} steps, B={len(prompts)}): "
+              f"{result['traced_ms_per_step']:.3f} ms a step traced, the card busy "
+              f"{result['busy_ms_per_step']:.3f} ms of it in "
+              f"{result['device_ops_per_step']:.1f} kernels / copies: idle share "
+              f"{result['idle_share']:.4f}")
+    else:
+        print(f"  decode trace (torch.profiler, {steps} steps): the trace holds no device "
+              f"activity; idle share not measured")
+    return result
+
+
+def engines_agree(label: str, cfg, model, prompts, capacity: int, max_new: int) -> dict:
+    """One group's prefill on the ``"cuda"`` and ``"torch"`` attention
+    engines: last-token logits within LOGITS_TOL, then ``max_new`` greedy
+    steps teacher-forced with the ``"torch"`` engine's tokens.  At every
+    (sequence, step) whose top-2 logit gap on ``"torch"`` exceeds twice the
+    largest |logit difference| of the two, their tokens must agree; the
+    others are counted."""
+    from repro_torch.models import init_cache
+    from repro_torch.serve import make_decode_step, make_prefill_step
+
+    B, S = len(prompts), max(len(p) for p in prompts)
+    toks = np.zeros((B, S), np.int64)
+    for j, p in enumerate(prompts):
+        toks[j, S - len(p):] = p
+    tokens = torch.from_numpy(toks).cuda()
+    decode = make_decode_step(cfg)
+    logits, caches = {}, {}
+    for eng in ("cuda", "torch"):
+        cache = init_cache(cfg, B, capacity, device="cuda")
+        logits[eng], caches[eng] = make_prefill_step(cfg, eng)(model, {"tokens": tokens}, cache)
+    prefill_err = float((logits["cuda"] - logits["torch"]).abs().max())
+    assert prefill_err <= LOGITS_TOL, (label, prefill_err)
+    decided = under_gap = mismatches = 0
+    max_err = 0.0
+    for step in range(max_new):
+        lt, lc = logits["torch"][:, 0].float(), logits["cuda"][:, 0].float()
+        diff = (lc - lt).abs().amax(dim=-1)
+        top2 = lt.topk(2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > 2 * diff
+        tok_t, tok_c = lt.argmax(dim=-1), lc.argmax(dim=-1)
+        mismatches += int(((tok_t != tok_c) & sure).sum())
+        decided += int(sure.sum())
+        under_gap += int((~sure).sum())
+        max_err = max(max_err, float(diff.max()))
+        if step + 1 < max_new:
+            tok = tok_t[:, None].to(torch.int32)
+            for eng in ("cuda", "torch"):
+                logits[eng], caches[eng] = decode(model, tok, caches[eng], S + step)
+    assert mismatches == 0, (label, mismatches)
+    result = {"label": label, "B": B, "S": S, "prefill_logits_max_abs_err": prefill_err,
+              "steps": max_new, "decided": decided, "under_gap": under_gap,
+              "mismatches": mismatches, "max_logit_err": max_err}
+    print(f"  {label}: cuda vs torch prefill last-token logits max |d| {prefill_err:.4e} "
+          f"(<= {LOGITS_TOL}); {max_new} teacher-forced steps x {B} sequences: {decided} "
+          f"decided, all equal; {under_gap} under the 2x|d| gap; max |d logit| {max_err:.4e}")
+    return result
+
+
+def phase_tinyllama() -> dict:
+    """Phase 10: tinyllama-1.1b at full width, served on the card."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import init_model_params
+
+    print("phase 10: tinyllama-1.1b (22 layers, d_model 2048, 32 heads / 4 kv, head_dim 64) "
+          "served on the card")
+    fa.reset_launches()
+    entry = launch_serve.main([])  # the defaults: --arch tinyllama-1.1b --requests 8 --max-new 32
+    torch.cuda.synchronize()
+    entry_launches = fa.launches()
+    assert entry_launches == 22 * 2, entry_launches  # 8 requests in 2 groups of 4
+    assert [len(o) for o in entry["outputs"]] == [32] * 8
+    print(f"  (a) launch.serve.main(): {entry['tokens']} tokens in {entry['seconds']:.3f} s; "
+          f"flash_attention launches {entry_launches} == 22 layers x 2 prefills")
+
+    cfg = configs.get_config("tinyllama-1.1b")
+    t0 = time.perf_counter()
+    model = init_model_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.RandomState(0)
+    lens = rng.randint(512, 2049, size=16)
+    prompts = [rng.randint(0, cfg.vocab, size=n) for n in lens]
+    result = serve_engine("(b) Engine", cfg, model, prompts, slots=8, capacity=4096, max_new=64)
+    result["init_s"] = init_s
+    result["entry"] = {"tokens": entry["tokens"], "seconds": entry["seconds"],
+                       "flash_launches": entry_launches}
+    result["decode_trace"] = decode_idle_share(cfg, model, prompts[:8], 4096, steps=16)
+    result["agreement"] = engines_agree("(c) first group", cfg, model, prompts[:8], 4096, 64)
+    del model
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_gemma2() -> dict:
+    """Phase 11: gemma2-9b at full width, cut to 2 superblocks."""
+    from repro_torch import configs
+    from repro_torch.models import init_model_params
+
+    full = configs.get_config("gemma2-9b")
+    cfg = dataclasses.replace(full, n_superblocks=2, n_layers=4)
+    print(f"phase 11: gemma2-9b at full width (d_model 3584, 16 heads / 8 kv, head_dim 256, "
+          f"vocab 256000), depth cut from {full.n_layers} to {cfg.n_layers} layers "
+          f"(2 superblocks: window 4096 + global), softcap 50")
+    t0 = time.perf_counter()
+    model = init_model_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.RandomState(1)
+    prompts = [rng.randint(0, cfg.vocab, size=n) for n in (4608, 8192)]
+    result = serve_engine("Engine", cfg, model, prompts, slots=2, capacity=8224, max_new=16)
+    result["init_s"] = init_s
+    result["depth_cut"] = {"n_layers": [full.n_layers, cfg.n_layers],
+                           "n_superblocks": [full.n_superblocks, cfg.n_superblocks]}
+    result["agreement"] = engines_agree("cuda vs torch", cfg, model, prompts, 8224, 16)
+    del model
+    torch.cuda.empty_cache()
+    return result
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every measurement to this JSON file")
     opts = ap.parse_args()
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
@@ -702,6 +1173,11 @@ def main() -> int:
     mc_rows = phase_mc_kernel()
     motpe, motpe_rows = phase_motpe()
     nsga2 = phase_nsga2()
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full precision
+    torch.backends.cudnn.allow_tf32 = False
+    flash_rows = phase_flash(_build.build_log())
+    tinyllama = phase_tinyllama()
+    gemma2 = phase_gemma2()
 
     shape_rows = optimize_rows + wave_rows
     table = wave_rows[-1]  # the score-table build: the kernel's large shape
@@ -738,13 +1214,34 @@ def main() -> int:
         "shapes": mc_rows + motpe_rows,
     })
     kernels[0]["launches_motpe"] = motpe["parzen_launches"]
+    # the main path's own shape: tinyllama-1.1b's prefill at B = 8, S = 2048
+    fa_main = next(r for r in flash_rows if r["label"] == "tinyllama prefill")
+    kernels.append({
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:31",
+        "launches": tinyllama["flash_launches"],
+        "launches_entry_point": tinyllama["entry"]["flash_launches"],
+        "launches_gemma2": gemma2["flash_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in flash_rows),
+        "ms": fa_main["ms"],
+        "plain_ms": fa_main["plain_ms"],
+        "bound_ms": fa_main["bound_ms"],
+        "bound_by": fa_main["bound_by"],
+        "library_ms": fa_main["library_ms"],
+        "shapes": flash_rows,
+    })
     if opts.out:
         os.makedirs(os.path.dirname(os.path.abspath(opts.out)), exist_ok=True)
         with open(opts.out, "w") as f:
             json.dump({"nvidia_smi": smi, "sm_clock_hz": sm_clock_hz,
                        "build_seconds": _build.build_seconds(),
                        "kernel_checks": kernel_rows, "optimize": optimize, "waves": waves,
-                       "motpe": motpe, "nsga2": nsga2, "kernels": kernels}, f, indent=1)
+                       "motpe": motpe, "nsga2": nsga2, "tinyllama": tinyllama,
+                       "gemma2": gemma2, "kernels": kernels}, f, indent=1)
+    print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s "
+          f"(kernel build {_build.build_seconds():.2f} s)")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

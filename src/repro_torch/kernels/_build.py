@@ -37,10 +37,15 @@ _build_log = ""
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 #: C signatures of the entry points (every pointer and the stream as void*)
 _SIGNATURES = {
     "parzen_score_launch": (_I, [_P, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P]),
     "mc_hv_counts_launch": (_I, [_P, _I, _P, _I, _I, _P, _P, _P]),
+    "flash_attention_launch": (
+        _I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I, _F, _I, _I, _F, _P],
+    ),
+    "flash_attention_smem_bytes": (_I, [_I]),
 }
 
 

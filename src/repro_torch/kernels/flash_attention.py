@@ -1,0 +1,151 @@
+"""Flash attention forward: online-softmax attention with GQA, a causal mask,
+a sliding window and a logit softcap.
+
+Wrapper around the hand-written CUDA kernel in ``csrc/flash_attention.cu``,
+which replaces the reference package's Pallas kernel
+(``repro/kernels/flash_attention.py::flash_attention_kernel``).  One block of
+the kernel owns one (batch, head, query block) and loops over the key/value
+tiles itself with the running ``(m, l, acc)`` in registers, so the
+``[Sq, Skv]`` score matrix never exists; the source states its design and its
+bound on the card.
+
+Beside the TPU kernel's ``causal`` / ``window`` / ``softcap`` it takes
+``q_offset`` (a query row ``r`` sits at absolute position ``q_offset + r``)
+and ``kv_len`` (keys at ``>= kv_len`` are masked), which the model's prefill
+against a KV cache needs.  The tensors are logically the TPU kernel's
+``[B, H, S, D]`` with any strides: the kernel reads them through their
+element strides, so the model passes its ``[B, S, H, D]`` tensors as
+transposed views and no copy is made.
+
+CPU tensors take the plain PyTorch version (``kernels/ref.py``); CUDA
+tensors launch the kernel or raise.  Every launch adds one to a thread-safe
+counter (:func:`launches`), so a run can show that its main path went
+through the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+import threading
+
+import torch
+
+from .ref import flash_attention_ref
+
+__all__ = ["flash_attention", "launches", "reset_launches", "HEAD_DIMS"]
+
+#: head widths the kernel is built for (one template instance each)
+HEAD_DIMS = (16, 32, 64, 128, 256)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+_count_lock = threading.Lock()
+_launches = 0
+
+
+def launches() -> int:
+    """Kernel launches since the last :func:`reset_launches`."""
+    with _count_lock:
+        return _launches
+
+
+def reset_launches() -> None:
+    global _launches
+    with _count_lock:
+        _launches = 0
+
+
+def _count_launch() -> None:
+    global _launches
+    with _count_lock:
+        _launches += 1
+
+
+def _check(q, k, v, causal, window, q_offset, kv_len) -> int:
+    """Validate the inputs; return ``kv_len`` resolved against ``Skv``."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
+        if t.dim() != 4:
+            raise ValueError(f"{name} must be 4-D [B, H, S, D], got shape {tuple(t.shape)}")
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if t.dtype not in _DTYPE_CODES:
+            raise TypeError(f"{name} must be float32 or bfloat16, got {t.dtype}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} is {t.dtype}, q is {q.dtype}")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}'s head dimension must be contiguous (stride 1)")
+    B, Hq, Sq, D = q.shape
+    _, Hkv, Skv, _ = k.shape
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head dim {D} not supported (one of {HEAD_DIMS})")
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not fit q {tuple(q.shape)}")
+    if Hkv == 0 or Hq % Hkv != 0:
+        raise ValueError(f"{Hq} query heads are not a multiple of {Hkv} kv heads")
+    kv_len = Skv if kv_len is None else int(kv_len)
+    if not 1 <= kv_len <= Skv:
+        raise ValueError(f"kv_len must lie in [1, {Skv}], got {kv_len}")
+    if q_offset < 0:
+        raise ValueError(f"q_offset must be >= 0, got {q_offset}")
+    # every query row must see a key: the kernel skips the tiles outside the
+    # causal / window band, which is exact only then
+    last = q_offset + Sq - 1
+    if causal and last >= kv_len:
+        raise ValueError(f"causal query at position {last} has no key below kv_len={kv_len}")
+    if window > 0 and not causal and last - window + 1 >= kv_len:
+        raise ValueError(f"query at position {last} has no key in its window below kv_len={kv_len}")
+    return kv_len
+
+
+def flash_attention(
+    q: torch.Tensor,  # [B, Hq, Sq, D], any strides
+    k: torch.Tensor,  # [B, Hkv, Skv, D]
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int = -1,
+    softcap: float = 0.0,
+    q_offset: int = 0,
+    kv_len: "int | None" = None,
+) -> torch.Tensor:
+    """Attention output in ``q``'s dtype, shape and strides.
+
+    ``q``, ``k`` and ``v`` share one device and one dtype (float32 or
+    bfloat16), their head dimension is contiguous and one of
+    :data:`HEAD_DIMS`; ``Hq`` is a multiple of ``Hkv`` (query head ``h``
+    reads kv head ``h // (Hq // Hkv)``).  Scores are ``q . k / sqrt(D)``,
+    then ``softcap * tanh(s / softcap)`` when ``softcap`` is nonzero; keys at
+    ``>= kv_len`` (default ``Skv``), above the query's position when
+    ``causal``, or ``window`` or more positions below it are masked at
+    ``-1e30``.  Every query row must have a key it may attend to."""
+    kv_len = _check(q, k, v, causal, window, q_offset, kv_len)
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, window=window, softcap=softcap,
+                                   q_offset=q_offset, kv_len=kv_len)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on CPU or CUDA tensors, got {q.device}")
+    out = torch.empty_like(q)  # q's strides: [B, S, H, D] memory for a transposed view
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    if out.numel() == 0:
+        return out
+    # (batch, position, head) element strides of each tensor
+    strides = (ctypes.c_longlong * 12)(*(
+        s for t in (q, k, v, out) for s in (t.stride(0), t.stride(2), t.stride(1))
+    ))
+    from ._build import load
+
+    lib = load()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPE_CODES[q.dtype],
+            B, Hq, Hkv, Sq, Skv, D, ctypes.addressof(strides), int(bool(causal)), int(window),
+            float(softcap), int(q_offset), kv_len, 1.0 / math.sqrt(D), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
+    _count_launch()
+    return out

@@ -7,12 +7,16 @@ kernel against them on the card.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
-__all__ = ["parzen_score_ref", "mc_hv_counts_ref"]
+__all__ = ["parzen_score_ref", "mc_hv_counts_ref", "flash_attention_ref"]
 
 #: elements of the boolean (samples, points, objectives) cube per chunk
 _MC_CUBE_ELEMS = 1 << 27
+#: float32 scores per query chunk of the plain attention (1 GiB)
+_ATTN_SCORE_ELEMS = 1 << 28
 
 
 def parzen_score_ref(
@@ -59,3 +63,50 @@ def mc_hv_counts_ref(
         total += (cnt > 0).sum()
         excl += (dom & (cnt == 1)[:, None]).sum(dim=0)
     return excl.to(torch.float32), total.to(torch.float32)
+
+
+def flash_attention_ref(
+    q: torch.Tensor,  # [B, Hq, Sq, D]
+    k: torch.Tensor,  # [B, Hkv, Skv, D]
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int = -1,
+    softcap: float = 0.0,
+    q_offset: int = 0,
+    kv_len: "int | None" = None,
+) -> torch.Tensor:
+    """Attention in float32 with the reference's ``attention_ref`` semantics
+    (oracle for the flash-attention kernel): scores ``q . k / sqrt(D)``, the
+    softcap, ``-1e30`` at masked keys, a softmax, ``P V`` in float32, the
+    result cast to ``q``'s dtype.  A query row ``r`` sits at position
+    ``q_offset + r``; keys at ``>= kv_len`` are masked.  Query head ``h``
+    reads kv head ``h // (Hq // Hkv)``.  Queries go in chunks so the float32
+    scores stay near ``_ATTN_SCORE_ELEMS`` elements."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    kv_len = Skv if kv_len is None else kv_len
+    scale = 1.0 / math.sqrt(D)
+    kf = k.to(torch.float32)
+    vf = v.to(torch.float32)
+    k_pos = torch.arange(Skv, device=q.device)
+    out = torch.empty_like(q)  # q's strides, as the kernel's output has
+    chunk = max(1, _ATTN_SCORE_ELEMS // max(1, B * Hq * Skv))
+    for start in range(0, Sq, chunk):
+        n = min(chunk, Sq - start)
+        qb = q[:, :, start:start + n].to(torch.float32).reshape(B, Hkv, G, n, D)
+        s = torch.einsum("bkgqd,bktd->bkgqt", qb, kf) * scale
+        if softcap:
+            s = softcap * torch.tanh(s / softcap)
+        q_pos = q_offset + start + torch.arange(n, device=q.device)
+        mask = (k_pos < kv_len)[None, :].expand(n, Skv)
+        if causal:
+            mask = mask & (k_pos[None, :] <= q_pos[:, None])
+        if window > 0:
+            mask = mask & ((q_pos[:, None] - k_pos[None, :]) < window)
+        s = torch.where(mask, s, torch.full((), -1e30, device=q.device))
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bkgqt,bktd->bkgqd", p, vf)
+        out[:, :, start:start + n] = o.reshape(B, Hq, n, D).to(q.dtype)
+    return out

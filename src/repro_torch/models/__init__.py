@@ -1,0 +1,34 @@
+"""The port's model zoo: the dense attention family (GQA, sliding windows,
+softcaps; text, VLM and audio backbones) for serving.  The other families
+load their configs and raise ``NotImplementedError`` when built."""
+
+from __future__ import annotations
+
+from .config import SHAPES, BlockDef, ModelConfig, ShapeConfig
+from .transfer import params_from_jax
+from .transformer import (
+    Transformer,
+    count_params,
+    forward,
+    init_cache,
+    init_model_params,
+    logits_from_hidden,
+    loss_fn,
+    param_specs,
+)
+
+__all__ = [
+    "BlockDef",
+    "ModelConfig",
+    "ShapeConfig",
+    "SHAPES",
+    "Transformer",
+    "param_specs",
+    "init_model_params",
+    "count_params",
+    "forward",
+    "loss_fn",
+    "logits_from_hidden",
+    "init_cache",
+    "params_from_jax",
+]

@@ -1,0 +1,224 @@
+"""Attention: GQA with sliding-window / logit-softcap, and the KV-cache
+prefill and decode paths.
+
+The full-sequence path goes through the flash-attention kernel
+(``kernels/flash_attention.py``) on every device: on a CUDA tensor the
+hand-written kernel, on a CPU tensor its plain PyTorch version.  The kernel
+and its plain version keep the softmax probabilities in float32 for ``P V``
+(as the reference's Pallas kernel does); the reference's ``attention_full``
+rounds them to the compute dtype first, so in bfloat16 the two differ by
+one bfloat16 rounding.
+
+The KV cache is a pair of tensors updated in place.  Multi-head latent
+attention (MLA) belongs to a later slice of the port and raises here.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..kernels.flash_attention import flash_attention
+from ..kernels.ref import flash_attention_ref
+from .layers import Spec, apply_rope, rope, softcap
+
+__all__ = [
+    "ATTN_ENGINES",
+    "attn_specs",
+    "mla_specs",
+    "attention_full",
+    "attention_decode",
+    "attn_block_full",
+    "attn_block_decode",
+    "mla_block_full",
+    "mla_block_decode",
+    "empty_kv_cache",
+    "empty_mla_cache",
+]
+
+#: "auto": the kernel's wrapper (kernel on CUDA tensors, plain version on CPU
+#: ones); "cuda": the kernel (CUDA tensors only); "torch": the plain version
+ATTN_ENGINES = ("auto", "cuda", "torch")
+_MLA_SLICE = "multi-head latent attention (MLA) belongs to the MLA/MoE slice of the port"
+
+
+# -- parameter specs -----------------------------------------------------------------
+
+
+def attn_specs(cfg) -> dict:
+    d, H, KV, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    std = 1.0 / math.sqrt(d)
+    return {
+        "wq": Spec((d, H, Dh), ("fsdp_embed", "heads", "head_dim"), std=std),
+        "wk": Spec((d, KV, Dh), ("fsdp_embed", "kv_heads", "head_dim"), std=std),
+        "wv": Spec((d, KV, Dh), ("fsdp_embed", "kv_heads", "head_dim"), std=std),
+        "wo": Spec((H, Dh, d), ("heads", "head_dim", "fsdp_embed"), std=1.0 / math.sqrt(H * Dh)),
+    }
+
+
+def mla_specs(cfg) -> dict:
+    raise NotImplementedError(_MLA_SLICE)
+
+
+# -- core attention ---------------------------------------------------------------------
+
+
+def attention_full(
+    q: torch.Tensor,  # [B, S, H, D]
+    k: torch.Tensor,  # [B, T, KV, D]
+    v: torch.Tensor,  # [B, T, KV, D]
+    *,
+    window: int = -1,
+    attn_softcap: float | None = None,
+    q_offset: int = 0,
+    kv_len: int | None = None,
+    engine: str = "auto",
+) -> torch.Tensor:
+    """Causal (optionally sliding-window) attention of ``q`` over the first
+    ``kv_len`` (default ``T``) keys, the query rows at positions
+    ``q_offset ..``; returns [B, S, H, D] in ``q``'s dtype.  Keys and values
+    in another dtype (a bfloat16 cache under float32 compute) are cast to
+    ``q``'s, as the reference's einsums promote them."""
+    if engine not in ATTN_ENGINES:
+        raise ValueError(f"engine must be one of {ATTN_ENGINES}, got {engine!r}")
+    if k.dtype != q.dtype:
+        k, v = k.to(q.dtype), v.to(q.dtype)
+    kw = dict(causal=True, window=window, softcap=attn_softcap or 0.0,
+              q_offset=q_offset, kv_len=kv_len)
+    if engine == "cuda" and q.device.type != "cuda":
+        raise RuntimeError(f"engine='cuda' launches the CUDA kernel and cannot run on {q.device}")
+    attend = flash_attention_ref if engine == "torch" else flash_attention
+    # [B, H, S, D] views of the [B, S, H, D] tensors: both read them in place
+    return attend(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), **kw).transpose(1, 2)
+
+
+def attention_decode(
+    q: torch.Tensor,  # [B, 1, H, D]
+    k_cache: torch.Tensor,  # [B, T, KV, D]
+    v_cache: torch.Tensor,
+    index: int,  # current position (tokens < index are valid)
+    *,
+    window: int = -1,
+    attn_softcap: float | None = None,
+) -> torch.Tensor:
+    """One query against the cache (plain PyTorch: the reference has no
+    decode kernel).  Scores are the compute-dtype products accumulated in
+    float32; the probabilities are rounded to ``q``'s dtype before ``P V``,
+    as in the reference."""
+    B, _, H, D = q.shape
+    _, T, KV, _ = k_cache.shape
+    G = H // KV
+    scale = 1.0 / math.sqrt(D)
+    qg = q.reshape(B, KV, G, D)
+    s = torch.einsum("bkgd,btkd->bkgt", qg.float(), k_cache.float()) * scale
+    k_pos = torch.arange(T, device=q.device)
+    mask = k_pos <= index
+    if window > 0:
+        mask &= (index - k_pos) < window
+    if attn_softcap:
+        s = softcap(s, attn_softcap)
+    s = torch.where(mask, s, torch.full((), -1e30, device=q.device))
+    probs = torch.softmax(s, dim=-1).to(q.dtype)
+    out_dtype = torch.promote_types(q.dtype, v_cache.dtype)
+    o = torch.einsum("bkgt,btkd->bkgd", probs.float(), v_cache.float()).to(out_dtype)
+    return o.reshape(B, 1, H, D)
+
+
+# -- block-level wrappers (projections + rope + attention) ------------------------------------
+
+
+def _project_qkv(p, x, cfg, positions, compute_dtype):
+    B, S, d = x.shape
+
+    def proj(w):
+        return (x @ w.to(compute_dtype).reshape(d, -1)).reshape(B, S, w.shape[1], w.shape[2])
+
+    q, k, v = proj(p.wq), proj(p.wk), proj(p.wv)
+    sin, cos = rope(positions, cfg.head_dim, cfg.rope_theta)
+    return apply_rope(q, sin, cos), apply_rope(k, sin, cos), v
+
+
+def _out_proj(p, o, dtype):
+    B, S, H, Dh = o.shape
+    return o.reshape(B, S, H * Dh) @ p.wo.to(dtype).reshape(H * Dh, -1)
+
+
+def _is_ring(bdef, cache) -> bool:
+    """Sliding-window layers keep only a window-sized ring cache (gemma2's
+    local layers: 4096 slots instead of the full context)."""
+    return bdef.window > 0 and cache["k"].shape[1] <= bdef.window
+
+
+def attn_block_full(p, x, cfg, bdef, positions, cache=None, cache_index=None, engine="auto"):
+    """Full-sequence attention sub-block.  Returns (out, cache); the cache
+    (when given) is updated in place."""
+    B, S, d = x.shape
+    q, k, v = _project_qkv(p, x, cfg, positions, x.dtype)
+    if cache is not None and _is_ring(bdef, cache):
+        # prefill a window ring cache: attend over the fresh k/v, store the
+        # last W tokens at slots (pos % W).  (Ring prefill assumes
+        # cache_index == 0.)
+        o = attention_full(q, k, v, window=bdef.window, attn_softcap=cfg.attn_softcap,
+                           engine=engine)
+        W = cache["k"].shape[1]
+        take = min(W, S)
+        slots = torch.arange(S - take, S, device=x.device) % W
+        cache["k"][:, slots] = k[:, S - take:].to(cache["k"].dtype)
+        cache["v"][:, slots] = v[:, S - take:].to(cache["v"].dtype)
+    elif cache is not None:
+        # attend over the cached (dtype-rounded) k/v up to cache_index + S
+        cache["k"][:, cache_index:cache_index + S] = k.to(cache["k"].dtype)
+        cache["v"][:, cache_index:cache_index + S] = v.to(cache["v"].dtype)
+        o = attention_full(
+            q, cache["k"], cache["v"], window=bdef.window, attn_softcap=cfg.attn_softcap,
+            q_offset=cache_index, kv_len=cache_index + S, engine=engine,
+        )
+    else:
+        o = attention_full(q, k, v, window=bdef.window, attn_softcap=cfg.attn_softcap,
+                           engine=engine)
+    return _out_proj(p, o, x.dtype), cache
+
+
+def attn_block_decode(p, x, cfg, bdef, cache, index):
+    """One-token decode with the cache updated in place.  x: [B, 1, d]."""
+    positions = torch.full((x.shape[0], 1), index, dtype=torch.int32, device=x.device)
+    q, k, v = _project_qkv(p, x, cfg, positions, x.dtype)
+    if _is_ring(bdef, cache):
+        # ring slots hold exactly the last W positions (rope was applied at the
+        # absolute position before caching); a slot s is filled iff s <= index.
+        slot = index % cache["k"].shape[1]
+        window = -1
+    else:
+        slot = index
+        window = bdef.window
+    cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+    o = attention_decode(q, cache["k"], cache["v"], index, window=window,
+                         attn_softcap=cfg.attn_softcap)
+    return _out_proj(p, o, x.dtype), cache
+
+
+def empty_kv_cache(cfg, batch: int, capacity: int, dtype, window: int = -1, device=None) -> dict:
+    if window > 0:
+        capacity = min(capacity, window)
+    shape = (batch, capacity, cfg.n_kv_heads, cfg.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+    }
+
+
+# -- MLA (a later slice) -----------------------------------------------------------------------
+
+
+def mla_block_full(*args, **kwargs):
+    raise NotImplementedError(_MLA_SLICE)
+
+
+def mla_block_decode(*args, **kwargs):
+    raise NotImplementedError(_MLA_SLICE)
+
+
+def empty_mla_cache(*args, **kwargs):
+    raise NotImplementedError(_MLA_SLICE)

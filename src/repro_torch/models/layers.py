@@ -1,0 +1,149 @@
+"""Shared layers + the parameter-spec machinery.
+
+Every parameter is declared as a :class:`Spec` (shape, logical axes, init).
+Spec trees (nested dicts of specs) give the parameter count with no
+allocation, and the shapes and initialization of the model's tensors.
+(The reference's abstract-shape and logical-axis views of a spec tree
+serve its dry run and sharding, which later slices port.)
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Iterator
+
+import torch
+import torch.nn.functional as F
+
+__all__ = [
+    "Spec",
+    "spec_leaves",
+    "spec_map",
+    "init_params",
+    "init_tensor",
+    "rms_norm",
+    "rope",
+    "apply_rope",
+    "swiglu",
+    "gelu_mlp",
+    "softcap",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class Spec:
+    """Declaration of one parameter tensor."""
+
+    shape: tuple
+    logical: tuple
+    init: str = "normal"  # normal | zeros | ones | embed
+    std: float | None = None  # explicit stddev; default 1/sqrt(fan_in=shape[-2])
+
+    def stacked(self, n: int) -> "Spec":
+        """Prepend a stacked-layers dim (fan-in unchanged)."""
+        std = self.std
+        if std is None and self.init == "normal":
+            std = self._default_std()
+        return Spec((n, *self.shape), ("layers", *self.logical), self.init, std)
+
+    def _default_std(self) -> float:
+        # fan-in = product of all dims except the last (output) dim
+        fan_in = max(1, math.prod(self.shape[:-1]))
+        return 1.0 / math.sqrt(fan_in)
+
+
+def spec_leaves(tree, path: tuple = ()) -> Iterator[tuple[tuple, Spec]]:
+    """``(path, spec)`` for every leaf, dict keys in sorted order (the order
+    of a flattened pytree)."""
+    if isinstance(tree, Spec):
+        yield path, tree
+        return
+    for key in sorted(tree):
+        yield from spec_leaves(tree[key], (*path, key))
+
+
+def spec_map(fn: Callable[[Spec], Any], tree) -> Any:
+    if isinstance(tree, Spec):
+        return fn(tree)
+    return {key: spec_map(fn, sub) for key, sub in tree.items()}
+
+
+def init_tensor(s: Spec, generator: torch.Generator, device) -> torch.Tensor:
+    """One float32 parameter by the reference's rules: zeros / ones, or a
+    normal draw times ``std`` (``1/sqrt(fan_in)`` by default, 0.02 for
+    embeddings).  The draw is made on the generator's device and moved to
+    ``device``."""
+    device = torch.device(device)
+    if s.init == "zeros":
+        return torch.zeros(s.shape, device=device)
+    if s.init == "ones":
+        return torch.ones(s.shape, device=device)
+    std = s.std
+    if std is None:
+        std = s._default_std() if s.init == "normal" else 0.02
+    if s.init == "embed":
+        std = 0.02 if s.std is None else s.std
+    out = torch.randn(s.shape, generator=generator, device=generator.device)
+    return out.mul_(std).to(device)
+
+
+def init_params(tree, generator: torch.Generator, device) -> Any:
+    """A tree of float32 tensors for a spec tree, drawn leaf by leaf in
+    :func:`spec_leaves` order from ``generator``."""
+    flat = {path: init_tensor(s, generator, device) for path, s in spec_leaves(tree)}
+
+    def build(sub, path):
+        if isinstance(sub, Spec):
+            return flat[path]
+        return {key: build(val, (*path, key)) for key, val in sub.items()}
+
+    return build(tree, ())
+
+
+# -- primitive layers -------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm in float32 with a ``(1 + scale)`` gain, returned in ``x``'s dtype."""
+    x32 = x.to(torch.float32)
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * (1.0 + scale.to(torch.float32))).to(x.dtype)
+
+
+def rope(positions: torch.Tensor, head_dim: int, theta: float = 10000.0) -> tuple:
+    """Rotary embedding tables for given positions [..., S] -> (sin, cos) of
+    shape [..., S, head_dim//2]."""
+    half = head_dim // 2
+    exponent = torch.arange(half, dtype=torch.float32, device=positions.device) / half
+    freqs = 1.0 / (theta ** exponent)
+    angles = positions.to(torch.float32)[..., None] * freqs
+    return torch.sin(angles), torch.cos(angles)
+
+
+def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor) -> torch.Tensor:
+    """x: [B, S, H, D]; sin/cos: [B, S, D/2] (or broadcastable).  The head is
+    split in halves (not interleaved pairs)."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    if sin.dim() == x.dim() - 1:
+        sin, cos = sin[..., None, :], cos[..., None, :]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def swiglu(x: torch.Tensor, w1, w3, w2, compute_dtype) -> torch.Tensor:
+    h = x @ w1.to(compute_dtype)
+    g = x @ w3.to(compute_dtype)
+    return (F.silu(h) * g) @ w2.to(compute_dtype)
+
+
+def gelu_mlp(x: torch.Tensor, w1, w2, compute_dtype) -> torch.Tensor:
+    """``jax.nn.gelu``'s default is the tanh approximation."""
+    h = x @ w1.to(compute_dtype)
+    return F.gelu(h, approximate="tanh") @ w2.to(compute_dtype)
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    """gemma2-style logit soft-capping: cap * tanh(x / cap)."""
+    return cap * torch.tanh(x / cap)

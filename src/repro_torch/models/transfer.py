@@ -1,0 +1,52 @@
+"""Carry the reference package's model weights into the port.
+
+:func:`params_from_jax` takes the reference's parameter tree as nested dicts
+of numpy arrays (``jax.tree.map(np.asarray, repro.models.init_model_params(
+cfg, key))``) and returns the state dict of the port's
+:class:`~repro_torch.models.transformer.Transformer` for the same config:
+each stacked ``stack`` leaf is split along its leading ``n_superblocks`` axis
+into one tensor per layer; every other leaf (the embedding, tied or not, and
+the audio ``[K, V, d]`` / ``[K, d, V]`` tables) keeps its name and shape.
+It takes numpy, so it imports no jax.
+"""
+
+from __future__ import annotations
+
+from typing import Iterator
+
+import numpy as np
+import torch
+
+from .config import ModelConfig
+from .transformer import Transformer, state_items
+
+__all__ = ["params_from_jax", "tree_leaves"]
+
+
+def tree_leaves(tree, path: tuple = ()) -> Iterator[tuple[tuple, np.ndarray]]:
+    """``(path, leaf)`` of a nested dict of arrays, keys in sorted order."""
+    if not isinstance(tree, dict):
+        yield path, tree
+        return
+    for key in sorted(tree):
+        yield from tree_leaves(tree[key], (*path, key))
+
+
+def params_from_jax(cfg: ModelConfig, tree: dict) -> dict[str, torch.Tensor]:
+    """The port's module state (CPU tensors, the arrays' dtypes) for the
+    reference's parameter tree of ``cfg``.  Raises ``KeyError`` or
+    ``ValueError`` when the tree does not match the config."""
+    expected = Transformer(cfg, device="meta").state_dict()
+    state = {}
+    for path, leaf in tree_leaves(tree):
+        arr = np.asarray(leaf)
+        for name, part in state_items(path, arr):
+            if name not in expected:
+                raise KeyError(f"{'/'.join(path)}: no parameter {name!r} in the port's model")
+            if tuple(part.shape) != tuple(expected[name].shape):
+                raise ValueError(f"{name}: shape {part.shape}, expected {tuple(expected[name].shape)}")
+            state[name] = torch.from_numpy(np.array(part, copy=True))
+    missing = sorted(set(expected) - set(state))
+    if missing:
+        raise KeyError(f"the tree lacks {missing}")
+    return state

@@ -1,0 +1,371 @@
+"""Model assembly: embeddings -> (head blocks, stacked superblocks, tail
+blocks) -> final norm -> LM head.
+
+The model is a :class:`Transformer` (``nn.Module``) whose parameters carry the
+reference's leaf names and shapes (``embed``, ``ln1``, ``attn.wq`` ``[d, H,
+Dh]``, ..., ``final_norm``, ``out``).  The reference stacks each superblock
+position's parameters along a leading ``n_superblocks`` axis and scans over
+it; here layer ``l`` of position ``i`` is ``model.stack[l][str(i)]``, index
+``l`` of that axis, so carrying weights across is a copy
+(``models/transfer.py``).  The KV cache keeps the reference's stacked layout
+and is updated in place.
+
+This slice ports the dense attention family (GQA, sliding windows, softcaps,
+sandwich norms; text, VLM and audio embeddings) for serving, without grad.
+MLA, MoE, mLSTM, sLSTM, Mamba2 and the training loss belong to later slices
+and raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Iterator
+
+import torch
+from torch import nn
+
+from . import attention as attn
+from .config import BlockDef, ModelConfig
+from .layers import (
+    Spec,
+    gelu_mlp,
+    init_tensor,
+    rms_norm,
+    softcap,
+    spec_leaves,
+    spec_map,
+    swiglu,
+)
+
+__all__ = [
+    "Transformer",
+    "param_specs",
+    "block_specs",
+    "init_model_params",
+    "count_params",
+    "state_items",
+    "forward",
+    "apply_block",
+    "embed_tokens",
+    "logits_from_hidden",
+    "loss_fn",
+    "init_cache",
+]
+
+MODES = ("train", "prefill", "decode")
+_UNPORTED_KINDS = {
+    "mla": "the MLA/MoE slice",
+    "mlstm": "the xlstm slice",
+    "slstm": "the xlstm slice",
+    "mamba2": "the mamba2 slice",
+}
+
+
+def _unported(what: str, slice_name: str):
+    return NotImplementedError(f"{what} is not ported yet: it belongs to {slice_name} of the port")
+
+
+# -- parameter spec tree -------------------------------------------------------------------
+
+
+def _ffn_specs(cfg: ModelConfig, bdef: BlockDef) -> dict:
+    d = cfg.d_model
+    ff = bdef.d_ff or cfg.d_ff
+    std = 1.0 / math.sqrt(d)
+    if bdef.ffn == "none":
+        return {}
+    if bdef.ffn == "moe":
+        raise _unported("the mixture-of-experts FFN (ffn='moe')", "the MLA/MoE slice")
+    if bdef.ffn == "gelu":
+        return {
+            "w1": Spec((d, ff), ("fsdp_embed", "mlp"), std=std),
+            "w2": Spec((ff, d), ("mlp", "fsdp_embed"), std=1.0 / math.sqrt(ff)),
+        }
+    return {  # swiglu / geglu (gated)
+        "w1": Spec((d, ff), ("fsdp_embed", "mlp"), std=std),
+        "w3": Spec((d, ff), ("fsdp_embed", "mlp"), std=std),
+        "w2": Spec((ff, d), ("mlp", "fsdp_embed"), std=1.0 / math.sqrt(ff)),
+    }
+
+
+def block_specs(cfg: ModelConfig, bdef: BlockDef) -> dict:
+    if bdef.kind in _UNPORTED_KINDS:
+        raise _unported(f"the {bdef.kind!r} block", _UNPORTED_KINDS[bdef.kind])
+    specs: dict = {"ln1": Spec((cfg.d_model,), ("embed",), init="zeros")}
+    specs["attn"] = attn.attn_specs(cfg)
+    if bdef.ffn != "none":
+        specs["ln2"] = Spec((cfg.d_model,), ("embed",), init="zeros")
+        specs.update(_ffn_specs(cfg, bdef))
+    if bdef.post_norms:
+        specs["pn1"] = Spec((cfg.d_model,), ("embed",), init="zeros")
+        if bdef.ffn != "none":
+            specs["pn2"] = Spec((cfg.d_model,), ("embed",), init="zeros")
+    return specs
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """The reference's spec tree: ``stack`` leaves carry the leading
+    ``n_superblocks`` axis."""
+    d, V = cfg.d_model, cfg.vocab
+    tree: dict = {}
+    if cfg.modality == "audio":
+        tree["embed"] = Spec((cfg.num_codebooks, V, d), (None, "vocab", "fsdp_embed"), init="embed")
+    else:
+        tree["embed"] = Spec((V, d), ("vocab", "fsdp_embed"), init="embed")
+    if cfg.head_blocks:
+        tree["head"] = {str(i): block_specs(cfg, b) for i, b in enumerate(cfg.head_blocks)}
+    tree["stack"] = {
+        str(i): {} if b.shared else spec_map(lambda s: s.stacked(cfg.n_superblocks),
+                                              block_specs(cfg, b))
+        for i, b in enumerate(cfg.superblock)
+    }
+    if cfg.tail_blocks:
+        tree["tail"] = {str(i): block_specs(cfg, b) for i, b in enumerate(cfg.tail_blocks)}
+    if cfg.has_shared_block:
+        tree["shared"] = block_specs(cfg, cfg.shared_block)
+    tree["final_norm"] = Spec((d,), ("embed",), init="zeros")
+    if not cfg.tie_embeddings:
+        if cfg.modality == "audio":
+            tree["out"] = Spec((cfg.num_codebooks, d, V), (None, "embed", "vocab"),
+                               std=1.0 / math.sqrt(d))
+        else:
+            tree["out"] = Spec((d, V), ("embed", "vocab"), std=1.0 / math.sqrt(d))
+    return tree
+
+
+def count_params(cfg: ModelConfig) -> int:
+    return sum(math.prod(s.shape) for _, s in spec_leaves(param_specs(cfg)))
+
+
+def _dt(name: str) -> torch.dtype:
+    return getattr(torch, name)
+
+
+# -- the module ----------------------------------------------------------------------------------
+
+
+def _param(shape, device) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, device=device), requires_grad=False)
+
+
+class _Params(nn.Module):
+    """Float32 parameters named and shaped after a spec dict; a nested dict
+    becomes a child module of the same name."""
+
+    def __init__(self, specs: dict, device):
+        super().__init__()
+        for key, s in specs.items():
+            if isinstance(s, Spec):
+                self.register_parameter(key, _param(s.shape, device))
+            else:
+                self.add_module(key, _Params(s, device))
+
+
+class Transformer(nn.Module):
+    """The float32 parameters of one model config, uninitialized (see
+    :func:`init_model_params` and ``transfer.params_from_jax``)."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        if cfg.has_shared_block:
+            raise _unported("a shared block (zamba2)", "the mamba2 slice")
+        self.cfg = cfg
+        specs = param_specs(cfg)
+        per_layer = {i: spec_map(lambda s: Spec(s.shape[1:], s.logical[1:], s.init, s.std), sub)
+                     for i, sub in specs["stack"].items()}
+        self.embed = _param(specs["embed"].shape, device)
+        for seg in ("head", "tail"):
+            if seg in specs:
+                self.add_module(seg, nn.ModuleDict(
+                    {i: _Params(sub, device) for i, sub in specs[seg].items()}))
+        self.stack = nn.ModuleList(
+            nn.ModuleDict({i: _Params(sub, device) for i, sub in per_layer.items()})
+            for _ in range(cfg.n_superblocks)
+        )
+        self.final_norm = _param(specs["final_norm"].shape, device)
+        if "out" in specs:
+            self.out = _param(specs["out"].shape, device)
+
+    def blocks(self) -> Iterator[tuple[str, str, int, BlockDef, nn.Module]]:
+        """``(segment, position, layer, bdef, params)`` in execution order;
+        ``layer`` indexes the stacked cache (0 outside the stack)."""
+        cfg = self.cfg
+        for i, b in enumerate(cfg.head_blocks):
+            yield "head", str(i), 0, b, self.head[str(i)]
+        for layer, sub in enumerate(self.stack):
+            for i, b in enumerate(cfg.superblock):
+                yield "stack", str(i), layer, b, sub[str(i)]
+        for i, b in enumerate(cfg.tail_blocks):
+            yield "tail", str(i), 0, b, self.tail[str(i)]
+
+
+def state_items(path: tuple, value) -> Iterator[tuple[str, object]]:
+    """The module-state names of one leaf of the reference's parameter tree:
+    a ``stack`` leaf splits along its leading axis, one name per layer."""
+    if path[0] == "stack":
+        rest = ".".join(path[1:])
+        for layer in range(value.shape[0]):
+            yield f"stack.{layer}.{rest}", value[layer]
+    else:
+        yield ".".join(path), value
+
+
+def init_model_params(cfg: ModelConfig, generator: torch.Generator, device=None) -> Transformer:
+    """A :class:`Transformer` with random float32 weights by the reference's
+    rules (``layers.init_tensor``), drawn leaf by leaf from ``generator``
+    (a stacked leaf in one draw, so layer ``l`` is index ``l`` of it).
+    ``device`` defaults to the generator's."""
+    device = generator.device if device is None else torch.device(device)
+    model = Transformer(cfg, device=device)
+    with torch.no_grad():
+        for path, s in spec_leaves(param_specs(cfg)):
+            value = init_tensor(s, generator, device)
+            for name, part in state_items(path, value):
+                model.get_parameter(name).copy_(part)
+    return model
+
+
+# -- block application ------------------------------------------------------------------------
+
+
+def _ffn_apply(p, x, cfg, bdef):
+    aux = 0.0
+    if bdef.ffn == "none":
+        return torch.zeros_like(x), aux
+    h = rms_norm(x, p.ln2, cfg.norm_eps)
+    if bdef.ffn == "gelu":
+        y = gelu_mlp(h, p.w1, p.w2, x.dtype)
+    elif bdef.ffn == "geglu":
+        a = h @ p.w1.to(x.dtype)
+        g = h @ p.w3.to(x.dtype)
+        y = (torch.nn.functional.gelu(a, approximate="tanh") * g) @ p.w2.to(x.dtype)
+    else:
+        y = swiglu(h, p.w1, p.w3, p.w2, x.dtype)
+    if bdef.post_norms:
+        y = rms_norm(y, p.pn2, cfg.norm_eps)
+    return y, aux
+
+
+def apply_block(bdef: BlockDef, p, x, cfg, positions, cache, cache_index, mode, engine="auto"):
+    """Returns (x_out, cache, aux_loss); the cache is updated in place."""
+    h = rms_norm(x, p.ln1, cfg.norm_eps)
+    if mode == "decode":
+        o, cache = attn.attn_block_decode(p.attn, h, cfg, bdef, cache, cache_index)
+    else:
+        o, cache = attn.attn_block_full(p.attn, h, cfg, bdef, positions, cache=cache,
+                                        cache_index=cache_index, engine=engine)
+    if bdef.post_norms:
+        o = rms_norm(o, p.pn1, cfg.norm_eps)
+    x = x + o
+    y, aux = _ffn_apply(p, x, cfg, bdef)
+    return x + y, cache, aux
+
+
+# -- cache construction -------------------------------------------------------------------------
+
+
+def init_cache(cfg: ModelConfig, batch: int, capacity: int, dtype=torch.bfloat16, device=None):
+    """Cache dict matching the segment structure.  Stacked blocks carry a
+    leading n_superblocks dim (layer ``l`` uses index ``l``)."""
+
+    def block_cache(b, n=None):
+        c = attn.empty_kv_cache(cfg, batch, capacity, dtype, window=b.window, device=device)
+        if n is None:
+            return c
+        return {key: t.unsqueeze(0).repeat(n, *([1] * t.dim())) for key, t in c.items()}
+
+    cache: dict = {}
+    if cfg.head_blocks:
+        cache["head"] = {str(i): block_cache(b) for i, b in enumerate(cfg.head_blocks)}
+    cache["stack"] = {str(i): block_cache(b, cfg.n_superblocks) for i, b in enumerate(cfg.superblock)}
+    if cfg.tail_blocks:
+        cache["tail"] = {str(i): block_cache(b) for i, b in enumerate(cfg.tail_blocks)}
+    return cache
+
+
+# -- embeddings & head --------------------------------------------------------------------------
+
+
+def embed_tokens(model: Transformer, cfg: ModelConfig, batch: dict, compute_dtype):
+    emb = model.embed
+    if cfg.modality == "audio":
+        # batch["tokens"]: [B, K, S] -> sum of per-codebook embeddings
+        codes = batch["tokens"].long()
+        x = torch.zeros((codes.shape[0], codes.shape[2], cfg.d_model), dtype=compute_dtype,
+                        device=emb.device)
+        for kb in range(cfg.num_codebooks):
+            x = x + emb[kb][codes[:, kb]].to(compute_dtype)
+    else:
+        x = emb[batch["tokens"].long()].to(compute_dtype)
+        if cfg.modality == "vlm" and "image_embeds" in batch:
+            # decode steps are text-only (the image is in the cache)
+            x = torch.cat([batch["image_embeds"].to(compute_dtype), x], dim=1)
+    if cfg.embed_scale:
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=compute_dtype, device=x.device)
+    return x
+
+
+def _out_weight(model: Transformer, cfg: ModelConfig):
+    if cfg.tie_embeddings:
+        emb = model.embed
+        return emb.T if cfg.modality != "audio" else emb.transpose(1, 2)
+    return model.out
+
+
+# -- full forward --------------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def forward(model: Transformer, batch: dict, cache=None, cache_index: int = 0, mode: str = "train",
+            engine: str = "auto"):
+    """Modes:
+    * train:   batch={tokens, ...} -> (x_final [B,S,d], None, aux)
+    * prefill: like train, writing k/v into ``cache`` from ``cache_index`` on
+      -> (x_final, cache, aux)
+    * decode:  batch={tokens [B,1]}, cache, index -> (x_final [B,1,d], cache, aux)
+
+    ``engine`` picks the attention of train and prefill (``attention.ATTN_ENGINES``).
+    The cache is updated in place and returned."""
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    if mode != "train" and cache is None:
+        raise ValueError(f"mode {mode!r} needs a cache (init_cache)")
+    cfg = model.cfg
+    compute = _dt(cfg.compute_dtype)
+    x = embed_tokens(model, cfg, batch, compute)
+    B, S = x.shape[:2]
+    positions = None
+    if mode != "decode":
+        positions = (torch.arange(S, device=x.device) + cache_index).expand(B, S)
+    aux_total = 0.0
+    for seg, pos, layer, bdef, p in model.blocks():
+        c = None
+        if cache is not None:
+            c = cache[seg][pos]
+            if seg == "stack":
+                c = {key: t[layer] for key, t in c.items()}
+        x, _, aux = apply_block(bdef, p, x, cfg, positions, c, cache_index, mode, engine)
+        aux_total += aux
+    x = rms_norm(x, model.final_norm, cfg.norm_eps)
+    return x, cache, aux_total
+
+
+@torch.no_grad()
+def logits_from_hidden(model: Transformer, x: torch.Tensor) -> torch.Tensor:
+    """Float32 logits of compute-dtype products, as the reference's
+    ``preferred_element_type=float32`` einsum (bfloat16 products are exact
+    in float32; TF32 must be off on the card)."""
+    cfg = model.cfg
+    w = _out_weight(model, cfg).to(x.dtype).float()
+    if cfg.modality == "audio":
+        logits = torch.einsum("bsd,kdv->bksv", x.float(), w)
+    else:
+        logits = x.float() @ w
+    if cfg.final_softcap:
+        logits = softcap(logits, cfg.final_softcap)
+    return logits
+
+
+def loss_fn(*args, **kwargs):
+    raise _unported("the training loss (loss_fn)", "the training slice")
+

@@ -10,7 +10,13 @@ Parzen tolerance atol 2e-4 / rtol 1e-4 against the plain PyTorch version on
 the same tensors: the reference's own engine tolerance, since the kernel
 sums its online logsumexp in another order than ``torch.logsumexp``.  The
 Monte-Carlo hypervolume counts are integers and are held exactly.
+Flash attention is held to its plain version within the reference's kernel
+tolerances (``tests/test_kernels.py``): 1e-4 in float32 and 2e-2 in
+bfloat16, where the kernel's float32 sums run in another order and the
+output is rounded once to bfloat16.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -19,8 +25,12 @@ import torch
 import repro_torch.core as hpo
 from repro_torch.core.samplers.tpe import _ParzenEstimator, _pad_est
 from repro_torch.core import moo
+from repro_torch import configs
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import hypervolume, parzen
-from repro_torch.kernels.ref import mc_hv_counts_ref, parzen_score_ref
+from repro_torch.kernels.ref import flash_attention_ref, mc_hv_counts_ref, parzen_score_ref
+from repro_torch.models import init_model_params
+from repro_torch.serve import Engine
 
 ATOL, RTOL = 2e-4, 1e-4
 
@@ -244,3 +254,94 @@ def test_pareto_front_on_the_card_equals_numpy(cuda_device):
     on_card = hpo.Study(study.study_name, study._storage, engine="cuda")
     assert [t.number for t in on_card.best_trials] == [t.number for t in study.best_trials]
     assert on_card.pareto_front()[1].tolist() == study.pareto_front()[1].tolist()
+
+
+# -- flash attention ---------------------------------------------------------------
+
+
+FA_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _qkv(device, dtype, B, Hq, Hkv, Sq, Skv, D, seed, scale=1.0):
+    rng = np.random.RandomState(seed)
+
+    def make(H, S):
+        return torch.from_numpy((rng.randn(B, H, S, D) * scale).astype(np.float32)).to(device, dtype)
+
+    return make(Hq, Sq), make(Hkv, Skv), make(Hkv, Skv)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "B,Hq,Hkv,Sq,Skv,D,kw",
+    [
+        (1, 2, 2, 64, 64, 32, {}),                                      # MHA
+        (2, 4, 2, 128, 128, 32, {}),                                    # GQA 2x
+        (1, 8, 1, 96, 96, 16, {}),                                      # MQA, ragged tiles
+        (1, 2, 2, 128, 128, 128, {}),
+        (2, 4, 2, 200, 200, 64, {"window": 32}),
+        (1, 4, 2, 100, 100, 16, {"softcap": 10.0}),
+        (1, 2, 2, 48, 48, 16, {"causal": False}),
+        (2, 4, 2, 40, 100, 64, {"q_offset": 30, "kv_len": 70}),         # prefill on a cache
+        (1, 16, 8, 300, 300, 256, {"window": 64, "softcap": 50.0}),     # gemma2 widths
+        (2, 4, 2, 33, 90, 256, {"q_offset": 50, "kv_len": 83, "window": 40, "softcap": 50.0}),
+    ],
+)
+def test_flash_attention_kernel_matches_plain_version(cuda_device, dtype, B, Hq, Hkv, Sq, Skv, D, kw):
+    q, k, v = _qkv(cuda_device, dtype, B, Hq, Hkv, Sq, Skv, D, Sq + D, scale=2.0)
+    before = fa.launches()
+    out = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.launches() == before + 1
+    assert out.dtype == dtype and out.shape == q.shape and out.device.type == "cuda"
+    torch.testing.assert_close(out.float(), flash_attention_ref(q, k, v, **kw).float(),
+                               atol=FA_TOL[dtype], rtol=FA_TOL[dtype])
+    # the model's [B, S, H, D] tensors as strided views, no copy; the output
+    # keeps their strides
+    bshd = [t.transpose(1, 2).contiguous() for t in (q, k, v)]
+    out_view = fa.flash_attention(*(t.transpose(1, 2) for t in bshd), **kw)
+    assert out_view.transpose(1, 2).is_contiguous()
+    torch.testing.assert_close(out_view, out, atol=0, rtol=0)
+
+
+def test_flash_attention_cuda_tensor_of_the_wrong_kind_raises(cuda_device):
+    q, k, v = _qkv(cuda_device, torch.float32, 1, 2, 2, 16, 16, 16, 0)
+    before = fa.launches()
+    with pytest.raises(TypeError):
+        fa.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError):
+        fa.flash_attention(q, k.bfloat16(), v)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q[..., :8], k[..., :8], v[..., :8])  # head dim 8
+    with pytest.raises(ValueError):
+        fa.flash_attention(q.transpose(2, 3), k.transpose(2, 3), v.transpose(2, 3))
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, k.cpu(), v)
+    assert fa.launches() == before
+
+
+def _smoke_engine(arch, engine, device):
+    # float32 compute: the two engines then differ by float32 rounding alone,
+    # far below any gap between the top two logits (chip_smoke.py holds the
+    # bfloat16 main path to a gap rule instead)
+    cfg = dataclasses.replace(configs.get_smoke_config(arch), compute_dtype="float32")
+    model = init_model_params(cfg, torch.Generator(device=device).manual_seed(0), device)
+    return cfg, Engine(cfg, model, capacity=64, slots=4, device=device, engine=engine)
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "gemma2-9b"])
+def test_engine_cuda_and_torch_give_the_same_greedy_tokens(cuda_device, arch):
+    """The prefill's attention on the kernel and on the plain version, from
+    the same weights: the same greedy tokens; the kernel launches once per
+    layer and prefill."""
+    rng = np.random.RandomState(3)
+    prompts = [rng.randint(1, 256, size=n) for n in (5, 23, 17, 9, 30)]  # two groups
+    outs = {}
+    for engine in ("torch", "cuda"):
+        cfg, eng = _smoke_engine(arch, engine, cuda_device)
+        fa.reset_launches()
+        outs[engine] = eng.generate(prompts, max_new=12)
+        torch.cuda.synchronize()
+        n_layers = len(cfg.superblock) * cfg.n_superblocks
+        assert fa.launches() == (n_layers * 2 if engine == "cuda" else 0)
+    assert outs["cuda"] == outs["torch"]

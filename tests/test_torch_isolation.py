@@ -5,8 +5,10 @@
   a process where both are blocked.
 * Without a CUDA device every engine but ``"numpy"`` raises unless the
   caller passes ``device="cpu"``; ``engine="cuda"`` never runs on the CPU.
-* The sampling path holds no broad ``except`` that could hide a device
-  error, and the parts of later slices raise ``NotImplementedError``.
+* The sampling and serving paths hold no broad ``except`` that could hide a
+  device error, and the parts of later slices raise ``NotImplementedError``.
+* A default serving ``Engine`` needs a CUDA device unless the caller passes
+  ``device="cpu"``.
 """
 
 import ast
@@ -20,8 +22,13 @@ import pytest
 import torch
 
 import repro_torch.core as hpo
+from repro_torch import configs
 from repro_torch.core.pruners import pruner_from_spec
 from repro_torch.kernels import ops
+from repro_torch.launch import serve as launch_serve
+from repro_torch.models import Transformer, init_model_params, loss_fn
+from repro_torch.models import attention as attn
+from repro_torch.serve import Engine
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -138,7 +145,9 @@ def _broad_handlers(path: Path):
     "rel",
     ["core/samplers/tpe.py", "kernels/ops.py", "kernels/parzen.py",
      "kernels/ref.py", "kernels/_build.py", "core/moo.py", "core/samplers/nsga2.py",
-     "core/pruners/moo.py", "kernels/hypervolume.py"],
+     "core/pruners/moo.py", "kernels/hypervolume.py", "kernels/flash_attention.py",
+     "models/attention.py", "models/transformer.py", "models/transfer.py", "serve/engine.py",
+     "launch/serve.py"],
 )
 def test_sampling_path_has_no_broad_except(rel):
     assert list(_broad_handlers(PORT / rel)) == []
@@ -157,3 +166,63 @@ def test_later_slices_raise_not_implemented():
         storage.get_observation_block(0)
     study = hpo.create_study(engine="numpy", directions=["minimize", "maximize"])
     assert study.best_trials == []
+
+
+@pytest.mark.parametrize(
+    "arch,slice_name",
+    [("deepseek-v2-lite-16b", "MLA/MoE"), ("qwen3-moe-235b-a22b", "MLA/MoE"),
+     ("xlstm-1.3b", "xlstm"), ("zamba2-1.2b", "mamba2")],
+)
+def test_unported_model_families_raise(arch, slice_name):
+    """MLA, MoE, mLSTM / sLSTM and Mamba2 configs load; building them raises."""
+    cfg = configs.get_smoke_config(arch)
+    with pytest.raises(NotImplementedError, match=slice_name):
+        Transformer(cfg, device="meta")
+    with pytest.raises(NotImplementedError, match=slice_name):
+        init_model_params(cfg, torch.Generator().manual_seed(0), "cpu")
+
+
+@pytest.mark.parametrize("kind,slice_name", [("mlstm", "xlstm"), ("slstm", "xlstm"),
+                                             ("mamba2", "mamba2"), ("mla", "MLA/MoE")])
+def test_unported_block_kinds_raise(kind, slice_name):
+    import dataclasses
+
+    from repro_torch.models import BlockDef
+
+    cfg = dataclasses.replace(configs.get_smoke_config("tinyllama-1.1b"),
+                              superblock=(BlockDef(kind=kind),))
+    with pytest.raises(NotImplementedError, match=slice_name):
+        Transformer(cfg, device="meta")
+
+
+def test_moe_ffn_loss_mla_and_checkpoint_raise():
+    import dataclasses
+
+    from repro_torch.models import BlockDef
+
+    cfg = dataclasses.replace(configs.get_smoke_config("tinyllama-1.1b"),
+                              superblock=(BlockDef(kind="attn", ffn="moe"),))
+    with pytest.raises(NotImplementedError, match="MLA/MoE"):
+        Transformer(cfg, device="meta")
+    with pytest.raises(NotImplementedError, match="training"):
+        loss_fn(None, None, {})
+    for fn in (attn.mla_specs, attn.mla_block_full, attn.mla_block_decode, attn.empty_mla_cache):
+        with pytest.raises(NotImplementedError, match="MLA"):
+            fn(cfg)
+    with pytest.raises(NotImplementedError, match="training slice"):
+        launch_serve.main(["--smoke", "--device", "cpu", "--checkpoint", "x.ckpt"])
+
+
+def test_default_engine_needs_cuda_or_an_explicit_cpu(no_cuda):
+    cfg = configs.get_smoke_config("smollm-135m")
+    model = Transformer(cfg, device="cpu")
+    for engine in ("auto", "torch", "cuda"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            Engine(cfg, model, engine=engine)
+    with pytest.raises(RuntimeError):
+        Engine(cfg, model, device="cpu", engine="cuda")
+    assert Engine(cfg, model, device="cpu").device == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch_serve.main(["--smoke"])
+    with pytest.raises(RuntimeError, match="cannot run"):
+        attn.attention_full(*[torch.zeros(1, 4, 2, 16)] * 3, engine="cuda")
