@@ -58,7 +58,33 @@ Phases, each of which fails the run by raising:
     group gives the card's idle share during decode;
 11. the same at gemma2-9b's full width cut to 2 superblocks (4 layers: two
     sliding-window layers on ring caches, two global, softcap 50): two
-    requests of 4608 and 8192 tokens, capacity 8224, 16 new tokens.
+    requests of 4608 and 8192 tokens, capacity 8224, 16 new tokens;
+12. the fused cross-entropy kernel against its plain PyTorch version (atol
+    1e-4, rtol 1e-5) at the tune study's shapes, ragged edges in float32 and
+    bfloat16 with and without softcap 30, and the training shapes of
+    tinyllama-1.1b (T 16384, D 2048, V 32000) and gemma2-9b (T 8192, D 3584,
+    V 256000, softcap 30, the tied head as a transposed view), each with
+    its time, the plain version's, ``F.cross_entropy(x @ W)``'s where it
+    computes the same function, and the bound; then the Function's dx / dW
+    against autograd through the plain version;
+13. the flash-attention Function's dq / dk / dv against autograd through
+    the plain version: tinyllama's heads at B 2, S 2048 in bf16 and f32,
+    gemma2's (window 4096, softcap 50, D 256) at B 1, S 8192;
+14. training tinyllama-1.1b at full size through ``repro_torch.launch.
+    train.main``: 8 steps of batch 8 x 2048 tokens, bf16 compute, AdamW,
+    each step synchronized and timed, the two kernels' launch counts set to
+    0 just before and held to 1 and 2 x 22 a step just after, falling
+    finite losses; then one batch's loss on the ``cuda`` and ``torch``
+    engines, and a ``torch.profiler`` trace of one step (the card's idle
+    share, kernel time by kind, ``build/train_trace_tinyllama.json``);
+15. the same through ``Trainer`` at gemma2-9b's full width cut to 4 layers:
+    3 steps of 1 x 8192 tokens (window, softcaps, D 256, the tied 256k
+    head);
+16. a dense tune study, ``make_lm_objective(LMTuneSpec(families=
+    ("dense",)))`` with ``TPESampler(seed=0, engine="cuda")`` and
+    ``SuccessiveHalvingPruner(min_resource=10, reduction_factor=2)``, 16
+    trials: the Parzen, cross-entropy and flash-attention launch counts all
+    above 0, the best trial deployed through ``FixedTrial``.
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -107,6 +133,23 @@ BF16_TC_OPS_PER_S = 989e12
 #: (tests/test_models_smoke.py)
 FA_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 LOGITS_TOL = 8e-2
+#: the cross-entropy kernel against its plain version: the same float32
+#: products (W rounded to x's type in both) summed in another order, and an
+#: online logsumexp against torch.logsumexp, on NLLs of order 10-15
+CE_ATOL, CE_RTOL = 1e-4, 1e-5
+#: written-out backwards against autograd through the plain versions, as a
+#: fraction of the largest |gradient|: float32 sums in another order; in
+#: bfloat16 one bfloat16 rounding (a relative step of 2**-8) of each side
+CE_GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0**-7}
+FA_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0**-7}
+#: the training loss of one batch on the cuda and torch engines (bf16
+#: compute), about 1e-4 of a loss near ln(32000) = 10.4.  The engines differ
+#: by one bf16 rounding of each attention output (phase 9's 2e-2 on outputs
+#: of order 1) and by the float32 order of the cross-entropy sums, and the
+#: per-token differences average over the batch's tokens: on the H100 the
+#: gaps were 4.5e-5 (tinyllama) and 1.0e-4 (gemma2, 4 layers), so 1e-3
+#: leaves ten times the larger and still fails a path off by 1e-4 of the loss
+TRAIN_LOSS_TOL = 1e-3
 
 
 def nvidia_smi(query: str) -> str:
@@ -117,10 +160,10 @@ def nvidia_smi(query: str) -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int) -> float:
+def time_ms(fn, reps: int, warmup: int = 3) -> float:
     """Mean milliseconds per call of ``fn`` over ``reps`` calls, from CUDA
-    events, after a warm-up."""
-    for _ in range(3):
+    events, after ``warmup`` calls."""
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -1144,6 +1187,478 @@ def phase_gemma2() -> dict:
     return result
 
 
+# -- training slice ------------------------------------------------------------------
+
+
+def ce_bound_ms(T: int, D: int, V: int, x_dtype, w_dtype, label_dtype) -> tuple[float, str, int]:
+    """Least time for one fused cross-entropy call: the larger of its 2 T D V
+    FLOPs over the rate of x's type (bf16 tensor cores, else the float32
+    CUDA cores) and its bytes (x, W and the labels read once, the NLL and lse
+    written once) over the memory rate."""
+    flops = 2 * T * D * V
+    peak = BF16_TC_OPS_PER_S if x_dtype == torch.bfloat16 else FP32_OPS_PER_S
+    nbytes = (T * D * (torch.finfo(x_dtype).bits // 8) + D * V * (torch.finfo(w_dtype).bits // 8)
+              + T * (torch.iinfo(label_dtype).bits // 8) + 2 * 4 * T)
+    ops_s, bytes_s = flops / peak, nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(ops_s, bytes_s), ("operations" if ops_s >= bytes_s else "bytes"), flops
+
+
+def ce_inputs(gen, T, D, V, x_dtype, w_dtype, tied):
+    """x ~ N(0, 1) and W ~ N(0, 9 / D): logits of standard deviation near 3.
+    ``tied``: W is the transposed view of a [V, D] embedding (gemma2's head)."""
+    x = torch.randn(T, D, generator=gen, device="cuda").to(x_dtype)
+    scale = 3.0 / math.sqrt(D)
+    if tied:
+        w = (torch.randn(V, D, generator=gen, device="cuda") * scale).to(w_dtype).T
+    else:
+        w = (torch.randn(D, V, generator=gen, device="cuda") * scale).to(w_dtype)
+    labels = torch.randint(0, V, (T,), generator=gen, device="cuda", dtype=torch.int32)
+    return x, w, labels
+
+
+def check_ce(gen, label, T, D, V, x_dtype, w_dtype, softcap, tied, reps, bad_label=False) -> dict:
+    """The cross-entropy kernel against its plain version on one shape, with
+    CUDA-event times, the yardstick ``F.cross_entropy(x @ W)`` where it
+    computes the same function (no softcap), and the bound."""
+    from repro_torch.kernels.crossentropy import crossentropy_forward
+    from repro_torch.kernels.ref import crossentropy_lse_ref
+
+    x, w, labels = ce_inputs(gen, T, D, V, x_dtype, w_dtype, tied)
+    if bad_label:
+        labels[0] = -1  # no label logit for this row
+    nll, lse = crossentropy_forward(x, w, labels, softcap)
+    ref_nll, ref_lse = crossentropy_lse_ref(x, w, labels, softcap)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(nll, ref_nll, atol=CE_ATOL, rtol=CE_RTOL, msg=label)
+    torch.testing.assert_close(lse, ref_lse, atol=CE_ATOL, rtol=CE_RTOL, msg=label)
+    err = max(float((nll - ref_nll).abs().max()), float((lse - ref_lse).abs().max()))
+    ref_rms = float(ref_nll.pow(2).mean().sqrt())
+    del nll, lse, ref_nll, ref_lse
+    big = T * V >= 1 << 28
+    ms = time_ms(lambda: crossentropy_forward(x, w, labels, softcap), reps, 1 if big else 3)
+    plain_ms = time_ms(lambda: crossentropy_lse_ref(x, w, labels, softcap), max(1, reps // 2),
+                       1 if big else 3)
+    library_ms = None
+    if not softcap:  # one library call computes the same function (W pre-cast to x's type)
+        F = torch.nn.functional
+        w_x, lab = w.to(x_dtype), labels.long().clamp(0, V - 1)
+        library_ms = time_ms(lambda: F.cross_entropy(torch.matmul(x, w_x).float(), lab,
+                                                     reduction="none"), reps, 1 if big else 3)
+        del w_x
+    bound_ms, bound_by, flops = ce_bound_ms(T, D, V, x_dtype, w.dtype, labels.dtype)
+    name = lambda d: "bfloat16" if d == torch.bfloat16 else "float32"  # noqa: E731
+    row = {"label": label, "T": T, "D": D, "V": V, "x_dtype": name(x_dtype),
+           "w_dtype": name(w_dtype), "softcap": softcap, "tied": tied, "max_abs_err": err,
+           "ref_rms": ref_rms, "atol": CE_ATOL, "rtol": CE_RTOL, "ms": ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
+           "tflops": flops / (ms * 1e9)}
+    lib = f"{library_ms:.4f} ms" if library_ms is not None else "none (softcap)"
+    print(f"  crossentropy {label:<22} T={T} D={D} V={V} x {name(x_dtype)} W {name(w_dtype)}"
+          f"{' tied' if tied else ''} softcap={softcap:g} max_abs_err={err:.3e} "
+          f"rms(ref)={ref_rms:.3f} kernel={ms:.4f} ms ({row['tflops']:.2f} TFLOP/s) "
+          f"plain={plain_ms:.4f} ms library={lib} bound={bound_ms:.4f} ms ({bound_by})")
+    return row
+
+
+def check_ce_grad(gen, label, T, D, V, x_dtype, softcap) -> dict:
+    """dx / dW of ``fused_crossentropy`` (the kernel forward, the written-out
+    backward) against autograd through the plain version, per-token weights
+    g ~ N(0, 1), W the transposed view of a float32 embedding.  Held to
+    CE_GRAD_TOL x max |reference| per tensor: float32 sums in another order,
+    and with bfloat16 x one bfloat16 rounding of dx (both) and of dW (the
+    plain version's gradient crosses W's cast to bfloat16; the Function
+    keeps dW in float32)."""
+    from repro_torch.kernels.crossentropy import fused_crossentropy
+    from repro_torch.kernels.ref import crossentropy_ref
+
+    x, w, labels = ce_inputs(gen, T, D, V, x_dtype, torch.float32, True)
+    g = torch.randn(T, generator=gen, device="cuda")
+    grads = []
+    for fn in (lambda a, b: fused_crossentropy(a, b, labels, softcap=softcap),
+               lambda a, b: crossentropy_ref(a, b, labels, softcap)):
+        xr = x.detach().requires_grad_()
+        emb = w.T.detach().requires_grad_()
+        grads.append(torch.autograd.grad((fn(xr, emb.T) * g).sum(), (xr, emb)))
+    torch.cuda.synchronize()
+    tol = CE_GRAD_TOL[x_dtype]
+    out = {"label": label, "T": T, "D": D, "V": V, "softcap": softcap,
+           "x_dtype": "bfloat16" if x_dtype == torch.bfloat16 else "float32", "tol": tol}
+    for name, got, want in zip(("dx", "dW"), *grads):
+        err = float((got.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
+        assert err <= tol * scale, (label, name, err, scale)
+        out[name] = {"max_abs_err": err, "max_abs_ref": scale}
+    print(f"  crossentropy grad {label:<18} {out['x_dtype']} softcap={softcap:g}: "
+          f"dx max_abs_err {out['dx']['max_abs_err']:.3e} (max |ref| {out['dx']['max_abs_ref']:.3e}), "
+          f"dW {out['dW']['max_abs_err']:.3e} (max |ref| {out['dW']['max_abs_ref']:.3e}); "
+          f"tolerance {tol:g} x max |ref|")
+    return out
+
+
+def phase_crossentropy() -> tuple[list[dict], list[dict]]:
+    """Phase 12: the cross-entropy kernel against its plain version, and the
+    Function's gradients against autograd through the plain version."""
+    print(f"phase 12: crossentropy kernel vs plain PyTorch version; "
+          f"{nvidia_smi('name,power.limit')}")
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    f32, bf16 = torch.float32, torch.bfloat16
+    rows = []
+    for D in (32, 64, 128):  # the tune study's shapes
+        rows.append(check_ce(gen, f"tune D={D}", 512, D, 256, bf16, f32, 0.0, False, 20))
+    for x_dtype in (f32, bf16):  # ragged edges: T and V not multiples of the tiles
+        for cap in (0.0, 30.0):
+            rows.append(check_ce(gen, "ragged", 1000, 48, 1000, x_dtype, f32, cap, False, 20,
+                                 bad_label=True))
+    rows.append(check_ce(gen, "ragged, tied bf16 W", 1000, 48, 1000, bf16, bf16, 30.0, True, 20))
+    rows.append(check_ce(gen, "tinyllama training", 16384, 2048, 32000, bf16, f32, 0.0, False, 5))
+    rows.append(check_ce(gen, "gemma2 training", 8192, 3584, 256000, bf16, f32, 30.0, True, 2))
+    grads = [check_ce_grad(gen, "ragged", 1000, 48, 1000, f32, 0.0),
+             check_ce_grad(gen, "ragged", 1000, 48, 1000, f32, 30.0),
+             check_ce_grad(gen, "ragged", 1000, 48, 1000, bf16, 30.0),
+             check_ce_grad(gen, "tinyllama, T=2048", 2048, 2048, 32000, bf16, 0.0)]
+    return rows, grads
+
+
+def check_flash_grad(gen, label, B, Hq, Hkv, S, D, dtype, kw, chunk) -> dict:
+    """dq / dk / dv of ``FlashAttentionFunction`` against autograd through
+    the plain version (q and k scaled by 3, as in phase 9), each held to
+    FA_GRAD_TOL x max |reference|; the written-out backward's time."""
+    from repro_torch.kernels.flash_attention import (
+        FlashAttentionFunction,
+        flash_attention_backward,
+    )
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    q, k, v = flash_inputs(gen, B, Hq, Hkv, S, S, D, dtype, True, 3.0)
+    do = torch.randn(B, S, Hq, D, generator=gen, device="cuda").to(dtype).transpose(1, 2)
+    args = (True, kw.get("window", -1), kw.get("softcap", 0.0), 0, None, chunk)
+    grads = []
+    for fn in (lambda a, b, c: FlashAttentionFunction.apply(a, b, c, *args),
+               lambda a, b, c: flash_attention_ref(a, b, c, **kw)):
+        ins = [t.detach().requires_grad_() for t in (q, k, v)]
+        grads.append(torch.autograd.grad(fn(*ins), ins, do))
+        del ins
+    torch.cuda.synchronize()
+    tol = FA_GRAD_TOL[dtype]
+    row = {"label": label, "B": B, "Hq": Hq, "Hkv": Hkv, "S": S, "D": D,
+           "dtype": "bfloat16" if dtype == torch.bfloat16 else "float32", **kw, "tol": tol}
+    for name, got, want in zip(("dq", "dk", "dv"), *grads):
+        err = float((got.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
+        assert err <= tol * scale, (label, name, err, scale)
+        row[name] = {"max_abs_err": err, "max_abs_ref": scale}
+    del grads
+    bw = dict(causal=True, window=args[1], softcap=args[2], chunk=chunk)
+    row["backward_ms"] = time_ms(lambda: flash_attention_backward(q, k, v, do, **bw), 2, 1)
+    print(f"  flash grad {label:<24} B={B} H={Hq}/{Hkv} S={S} D={D} {row['dtype']} {kw}: "
+          + ", ".join(f"{n} {row[n]['max_abs_err']:.3e} (max |ref| {row[n]['max_abs_ref']:.3e})"
+                      for n in ("dq", "dk", "dv"))
+          + f"; tolerance {tol:g} x max |ref|; backward {row['backward_ms']:.2f} ms")
+    return row
+
+
+def phase_flash_grad() -> list[dict]:
+    """Phase 13: the flash-attention gradient against autograd through the
+    plain version."""
+    print(f"phase 13: flash_attention gradient (written-out backward) vs autograd of the plain "
+          f"version; {nvidia_smi('name,power.limit')}")
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    return [check_flash_grad(gen, "tinyllama heads", 2, 32, 4, 2048, 64, dtype, {}, 256)
+            for dtype in (torch.bfloat16, torch.float32)] + [
+        check_flash_grad(gen, "gemma2 heads, window", 1, 16, 8, 8192, 256, torch.bfloat16,
+                         {"window": 4096, "softcap": 50.0}, 256)]
+
+
+class TrainStepTimer:
+    """Wraps ``make_train_step`` so that every step is synchronized with the
+    card on both sides and timed on the host clock."""
+
+    def __init__(self):
+        self.seconds: list[float] = []
+
+    def wrap(self, make):
+        def make_timed(*args, **kwargs):
+            step = make(*args, **kwargs)
+
+            def timed(*a):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = step(*a)
+                torch.cuda.synchronize()
+                self.seconds.append(time.perf_counter() - t0)
+                return out
+
+            return timed
+
+        return make_timed
+
+
+def run_training(label: str, cfg, run, tokens_per_step: int) -> dict:
+    """Runs ``run()`` (a launcher or a Trainer) with every train step timed
+    and both kernels' launch counts set to 0 just before and read just
+    after; asserts one cross-entropy and 2 x layers flash launches a step
+    (the remat recomputes each superblock's forward in the backward pass)."""
+    from repro_torch.kernels import crossentropy as ce
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.train import train_loop
+
+    timer = TrainStepTimer()
+    real = train_loop.make_train_step
+    train_loop.make_train_step = timer.wrap(real)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        ce.reset_launches()
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        result = run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {"crossentropy": ce.launches(), "flash_attention": fa.launches()}
+    finally:
+        train_loop.make_train_step = real
+    steps = len(timer.seconds)
+    n_layers = len(cfg.superblock) * cfg.n_superblocks
+    assert launches == {"crossentropy": steps, "flash_attention": 2 * n_layers * steps}, launches
+    losses = result["losses"]
+    assert len(losses) == steps and all(math.isfinite(l) for l in losses), losses
+    assert losses[-1] < losses[0], losses
+    out = {"label": label, "steps": steps, "seconds": seconds, "step_s": timer.seconds,
+           "tokens_per_step": tokens_per_step,
+           "tokens_per_s": [tokens_per_step / s for s in timer.seconds], "losses": losses,
+           "launches": launches, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    for i, (s, loss) in enumerate(zip(timer.seconds, losses)):
+        print(f"    step {i}: {s:.4f} s, {tokens_per_step / s:.1f} tokens/s, loss {loss:.4f}")
+    print(f"  {label}: {steps} steps in {seconds:.2f} s; peak memory {out['peak_mem_gib']:.2f} GiB; "
+          f"launches: crossentropy {launches['crossentropy']} == {steps} steps, flash_attention "
+          f"{launches['flash_attention']} == 2 x {n_layers} layers x {steps} steps")
+    return result, out
+
+
+def engines_loss(cfg, model, batch) -> dict:
+    """The loss of one batch at the same weights on the ``cuda`` engine (both
+    kernels) and the ``torch`` engine (both plain versions), within
+    TRAIN_LOSS_TOL."""
+    from repro_torch.models import loss_fn
+
+    with torch.no_grad():
+        losses = {e: float(loss_fn(model, batch, engine=e)[0]) for e in ("cuda", "torch")}
+    gap = abs(losses["cuda"] - losses["torch"])
+    assert gap <= TRAIN_LOSS_TOL, (losses, gap)
+    print(f"  cuda vs torch engine, one batch at the same weights: loss {losses['cuda']:.6f} vs "
+          f"{losses['torch']:.6f}, |d| {gap:.3e} (<= {TRAIN_LOSS_TOL})")
+    return {**losses, "abs_diff": gap, "tol": TRAIN_LOSS_TOL}
+
+
+def trace_train_step(cfg, model, batch, name: str) -> dict:
+    """One synchronized train step (after a warm one) under
+    ``torch.profiler``: the card's busy time and idle share, and its kernel
+    time by kind.  The trace is written to ``build/<name>.json``.  The
+    optimizer update alone is timed with CUDA events after it."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.train import TrainConfig, make_train_step
+    from repro_torch.train.train_loop import make_optimizer_for
+
+    opt = make_optimizer_for(cfg, TrainConfig(lr=3e-4, warmup_steps=1, total_steps=8))
+    state = opt.init(dict(model.named_parameters()))
+    step = make_train_step(cfg, opt)
+    step(model, state, 0, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("train_step"):
+            step(model, state, 1, batch)
+            torch.cuda.synchronize()
+    path = os.path.join(ROOT, "build", f"{name}.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    span = next(e for e in events if e.get("cat") == "user_annotation"
+                and e["name"] == "train_step")
+    lo, hi = span["ts"], span["ts"] + span["dur"]
+    device = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                    and e["ts"] < hi and e["ts"] + e["dur"] > lo)
+    busy, end = 0.0, lo
+    kinds = {"crossentropy kernel": 0.0, "flash_attention kernel": 0.0, "GEMM (cuBLAS)": 0.0,
+             "other kernels, copies": 0.0}
+    for a, b, kname in device:
+        a, b = max(a, lo), min(b, hi)
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+        low = kname.lower()
+        kind = ("crossentropy kernel" if "crossentropy" in low else
+                "flash_attention kernel" if "flash_attention" in low else
+                "GEMM (cuBLAS)" if any(t in low for t in ("gemm", "xmma", "cutlass", "cublas"))
+                else "other kernels, copies")
+        kinds[kind] += (b - a) / 1e3
+    grads = {n: torch.zeros_like(p) for n, p in model.named_parameters()}
+    opt_ms = time_ms(lambda: opt.update(grads, state, dict(model.named_parameters()), 2), 2, 1)
+    out = {"traced_ms": (hi - lo) / 1e3, "busy_ms": busy / 1e3,
+           "idle_share": 1.0 - busy / (hi - lo) if device else None,
+           "device_ops": len(device), "kernel_ms_by_kind": kinds, "optimizer_update_ms": opt_ms}
+    if device:
+        print(f"  trace of one step (torch.profiler, build/{name}.json): {out['traced_ms']:.1f} ms "
+              f"traced, the card busy {out['busy_ms']:.1f} ms in {len(device)} kernels / copies: "
+              f"idle share {out['idle_share']:.4f}; by kind: "
+              + ", ".join(f"{k} {v:.1f} ms" for k, v in kinds.items())
+              + f"; optimizer update alone {opt_ms:.1f} ms (CUDA events)")
+    else:
+        print("  trace of one step: the trace holds no device activity; idle share not measured")
+    return out
+
+
+def kernel_share(label, train, ce_ms, flash_ms_by_call, bw_ms_by_call) -> dict:
+    """The kernels' share of the training wall time: kernel time (CUDA
+    events at the step's shapes) x launches over the summed step time."""
+    wall = sum(train["step_s"])
+    ce_s = train["launches"]["crossentropy"] * ce_ms / 1e3
+    fa_s = sum(flash_ms_by_call) / 1e3 * 2 * train["steps"]  # each call twice a step
+    bw_s = sum(bw_ms_by_call) / 1e3 * train["steps"]
+    out = {"wall_s": wall, "crossentropy_s": ce_s, "flash_s": fa_s,
+           "crossentropy_share": ce_s / wall, "flash_share": fa_s / wall,
+           "attention_backward_s": bw_s, "attention_backward_share": bw_s / wall}
+    print(f"  {label} kernel share of {wall:.3f} s of steps: crossentropy {ce_s:.3f} s "
+          f"({100 * out['crossentropy_share']:.2f}%), flash_attention {fa_s:.3f} s "
+          f"({100 * out['flash_share']:.2f}%); the written-out attention backward (CUDA events) "
+          f"{bw_s:.3f} s ({100 * out['attention_backward_share']:.2f}%)")
+    return out
+
+
+def phase_train_tinyllama(ce_rows, flash_rows) -> dict:
+    """Phase 14: train tinyllama-1.1b at full size through the launcher."""
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import flash_attention_backward
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import init_model_params
+    from repro_torch.train import SyntheticLM
+
+    B, S, steps = 8, 2048, 8
+    print(f"phase 14: train tinyllama-1.1b (22 layers, d_model 2048, vocab 32000) at full size: "
+          f"launch.train.main, {steps} steps, batch {B}, seq {S}, bf16 compute, adamw; "
+          f"{nvidia_smi('name,power.limit')}")
+    cfg = configs.get_config("tinyllama-1.1b")
+    argv = ["--arch", "tinyllama-1.1b", "--steps", str(steps), "--batch", str(B),
+            "--seq", str(S)]
+    result, train = run_training("launch.train.main", cfg, lambda: launch_train.main(argv),
+                                 B * S)
+    del result
+    torch.cuda.empty_cache()
+    model = init_model_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    batch = SyntheticLM(cfg, B, S, device="cuda").batch_at(0)
+    train["engines"] = engines_loss(cfg, model, batch)
+    train["trace"] = trace_train_step(cfg, model, batch, "train_trace_tinyllama")
+    del model
+    torch.cuda.empty_cache()
+    ce_ms = next(r["ms"] for r in ce_rows if r["label"] == "tinyllama training")
+    fa_ms = next(r["ms"] for r in flash_rows if r["label"] == "tinyllama prefill")
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    q, k, v = flash_inputs(gen, B, 32, 4, S, S, 64, torch.bfloat16, True, 3.0)
+    bw_ms = time_ms(lambda: flash_attention_backward(q, k, v, q, chunk=cfg.q_chunk), 2, 1)
+    del q, k, v
+    train["flash_backward_ms"] = bw_ms
+    train["share"] = kernel_share("tinyllama", train, ce_ms, [fa_ms] * 22, [bw_ms] * 22)
+    return train
+
+
+def phase_train_gemma2(ce_rows) -> dict:
+    """Phase 15: train gemma2-9b at full width, cut to 2 superblocks."""
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_backward
+    from repro_torch.models import init_model_params
+    from repro_torch.train import SyntheticLM, TrainConfig, Trainer
+
+    B, S, steps = 1, 8192, 3
+    full = configs.get_config("gemma2-9b")
+    cfg = dataclasses.replace(full, n_superblocks=2, n_layers=4)
+    print(f"phase 15: train gemma2-9b at full width (d_model 3584, head_dim 256, vocab 256000, "
+          f"tied head, final softcap 30), depth cut from {full.n_layers} to {cfg.n_layers} "
+          f"layers: Trainer, {steps} steps, batch {B}, seq {S}; {nvidia_smi('name,power.limit')}")
+    tcfg = TrainConfig(lr=3e-4, warmup_steps=1, total_steps=steps, eval_every=1,
+                       checkpoint_every=10**9)
+    result, train = run_training(
+        "Trainer", cfg, lambda: Trainer(cfg, tcfg, SyntheticLM(cfg, B, S)).run(), B * S)
+    del result
+    torch.cuda.empty_cache()
+    model = init_model_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    batch = SyntheticLM(cfg, B, S, device="cuda").batch_at(0)
+    train["engines"] = engines_loss(cfg, model, batch)
+    train["trace"] = trace_train_step(cfg, model, batch, "train_trace_gemma2")
+    del model
+    torch.cuda.empty_cache()
+    ce_ms = next(r["ms"] for r in ce_rows if r["label"] == "gemma2 training")
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    q, k, v = flash_inputs(gen, B, 16, 8, S, S, 256, torch.bfloat16, True, 3.0)
+    fwd, bwd = [], []
+    for b in cfg.superblock:
+        kw = {"window": b.window, "softcap": cfg.attn_softcap}
+        fwd.append(time_ms(lambda: flash_attention(q, k, v, **kw), 2, 1))
+        bwd.append(time_ms(lambda: flash_attention_backward(q, k, v, q, chunk=cfg.q_chunk, **kw),
+                           1, 1))
+    del q, k, v
+    train["flash_ms"], train["flash_backward_ms"] = fwd, bwd
+    train["share"] = kernel_share("gemma2", train, ce_ms, fwd * cfg.n_superblocks,
+                                  bwd * cfg.n_superblocks)
+    train["depth_cut"] = {"n_layers": [full.n_layers, cfg.n_layers],
+                          "n_superblocks": [full.n_superblocks, cfg.n_superblocks]}
+    return train
+
+
+def phase_tune() -> dict:
+    """Phase 16: a dense tune study on the card."""
+    import repro_torch.core as hpo
+    from repro_torch.core.frozen import TrialState
+    from repro_torch.kernels import crossentropy as ce
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import parzen
+    from repro_torch.tune import LMTuneSpec, make_lm_objective
+
+    n_trials = 16
+    spec = LMTuneSpec(families=("dense",))
+    # Successive halving prunes most trials, and with Optuna's defaults (10
+    # startup trials, pruned trials left out of the history) the sampler
+    # would still be drawing at random after 16 trials, never scoring
+    print(f"phase 16: tune dense LMs ({spec}), {n_trials} trials, TPESampler(seed=0, "
+          f"engine='cuda', n_startup_trials=4, consider_pruned_trials=True), "
+          f"SuccessiveHalvingPruner(min_resource=10, reduction_factor=2); "
+          f"{nvidia_smi('name,power.limit')}")
+    sampler = hpo.TPESampler(seed=0, engine="cuda", n_startup_trials=4,
+                             consider_pruned_trials=True)
+    study = hpo.create_study(sampler=sampler,
+                             pruner=hpo.SuccessiveHalvingPruner(min_resource=10,
+                                                                reduction_factor=2))
+    objective = make_lm_objective(spec)
+    for kernel in (ce, fa, parzen):
+        kernel.reset_launches()
+    t0 = time.perf_counter()
+    study.optimize(objective, n_trials=n_trials)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {"parzen_score": parzen.launches(), "crossentropy": ce.launches(),
+                "flash_attention": fa.launches()}
+    states = [t.state for t in study.trials]
+    complete, pruned = states.count(TrialState.COMPLETE), states.count(TrialState.PRUNED)
+    assert complete + pruned == n_trials and complete >= 1, states
+    assert all(n > 0 for n in launches.values()), launches
+    steps = sum(len(t.intermediate_values) * spec.eval_every for t in study.trials)
+    assert launches["crossentropy"] == steps, (launches, steps)
+    best = study.best_trial
+    deployed = objective(hpo.FixedTrial(best.params))
+    assert math.isfinite(deployed)
+    out = {"trials": n_trials, "seconds": seconds, "trials_per_s": n_trials / seconds,
+           "complete": complete, "pruned": pruned, "train_steps": steps,
+           "best_value": study.best_value, "best_params": best.params,
+           "deployed_value": deployed, "launches": launches}
+    print(f"  {n_trials} trials in {seconds:.2f} s = {out['trials_per_s']:.3f} trials/s: "
+          f"{complete} complete, {pruned} pruned, {steps} train steps; best value "
+          f"{study.best_value:.4f} ({best.params}); deployed through FixedTrial: {deployed:.4f}")
+    print(f"  launches: parzen_score {launches['parzen_score']}, crossentropy "
+          f"{launches['crossentropy']} == {steps} train steps, flash_attention "
+          f"{launches['flash_attention']}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every measurement to this JSON file")
@@ -1178,6 +1693,11 @@ def main() -> int:
     flash_rows = phase_flash(_build.build_log())
     tinyllama = phase_tinyllama()
     gemma2 = phase_gemma2()
+    ce_rows, ce_grads = phase_crossentropy()
+    flash_grads = phase_flash_grad()
+    train_tinyllama = phase_train_tinyllama(ce_rows, flash_rows)
+    train_gemma2 = phase_train_gemma2(ce_rows)
+    tune = phase_tune()
 
     shape_rows = optimize_rows + wave_rows
     table = wave_rows[-1]  # the score-table build: the kernel's large shape
@@ -1230,7 +1750,31 @@ def main() -> int:
         "bound_ms": fa_main["bound_ms"],
         "bound_by": fa_main["bound_by"],
         "library_ms": fa_main["library_ms"],
+        "launches_train_tinyllama": train_tinyllama["launches"]["flash_attention"],
+        "launches_train_gemma2": train_gemma2["launches"]["flash_attention"],
+        "launches_tune": tune["launches"]["flash_attention"],
         "shapes": flash_rows,
+        "gradient_checks": flash_grads,
+    })
+    kernels[0]["launches_tune"] = tune["launches"]["parzen_score"]
+    # the training main path's own shape: tinyllama-1.1b's loss at B = 8, S = 2048
+    ce_main = next(r for r in ce_rows if r["label"] == "tinyllama training")
+    kernels.append({
+        "name": "crossentropy",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/crossentropy.cu",
+        "replaces": "src/repro/kernels/crossentropy.py:27",
+        "launches": train_tinyllama["launches"]["crossentropy"],
+        "launches_train_gemma2": train_gemma2["launches"]["crossentropy"],
+        "launches_tune": tune["launches"]["crossentropy"],
+        "max_abs_err": max(r["max_abs_err"] for r in ce_rows),
+        "ms": ce_main["ms"],
+        "plain_ms": ce_main["plain_ms"],
+        "bound_ms": ce_main["bound_ms"],
+        "bound_by": ce_main["bound_by"],
+        "library_ms": ce_main["library_ms"],
+        "shapes": ce_rows,
+        "gradient_checks": ce_grads,
     })
     if opts.out:
         os.makedirs(os.path.dirname(os.path.abspath(opts.out)), exist_ok=True)
@@ -1239,7 +1783,9 @@ def main() -> int:
                        "build_seconds": _build.build_seconds(),
                        "kernel_checks": kernel_rows, "optimize": optimize, "waves": waves,
                        "motpe": motpe, "nsga2": nsga2, "tinyllama": tinyllama,
-                       "gemma2": gemma2, "kernels": kernels}, f, indent=1)
+                       "gemma2": gemma2, "train_tinyllama": train_tinyllama,
+                       "train_gemma2": train_gemma2, "tune": tune, "kernels": kernels}, f,
+                      indent=1)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s "
           f"(kernel build {_build.build_seconds():.2f} s)")
     print(smi)

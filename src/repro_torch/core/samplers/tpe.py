@@ -35,7 +35,6 @@ studies are bit-identical to the reference package's.
 from __future__ import annotations
 
 import math
-import threading
 from typing import TYPE_CHECKING, Any, Callable
 
 import numpy as np
@@ -57,8 +56,6 @@ if TYPE_CHECKING:
 __all__ = ["TPESampler", "default_gamma", "default_weights"]
 
 EPS = 1e-12
-#: guards the process-global TF32 flag around the joint scorer's products
-_TF32_LOCK = threading.Lock()
 
 try:  # vectorized C erf; the portable fallback loops math.erf per element
     from scipy.special import erf as _erf
@@ -242,17 +239,9 @@ def _gemm_score(
         return torch.logsumexp(e, dim=1)
 
     # full float32 products, as the reference's jnp matmul computes them:
-    # TF32 keeps about three decimal digits, too few for a logsumexp argmax.
-    # The flag is process-global, so it is turned off only around these two
-    # products (under a lock, for samplers called from several threads) and
-    # the caller's setting is put back.
-    with _TF32_LOCK:
-        allow_tf32 = torch.backends.cuda.matmul.allow_tf32
-        torch.backends.cuda.matmul.allow_tf32 = False
-        try:
-            scores = side(l_coeffs, l_const) - side(g_coeffs, g_const)
-        finally:
-            torch.backends.cuda.matmul.allow_tf32 = allow_tf32
+    # TF32 is too coarse for a logsumexp argmax.
+    with kops.full_float32_matmul():
+        scores = side(l_coeffs, l_const) - side(g_coeffs, g_const)
     return scores.cpu().numpy()
 
 

@@ -38,6 +38,7 @@ _build_log = ""
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 #: C signatures of the entry points (every pointer and the stream as void*)
 _SIGNATURES = {
     "parzen_score_launch": (_I, [_P, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P]),
@@ -46,6 +47,10 @@ _SIGNATURES = {
         _I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I, _F, _I, _I, _F, _P],
     ),
     "flash_attention_smem_bytes": (_I, [_I]),
+    "crossentropy_launch": (
+        _I, [_P, _I, _L, _L, _P, _I, _L, _L, _P, _I, _I, _I, _I, _F, _P, _P, _P, _P],
+    ),
+    "crossentropy_splits": (_I, [_I, _I]),
 }
 
 

@@ -1,0 +1,201 @@
+"""Fused cross-entropy: per-token ``logsumexp(x W) - (x W)[label]`` without
+writing the ``[T, V]`` logits to device memory.
+
+Wrapper around the hand-written CUDA kernel in ``csrc/crossentropy.cu``,
+which replaces the reference package's Pallas kernel
+(``repro/kernels/crossentropy.py::crossentropy_kernel``): blocks of 128 token
+rows loop over the vocabulary tiles with an online logsumexp, the product
+computed inside the kernel; the source states its design and its bound on
+the card.
+
+:func:`fused_crossentropy` is differentiable in ``x`` and ``W``
+(:class:`CrossEntropyFunction`).  Its forward is the kernel; the reference's
+Pallas kernel has no backward and the reference trains by autodiff through
+plain ``jnp``, so the backward here is that gradient written out in torch
+ops (:func:`crossentropy_backward`), over chunks of rows, with the large
+products through ``torch.matmul``.
+
+CPU tensors take the plain PyTorch version (``kernels/ref.py``); CUDA
+tensors launch the kernel or raise.  Every launch adds one to a thread-safe
+counter (:func:`launches`), so a run can show that its main path went
+through the kernel.
+"""
+
+from __future__ import annotations
+
+import threading
+
+import torch
+
+from .ops import full_float32_matmul
+from .ref import crossentropy_lse_ref
+
+__all__ = [
+    "fused_crossentropy",
+    "crossentropy_forward",
+    "crossentropy_backward",
+    "CrossEntropyFunction",
+    "launches",
+    "reset_launches",
+]
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_LABEL_DTYPES = (torch.int32, torch.int64)
+#: float32 logits per row chunk of the backward (512 MiB)
+_BWD_LOGIT_ELEMS = 1 << 27
+
+_count_lock = threading.Lock()
+_launches = 0
+
+
+def launches() -> int:
+    """Kernel launches since the last :func:`reset_launches`."""
+    with _count_lock:
+        return _launches
+
+
+def reset_launches() -> None:
+    global _launches
+    with _count_lock:
+        _launches = 0
+
+
+def _count_launch() -> None:
+    global _launches
+    with _count_lock:
+        _launches += 1
+
+
+def _check(x, w, labels) -> None:
+    for name, t in (("x", x), ("w", w), ("labels", labels)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+    if x.dim() != 2 or w.dim() != 2 or labels.dim() != 1:
+        raise ValueError(f"x must be [T, D], w [D, V] and labels [T]; got {tuple(x.shape)}, "
+                         f"{tuple(w.shape)}, {tuple(labels.shape)}")
+    for name, t in (("x", x), ("w", w)):
+        if t.dtype not in _DTYPE_CODES:
+            raise TypeError(f"{name} must be float32 or bfloat16, got {t.dtype}")
+    if labels.dtype not in _LABEL_DTYPES:
+        raise TypeError(f"labels must be int32 or int64, got {labels.dtype}")
+    T, D = x.shape
+    if w.shape[0] != D or labels.shape[0] != T:
+        raise ValueError(f"x {tuple(x.shape)}, w {tuple(w.shape)} and labels "
+                         f"{tuple(labels.shape)} do not fit")
+    if T == 0 or D == 0 or w.shape[1] == 0:
+        raise ValueError(f"empty input: x {tuple(x.shape)}, w {tuple(w.shape)}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_crossentropy runs on CPU or CUDA tensors, got {x.device}")
+
+
+def crossentropy_forward(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
+                         softcap: float = 0.0) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(nll [T], lse [T])`` in float32, no gradient: the kernel on CUDA
+    tensors, the plain version on CPU ones."""
+    _check(x, w, labels)
+    if x.device.type == "cpu":
+        return crossentropy_lse_ref(x, w, labels, softcap)
+    T, D = x.shape
+    V = w.shape[1]
+    from ._build import load
+
+    lib = load()
+    nsplit = lib.crossentropy_splits(T, V)
+    part = torch.empty(3 * nsplit * T, dtype=torch.float32, device=x.device)
+    nll = torch.empty(T, dtype=torch.float32, device=x.device)
+    lse = torch.empty(T, dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.crossentropy_launch(
+            x.data_ptr(), _DTYPE_CODES[x.dtype], x.stride(0), x.stride(1),
+            w.data_ptr(), _DTYPE_CODES[w.dtype], w.stride(0), w.stride(1),
+            labels.data_ptr(), int(labels.dtype == torch.int64), T, D, V, float(softcap),
+            part.data_ptr(), nll.data_ptr(), lse.data_ptr(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"crossentropy kernel launch failed: cudaError {err}")
+    _count_launch()
+    return nll, lse
+
+
+@full_float32_matmul()
+def crossentropy_backward(x, w, labels, lse, grad_nll, softcap: float = 0.0):
+    """``(dx, dW)`` of ``sum(grad_nll * nll)``: the gradient XLA derives for
+    the reference's plain ``cross_entropy_chunked``, written out over chunks
+    of rows.  Per chunk: ``z = x_c W`` recomputed in float32 (``W`` rounded to
+    ``x``'s dtype, as in the forward), ``p = exp(softcap(z) - lse)``, ``dz =
+    g (p - onehot(label))`` times ``1 - tanh(z / cap)^2`` when softcapped,
+    ``dx_c = dz W^T`` in ``x``'s dtype and ``dW += x_c^T dz`` in float32,
+    returned in ``W``'s dtype.  The float32 products run with TF32 off, the
+    caller's setting put back after."""
+    T = x.shape[0]
+    V = w.shape[1]
+    w_x = w.to(x.dtype)  # no copy when the dtypes agree
+    w32 = w_x.to(torch.float32)
+    dx = torch.empty_like(x)
+    dw = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
+    g = grad_nll.to(torch.float32)
+    lab = labels.long()
+    chunk = max(1, _BWD_LOGIT_ELEMS // V)
+    for start in range(0, T, chunk):
+        stop = min(T, start + chunk)
+        xc = x[start:stop]
+        z = xc.to(torch.float32) @ w32  # [n, V]
+        if softcap:
+            t = torch.tanh(z / softcap)
+            p = torch.mul(t, softcap, out=z)
+        else:
+            t, p = None, z
+        p.sub_(lse[start:stop, None]).exp_()
+        lc = lab[start:stop]
+        valid = ((lc >= 0) & (lc < V)).to(torch.float32)
+        p.scatter_add_(1, lc.clamp(0, V - 1)[:, None], -valid[:, None])
+        dz = p.mul_(g[start:stop, None])
+        if t is not None:
+            dz.mul_(t.mul_(t).neg_().add_(1.0))
+        dx[start:stop] = dz.to(x.dtype) @ w_x.T
+        dw.addmm_(xc.to(torch.float32).T, dz)
+    return dx, dw.to(w.dtype)
+
+
+class CrossEntropyFunction(torch.autograd.Function):
+    """Per-token NLL, differentiable in ``x`` and ``W``: the forward is the
+    kernel (or its plain version on the CPU) and saves ``x``, ``W``, the
+    labels and the per-row ``lse``; the backward is
+    :func:`crossentropy_backward`."""
+
+    @staticmethod
+    def forward(ctx, x, w, labels, softcap):
+        nll, lse = crossentropy_forward(x, w, labels, softcap)
+        ctx.save_for_backward(x, w, labels, lse)
+        ctx.softcap = softcap
+        return nll
+
+    @staticmethod
+    def backward(ctx, grad_nll):
+        x, w, labels, lse = ctx.saved_tensors
+        if not (ctx.needs_input_grad[0] or ctx.needs_input_grad[1]):
+            return None, None, None, None
+        dx, dw = crossentropy_backward(x, w, labels, lse, grad_nll, ctx.softcap)
+        return (dx if ctx.needs_input_grad[0] else None,
+                dw if ctx.needs_input_grad[1] else None, None, None)
+
+
+def fused_crossentropy(
+    x: torch.Tensor,  # [T, D], any strides
+    w: torch.Tensor,  # [D, V], any strides (the tied head is a transposed view)
+    labels: torch.Tensor,  # [T] int32 / int64
+    *,
+    softcap: float = 0.0,
+) -> torch.Tensor:
+    """Per-token negative log-likelihood [T] (float32), differentiable in
+    ``x`` and ``w``.
+
+    ``x`` and ``w`` are float32 or bfloat16 on one device; ``w`` is rounded
+    to ``x``'s dtype as it is read, and the logits ``x . w`` are float32, then
+    ``softcap * tanh(z / softcap)`` when ``softcap`` is nonzero.  A label
+    outside ``[0, V)`` contributes no label logit."""
+    _check(x, w, labels)
+    return CrossEntropyFunction.apply(x, w, labels, float(softcap))

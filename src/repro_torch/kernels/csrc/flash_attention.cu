@@ -290,6 +290,7 @@ cudaError_t launch(const Params& p, int B, int Hq, cudaStream_t stream) {
 template <typename T>
 cudaError_t dispatch(const Params& p, int B, int Hq, int D, cudaStream_t stream) {
   switch (D) {
+    case 8: return launch<T, 8>(p, B, Hq, stream);
     case 16: return launch<T, 16>(p, B, Hq, stream);
     case 32: return launch<T, 32>(p, B, Hq, stream);
     case 64: return launch<T, 64>(p, B, Hq, stream);
@@ -305,6 +306,7 @@ cudaError_t dispatch(const Params& p, int B, int Hq, int D, cudaStream_t stream)
 // D, or -1 for a width it is not built for.
 extern "C" int flash_attention_smem_bytes(int D) {
   switch (D) {
+    case 8: return static_cast<int>(smem_bytes<8>());
     case 16: return static_cast<int>(smem_bytes<16>());
     case 32: return static_cast<int>(smem_bytes<32>());
     case 64: return static_cast<int>(smem_bytes<64>());
@@ -319,7 +321,7 @@ extern "C" int flash_attention_smem_bytes(int D) {
 // float32, 1: bfloat16); `strides` points to 12 host int64 element strides,
 // (batch, position, head) for q, k, v and o in that order, the head
 // dimension being contiguous.  The caller guarantees B, Hq, Sq >= 1, Hq a
-// multiple of Hkv, 1 <= kv_len <= Skv, D in {16, 32, 64, 128, 256}, and that
+// multiple of Hkv, 1 <= kv_len <= Skv, D in {8, 16, 32, 64, 128, 256}, and that
 // every query row has a key it may attend to.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                                       int dtype, int B, int Hq, int Hkv, int Sq, int Skv,

@@ -9,6 +9,12 @@ tiles itself with the running ``(m, l, acc)`` in registers, so the
 ``[Sq, Skv]`` score matrix never exists; the source states its design and its
 bound on the card.
 
+:class:`FlashAttentionFunction` makes it differentiable for training.  Its
+forward is the kernel; the reference's Pallas kernel has no backward and the
+reference trains by autodiff through plain ``jnp``, so the backward
+(:func:`flash_attention_backward`) is that gradient written out in torch
+ops over query chunks.
+
 Beside the TPU kernel's ``causal`` / ``window`` / ``softcap`` it takes
 ``q_offset`` (a query row ``r`` sits at absolute position ``q_offset + r``)
 and ``kv_len`` (keys at ``>= kv_len`` are masked), which the model's prefill
@@ -31,12 +37,14 @@ import threading
 
 import torch
 
+from .ops import full_float32_matmul
 from .ref import flash_attention_ref
 
-__all__ = ["flash_attention", "launches", "reset_launches", "HEAD_DIMS"]
+__all__ = ["flash_attention", "flash_attention_backward", "FlashAttentionFunction", "launches",
+           "reset_launches", "HEAD_DIMS"]
 
 #: head widths the kernel is built for (one template instance each)
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (8, 16, 32, 64, 128, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _count_lock = threading.Lock()
@@ -149,3 +157,92 @@ def flash_attention(
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
     _count_launch()
     return out
+
+
+@full_float32_matmul()
+def flash_attention_backward(
+    q: torch.Tensor,  # [B, Hq, Sq, D]
+    k: torch.Tensor,  # [B, Hkv, Skv, D]
+    v: torch.Tensor,
+    do: torch.Tensor,  # [B, Hq, Sq, D], the output's gradient
+    *,
+    causal: bool = True,
+    window: int = -1,
+    softcap: float = 0.0,
+    q_offset: int = 0,
+    kv_len: "int | None" = None,
+    chunk: int = 256,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` of :func:`flash_attention`, in the inputs' dtypes and
+    strides: the gradient XLA derives for the reference's plain attention,
+    written out in float32 over query chunks of ``chunk`` rows.  Per chunk
+    the scores ``s``, the softcap, the masks at ``-1e30`` and ``p =
+    softmax(s)`` are recomputed; then ``dp = dO V^T``, ``ds = p (dp -
+    rowsum(p dp))`` (not ``rowsum(dO O)``: the kernel's ``O`` is rounded to
+    the inputs' dtype, the recomputed ``p`` is not), the softcap's ``1 -
+    tanh^2`` and the scale; ``dq = ds K``, and ``dk = ds^T Q``, ``dv = p^T dO``
+    summed over the query heads that share a kv head.  The float32 products
+    run with TF32 off, the caller's setting put back after."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    kv_len = Skv if kv_len is None else kv_len
+    scale = 1.0 / math.sqrt(D)
+    f32 = torch.float32
+    kf, vf = k.to(f32), v.to(f32)
+    k_pos = torch.arange(Skv, device=q.device)
+    dq = torch.empty_like(q)
+    dk = torch.zeros((B, Hkv, Skv, D), dtype=f32, device=q.device)
+    dv = torch.zeros((B, Hkv, Skv, D), dtype=f32, device=q.device)
+    masked = torch.full((), -1e30, device=q.device)
+    for start in range(0, Sq, chunk):
+        n = min(chunk, Sq - start)
+        qb = q[:, :, start:start + n].to(f32).reshape(B, Hkv, G, n, D)
+        dob = do[:, :, start:start + n].to(f32).reshape(B, Hkv, G, n, D)
+        s = torch.einsum("bkgqd,bktd->bkgqt", qb, kf).mul_(scale)
+        t = None
+        if softcap:
+            t = torch.tanh(s / softcap)
+            s = t * softcap
+        q_pos = q_offset + start + torch.arange(n, device=q.device)
+        mask = (k_pos < kv_len)[None, :].expand(n, Skv)
+        if causal:
+            mask = mask & (k_pos[None, :] <= q_pos[:, None])
+        if window > 0:
+            mask = mask & ((q_pos[:, None] - k_pos[None, :]) < window)
+        p = torch.softmax(torch.where(mask, s, masked), dim=-1)
+        del s
+        dp = torch.einsum("bkgqd,bktd->bkgqt", dob, vf)
+        ds = dp.sub_((p * dp).sum(dim=-1, keepdim=True)).mul_(p)
+        if t is not None:
+            ds.mul_(t.mul_(t).neg_().add_(1.0))
+        ds.mul_(scale)
+        dq[:, :, start:start + n] = torch.einsum("bkgqt,bktd->bkgqd", ds, kf).reshape(
+            B, Hq, n, D).to(q.dtype)
+        dk += torch.einsum("bkgqt,bkgqd->bktd", ds, qb)
+        dv += torch.einsum("bkgqt,bkgqd->bktd", p, dob)
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """:func:`flash_attention`, differentiable in ``q``, ``k`` and ``v``.
+
+    ``apply(q, k, v, causal, window, softcap, q_offset, kv_len, chunk)``: the
+    forward is the kernel (its plain version on CPU tensors) and saves the
+    inputs (views: no copy); the backward is :func:`flash_attention_backward`
+    over query chunks of ``chunk`` rows."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, q_offset, kv_len, chunk):
+        out = flash_attention(q, k, v, causal=causal, window=window, softcap=softcap,
+                              q_offset=q_offset, kv_len=kv_len)
+        ctx.save_for_backward(q, k, v)
+        ctx.kw = dict(causal=causal, window=window, softcap=softcap, q_offset=q_offset,
+                      kv_len=kv_len, chunk=chunk)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, do, **ctx.kw)
+        return dq, dk, dv, None, None, None, None, None, None

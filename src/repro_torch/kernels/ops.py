@@ -24,6 +24,9 @@ kernel sees O(log n) distinct shapes as the history grows.
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import numpy as np
 import torch
 
@@ -40,7 +43,27 @@ __all__ = [
     "pad_pow2_len",
     "pad_pow2_vec",
     "pad_pow2_rows",
+    "full_float32_matmul",
 ]
+
+#: guards the process-global TF32 flag around :func:`full_float32_matmul`
+_TF32_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def full_float32_matmul():
+    """Float32 products on the card in full precision inside the block (or
+    the decorated function), the caller's TF32 setting put back after.
+    TF32 keeps about three decimal digits: too few where a product is held
+    against a kernel's float32 result (a logsumexp, a recomputed softmax).
+    The flag is process-global, so it is set under a lock."""
+    with _TF32_LOCK:
+        allow_tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            yield
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = allow_tf32
 
 # -- pow2 padding ---------------------------------------------------------------
 

@@ -11,12 +11,15 @@ import math
 
 import torch
 
-__all__ = ["parzen_score_ref", "mc_hv_counts_ref", "flash_attention_ref"]
+__all__ = ["parzen_score_ref", "mc_hv_counts_ref", "flash_attention_ref", "crossentropy_ref",
+           "crossentropy_lse_ref"]
 
 #: elements of the boolean (samples, points, objectives) cube per chunk
 _MC_CUBE_ELEMS = 1 << 27
 #: float32 scores per query chunk of the plain attention (1 GiB)
 _ATTN_SCORE_ELEMS = 1 << 28
+#: float32 logits per row chunk of the plain cross-entropy (1 GiB)
+_CE_LOGIT_ELEMS = 1 << 28
 
 
 def parzen_score_ref(
@@ -110,3 +113,44 @@ def flash_attention_ref(
         o = torch.einsum("bkgqt,bktd->bkgqd", p, vf)
         out[:, :, start:start + n] = o.reshape(B, Hq, n, D).to(q.dtype)
     return out
+
+
+def crossentropy_lse_ref(
+    x: torch.Tensor,  # [T, D]
+    w: torch.Tensor,  # [D, V]
+    labels: torch.Tensor,  # [T] int32 / int64
+    softcap: float = 0.0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(nll [T], lse [T])`` in float32 (oracle for the fused cross-entropy
+    kernel): ``W`` rounded to ``x``'s dtype, the float32 product, the softcap,
+    ``torch.logsumexp`` over the vocabulary and the label logit; a label
+    outside ``[0, V)`` contributes no label logit.  Rows go in chunks so the
+    float32 logits stay near ``_CE_LOGIT_ELEMS`` elements; autograd runs
+    through it."""
+    T = x.shape[0]
+    V = w.shape[1]
+    w32 = w.to(x.dtype).to(torch.float32)
+    chunk = max(1, _CE_LOGIT_ELEMS // max(1, V))
+    nll, lse = [], []
+    for start in range(0, T, chunk):
+        logits = x[start:start + chunk].to(torch.float32) @ w32
+        if softcap:
+            logits = softcap * torch.tanh(logits / softcap)
+        lab = labels[start:start + chunk].long()
+        valid = (lab >= 0) & (lab < V)
+        picked = logits.gather(1, lab.clamp(0, V - 1)[:, None])[:, 0]
+        lse_c = torch.logsumexp(logits, dim=1)
+        lse.append(lse_c)
+        nll.append(lse_c - torch.where(valid, picked, torch.zeros((), device=x.device)))
+    return torch.cat(nll), torch.cat(lse)
+
+
+def crossentropy_ref(
+    x: torch.Tensor,  # [T, D]
+    w: torch.Tensor,  # [D, V]
+    labels: torch.Tensor,  # [T]
+    softcap: float = 0.0,
+) -> torch.Tensor:
+    """Per-token negative log-likelihood ``lse(x W) - (x W)[label]`` as a [T]
+    float32 tensor (see :func:`crossentropy_lse_ref`)."""
+    return crossentropy_lse_ref(x, w, labels, softcap)[0]

@@ -2,12 +2,13 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
         [--smoke] [--requests 8 --max-new 32 --slots 4 --capacity 256 \\
-        --temperature 0] [--device cpu]
+        --temperature 0] [--checkpoint PATH] [--device cpu]
 
 Runs on the card unless ``--device cpu`` is given (the prefill attention
 then takes the flash-attention kernel's plain PyTorch version).  The
-weights are random, drawn by ``init_model_params`` from a generator seeded
-with 0.
+weights come from ``--checkpoint`` (a parameter tree saved with
+``train.save_pytree``, by this package or the reference's), else they are
+random, drawn by ``init_model_params`` from a generator seeded with 0.
 """
 
 from __future__ import annotations
@@ -34,16 +35,19 @@ def main(argv: "list[str] | None" = None) -> dict:
 
     from repro_torch import configs
     from repro_torch.kernels import ops
-    from repro_torch.models import init_model_params
+    from repro_torch.models import Transformer, init_model_params
+    from repro_torch.models import load_params_tree, params_tree
     from repro_torch.serve import Engine
+    from repro_torch.train import restore_pytree
 
-    if args.checkpoint:
-        raise NotImplementedError(
-            "--checkpoint needs train/checkpoint.py, which belongs to the training slice of the port"
-        )
     cfg = configs.get_smoke_config(args.arch) if args.smoke else configs.get_config(args.arch)
     device = ops.resolve_device("auto", args.device)
-    model = init_model_params(cfg, torch.Generator(device=device).manual_seed(0), device)
+    if args.checkpoint:
+        model = Transformer(cfg, device=device)
+        _, tree = restore_pytree(args.checkpoint, params_tree(model))
+        load_params_tree(model, tree)
+    else:
+        model = init_model_params(cfg, torch.Generator(device=device).manual_seed(0), device)
     engine = Engine(cfg, model, capacity=args.capacity, slots=args.slots,
                     temperature=args.temperature, device=device)
     rng = np.random.RandomState(0)

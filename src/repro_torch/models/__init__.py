@@ -1,11 +1,11 @@
 """The port's model zoo: the dense attention family (GQA, sliding windows,
-softcaps; text, VLM and audio backbones) for serving.  The other families
+softcaps; text, VLM and audio backbones) for serving and training.  The other families
 load their configs and raise ``NotImplementedError`` when built."""
 
 from __future__ import annotations
 
 from .config import SHAPES, BlockDef, ModelConfig, ShapeConfig
-from .transfer import params_from_jax
+from .transfer import load_params_tree, params_from_jax, params_tree
 from .transformer import (
     Transformer,
     count_params,
@@ -31,4 +31,6 @@ __all__ = [
     "logits_from_hidden",
     "init_cache",
     "params_from_jax",
+    "params_tree",
+    "load_params_tree",
 ]

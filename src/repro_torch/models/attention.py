@@ -3,11 +3,13 @@ prefill and decode paths.
 
 The full-sequence path goes through the flash-attention kernel
 (``kernels/flash_attention.py``) on every device: on a CUDA tensor the
-hand-written kernel, on a CPU tensor its plain PyTorch version.  The kernel
-and its plain version keep the softmax probabilities in float32 for ``P V``
-(as the reference's Pallas kernel does); the reference's ``attention_full``
-rounds them to the compute dtype first, so in bfloat16 the two differ by
-one bfloat16 rounding.
+hand-written kernel, on a CPU tensor its plain PyTorch version.  It is
+differentiable (``FlashAttentionFunction``: the kernel forward, a written-out
+backward over query chunks of ``cfg.q_chunk`` rows), so training runs through
+the same kernel.  The kernel and its plain version keep the softmax
+probabilities in float32 for ``P V`` (as the reference's Pallas kernel
+does); the reference's ``attention_full`` rounds them to the compute dtype
+first, so in bfloat16 the two differ by one bfloat16 rounding.
 
 The KV cache is a pair of tensors updated in place.  Multi-head latent
 attention (MLA) belongs to a later slice of the port and raises here.
@@ -19,9 +21,9 @@ import math
 
 import torch
 
-from ..kernels.flash_attention import flash_attention
+from ..kernels.flash_attention import FlashAttentionFunction
 from ..kernels.ref import flash_attention_ref
-from .layers import Spec, apply_rope, rope, softcap
+from .layers import ENGINES, Spec, apply_rope, check_engine, rope, softcap
 
 __all__ = [
     "ATTN_ENGINES",
@@ -39,7 +41,7 @@ __all__ = [
 
 #: "auto": the kernel's wrapper (kernel on CUDA tensors, plain version on CPU
 #: ones); "cuda": the kernel (CUDA tensors only); "torch": the plain version
-ATTN_ENGINES = ("auto", "cuda", "torch")
+ATTN_ENGINES = ENGINES
 _MLA_SLICE = "multi-head latent attention (MLA) belongs to the MLA/MoE slice of the port"
 
 
@@ -74,23 +76,28 @@ def attention_full(
     q_offset: int = 0,
     kv_len: int | None = None,
     engine: str = "auto",
+    q_chunk: int = 256,
 ) -> torch.Tensor:
     """Causal (optionally sliding-window) attention of ``q`` over the first
     ``kv_len`` (default ``T``) keys, the query rows at positions
     ``q_offset ..``; returns [B, S, H, D] in ``q``'s dtype.  Keys and values
     in another dtype (a bfloat16 cache under float32 compute) are cast to
-    ``q``'s, as the reference's einsums promote them."""
-    if engine not in ATTN_ENGINES:
-        raise ValueError(f"engine must be one of {ATTN_ENGINES}, got {engine!r}")
+    ``q``'s, as the reference's einsums promote them.  Differentiable: the
+    ``"torch"`` engine through the plain version's ops, the others through
+    ``FlashAttentionFunction``, whose backward runs over query chunks of
+    ``q_chunk`` rows."""
+    check_engine(engine, q.device)
     if k.dtype != q.dtype:
         k, v = k.to(q.dtype), v.to(q.dtype)
-    kw = dict(causal=True, window=window, softcap=attn_softcap or 0.0,
-              q_offset=q_offset, kv_len=kv_len)
-    if engine == "cuda" and q.device.type != "cuda":
-        raise RuntimeError(f"engine='cuda' launches the CUDA kernel and cannot run on {q.device}")
-    attend = flash_attention_ref if engine == "torch" else flash_attention
     # [B, H, S, D] views of the [B, S, H, D] tensors: both read them in place
-    return attend(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), **kw).transpose(1, 2)
+    q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    cap = attn_softcap or 0.0
+    if engine == "torch":
+        out = flash_attention_ref(q, k, v, causal=True, window=window, softcap=cap,
+                                  q_offset=q_offset, kv_len=kv_len)
+    else:
+        out = FlashAttentionFunction.apply(q, k, v, True, window, cap, q_offset, kv_len, q_chunk)
+    return out.transpose(1, 2)
 
 
 def attention_decode(
@@ -160,7 +167,7 @@ def attn_block_full(p, x, cfg, bdef, positions, cache=None, cache_index=None, en
         # last W tokens at slots (pos % W).  (Ring prefill assumes
         # cache_index == 0.)
         o = attention_full(q, k, v, window=bdef.window, attn_softcap=cfg.attn_softcap,
-                           engine=engine)
+                           engine=engine, q_chunk=cfg.q_chunk)
         W = cache["k"].shape[1]
         take = min(W, S)
         slots = torch.arange(S - take, S, device=x.device) % W
@@ -172,11 +179,11 @@ def attn_block_full(p, x, cfg, bdef, positions, cache=None, cache_index=None, en
         cache["v"][:, cache_index:cache_index + S] = v.to(cache["v"].dtype)
         o = attention_full(
             q, cache["k"], cache["v"], window=bdef.window, attn_softcap=cfg.attn_softcap,
-            q_offset=cache_index, kv_len=cache_index + S, engine=engine,
+            q_offset=cache_index, kv_len=cache_index + S, engine=engine, q_chunk=cfg.q_chunk,
         )
     else:
         o = attention_full(q, k, v, window=bdef.window, attn_softcap=cfg.attn_softcap,
-                           engine=engine)
+                           engine=engine, q_chunk=cfg.q_chunk)
     return _out_proj(p, o, x.dtype), cache
 
 

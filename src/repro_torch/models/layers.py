@@ -3,6 +3,8 @@
 Every parameter is declared as a :class:`Spec` (shape, logical axes, init).
 Spec trees (nested dicts of specs) give the parameter count with no
 allocation, and the shapes and initialization of the model's tensors.
+``cross_entropy_chunked``, the training loss, goes through the fused
+cross-entropy kernel (``kernels/crossentropy.py``).
 (The reference's abstract-shape and logical-axis views of a spec tree
 serve its dry run and sharding, which later slices port.)
 """
@@ -16,7 +18,12 @@ from typing import Any, Callable, Iterator
 import torch
 import torch.nn.functional as F
 
+from ..kernels.crossentropy import fused_crossentropy
+from ..kernels.ref import crossentropy_ref
+
 __all__ = [
+    "ENGINES",
+    "check_engine",
     "Spec",
     "spec_leaves",
     "spec_map",
@@ -28,7 +35,20 @@ __all__ = [
     "swiglu",
     "gelu_mlp",
     "softcap",
+    "cross_entropy_chunked",
 ]
+
+#: how the kernels of the model run: "auto", the kernel's wrapper (the kernel
+#: on CUDA tensors, its plain version on CPU ones); "cuda", the kernel (CUDA
+#: tensors only); "torch", the plain version (autograd runs through it)
+ENGINES = ("auto", "cuda", "torch")
+
+
+def check_engine(engine: str, device: torch.device) -> None:
+    if engine not in ENGINES:
+        raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
+    if engine == "cuda" and device.type != "cuda":
+        raise RuntimeError(f"engine='cuda' launches the CUDA kernel and cannot run on {device}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,3 +167,42 @@ def gelu_mlp(x: torch.Tensor, w1, w2, compute_dtype) -> torch.Tensor:
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     """gemma2-style logit soft-capping: cap * tanh(x / cap)."""
     return cap * torch.tanh(x / cap)
+
+
+def cross_entropy_chunked(
+    x: torch.Tensor,  # [B, S, D]
+    w_out: torch.Tensor,  # [D, V]
+    labels: torch.Tensor,  # [B, S]
+    *,
+    chunk: int = 256,
+    final_softcap: float | None = None,
+    mask: torch.Tensor | None = None,
+    engine: str = "auto",
+) -> torch.Tensor:
+    """Mean token cross-entropy ``sum(nll * mask) / max(sum(mask), 1)``
+    without materializing [B, S, V] logits.
+
+    The reference scans over sequence chunks of ``chunk`` tokens, each under
+    ``jax.checkpoint``, so that its peak memory is O(B * chunk * V); the fused
+    cross-entropy kernel never writes the logits, so here all B * S rows go
+    through it at once and ``chunk`` keeps only the reference's ``S % chunk``
+    contract.  ``w_out`` is read in place (the tied head is a transposed view)
+    and rounded to ``x``'s dtype as the kernel loads it, as the reference's
+    ``w_out.astype(x.dtype)`` rounds it.  ``engine="torch"`` runs autograd
+    through the plain version instead."""
+    check_engine(engine, x.device)
+    B, S, D = x.shape
+    chunk = min(chunk, S)
+    if S % chunk != 0:
+        raise AssertionError((S, chunk))
+    xs = x.reshape(B * S, D)
+    ls = labels.reshape(B * S)
+    cap = final_softcap or 0.0
+    if engine == "torch":
+        nll = crossentropy_ref(xs, w_out, ls, cap)
+    else:
+        nll = fused_crossentropy(xs, w_out, ls, softcap=cap)
+    if mask is None:
+        return nll.sum() / max(B * S, 1)
+    m = mask.reshape(B * S).to(torch.float32)
+    return (nll * m).sum() / torch.clamp(m.sum(), min=1.0)

@@ -7,7 +7,9 @@ cfg, key))``) and returns the state dict of the port's
 each stacked ``stack`` leaf is split along its leading ``n_superblocks`` axis
 into one tensor per layer; every other leaf (the embedding, tied or not, and
 the audio ``[K, V, d]`` / ``[K, d, V]`` tables) keeps its name and shape.
-It takes numpy, so it imports no jax.
+It takes numpy, so it imports no jax.  :func:`params_tree` goes the other
+way, to the reference's tree of a model (for checkpoints), and
+:func:`load_params_tree` copies such a tree into a model in place.
 """
 
 from __future__ import annotations
@@ -18,9 +20,10 @@ import numpy as np
 import torch
 
 from .config import ModelConfig
-from .transformer import Transformer, state_items
+from .layers import spec_leaves
+from .transformer import Transformer, param_specs, state_items
 
-__all__ = ["params_from_jax", "tree_leaves"]
+__all__ = ["params_from_jax", "params_tree", "load_params_tree", "tree_leaves"]
 
 
 def tree_leaves(tree, path: tuple = ()) -> Iterator[tuple[tuple, np.ndarray]]:
@@ -50,3 +53,31 @@ def params_from_jax(cfg: ModelConfig, tree: dict) -> dict[str, torch.Tensor]:
     if missing:
         raise KeyError(f"the tree lacks {missing}")
     return state
+
+
+def params_tree(model: Transformer) -> dict:
+    """The reference's parameter tree of ``model``: nested dicts with the
+    reference's keys, each ``stack`` leaf the layers' tensors stacked on a new
+    leading axis (a copy), every other leaf the parameter itself."""
+    tree: dict = {}
+    for path, _ in spec_leaves(param_specs(model.cfg)):
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        if path[0] == "stack":
+            rest = ".".join(path[1:])
+            node[path[-1]] = torch.stack([model.get_parameter(f"stack.{layer}.{rest}")
+                                          for layer in range(model.cfg.n_superblocks)])
+        else:
+            node[path[-1]] = model.get_parameter(".".join(path))
+    return tree
+
+
+def load_params_tree(model: Transformer, tree: dict) -> None:
+    """Copy a reference-shaped tree of tensors (:func:`params_tree`'s
+    layout) into ``model``'s parameters in place (each keeps its device and
+    dtype)."""
+    with torch.no_grad():
+        for path, leaf in tree_leaves(tree):
+            for name, part in state_items(path, leaf):
+                model.get_parameter(name).copy_(part)

@@ -10,10 +10,12 @@ it; here layer ``l`` of position ``i`` is ``model.stack[l][str(i)]``, index
 (``models/transfer.py``).  The KV cache keeps the reference's stacked layout
 and is updated in place.
 
-This slice ports the dense attention family (GQA, sliding windows, softcaps,
-sandwich norms; text, VLM and audio embeddings) for serving, without grad.
-MLA, MoE, mLSTM, sLSTM, Mamba2 and the training loss belong to later slices
-and raise ``NotImplementedError``.
+The dense attention family (GQA, sliding windows, softcaps, sandwich norms;
+text, VLM and audio embeddings) is ported for serving and for training:
+``forward`` builds an autograd graph in train mode when the parameters
+require grad, and ``loss_fn`` is the reference's mean-token cross-entropy
+through the fused cross-entropy kernel.  MLA, MoE, mLSTM, sLSTM and Mamba2
+belong to later slices and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -23,11 +25,14 @@ from typing import Iterator
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from ..kernels.ops import full_float32_matmul
 from . import attention as attn
 from .config import BlockDef, ModelConfig
 from .layers import (
     Spec,
+    cross_entropy_chunked,
     gelu_mlp,
     init_tensor,
     rms_norm,
@@ -315,7 +320,18 @@ def _out_weight(model: Transformer, cfg: ModelConfig):
 # -- full forward --------------------------------------------------------------------------------
 
 
-@torch.no_grad()
+def _superblock(model: Transformer, layer: int, x, positions, engine):
+    """Layer ``layer`` of the stacked superblocks, in train mode; returns
+    ``(x, aux)``."""
+    cfg = model.cfg
+    aux = 0.0
+    for i, bdef in enumerate(cfg.superblock):
+        x, _, a = apply_block(bdef, model.stack[layer][str(i)], x, cfg, positions, None, 0,
+                              "train", engine)
+        aux += a
+    return x, aux
+
+
 def forward(model: Transformer, batch: dict, cache=None, cache_index: int = 0, mode: str = "train",
             engine: str = "auto"):
     """Modes:
@@ -325,7 +341,13 @@ def forward(model: Transformer, batch: dict, cache=None, cache_index: int = 0, m
     * decode:  batch={tokens [B,1]}, cache, index -> (x_final [B,1,d], cache, aux)
 
     ``engine`` picks the attention of train and prefill (``attention.ATTN_ENGINES``).
-    The cache is updated in place and returned."""
+    The cache is updated in place and returned.  Train mode under grad (the
+    parameters require it) builds an autograd graph; with ``cfg.remat`` other
+    than ``"none"`` each stacked superblock is recomputed in the backward pass
+    (``torch.utils.checkpoint``, the twin of the reference's
+    ``jax.checkpoint`` around its scan body).  Both of the reference's remat
+    policies recompute the whole superblock here: remat changes the memory,
+    never the numbers."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     if mode != "train" and cache is None:
@@ -337,8 +359,15 @@ def forward(model: Transformer, batch: dict, cache=None, cache_index: int = 0, m
     positions = None
     if mode != "decode":
         positions = (torch.arange(S, device=x.device) + cache_index).expand(B, S)
+    remat = mode == "train" and cfg.remat != "none" and torch.is_grad_enabled()
     aux_total = 0.0
     for seg, pos, layer, bdef, p in model.blocks():
+        if remat and seg == "stack":
+            if pos == "0":  # one checkpoint per superblock, as the reference's scan body
+                x, aux = checkpoint(_superblock, model, layer, x, positions, engine,
+                                    use_reentrant=False)
+                aux_total += aux
+            continue
         c = None
         if cache is not None:
             c = cache[seg][pos]
@@ -351,10 +380,11 @@ def forward(model: Transformer, batch: dict, cache=None, cache_index: int = 0, m
 
 
 @torch.no_grad()
+@full_float32_matmul()
 def logits_from_hidden(model: Transformer, x: torch.Tensor) -> torch.Tensor:
     """Float32 logits of compute-dtype products, as the reference's
     ``preferred_element_type=float32`` einsum (bfloat16 products are exact
-    in float32; TF32 must be off on the card)."""
+    in float32; the products run with TF32 off)."""
     cfg = model.cfg
     w = _out_weight(model, cfg).to(x.dtype).float()
     if cfg.modality == "audio":
@@ -366,6 +396,27 @@ def logits_from_hidden(model: Transformer, x: torch.Tensor) -> torch.Tensor:
     return logits
 
 
-def loss_fn(*args, **kwargs):
-    raise _unported("the training loss (loss_fn)", "the training slice")
+def loss_fn(model: Transformer, batch: dict, *, engine: str = "auto"):
+    """Mean-token cross-entropy (+ ``moe_aux_coef`` x the aux loss) without
+    materializing full logits; returns ``(loss, {"ce": ce, "aux": aux})``.
+    ``batch["labels"]`` is [B, S] ([B, K, S] for audio, one loss per codebook,
+    averaged); a VLM takes no loss on its ``img_tokens`` image positions.
+    ``engine`` picks the attention and the cross-entropy
+    (``layers.ENGINES``)."""
+    cfg = model.cfg
+    x, _, aux = forward(model, batch, mode="train", engine=engine)
+    w = _out_weight(model, cfg)
+    labels = batch["labels"]
+    kw = dict(chunk=cfg.ce_chunk, final_softcap=cfg.final_softcap, engine=engine)
+    if cfg.modality == "audio":
+        ce = sum(cross_entropy_chunked(x, w[kb], labels[:, kb], **kw)
+                 for kb in range(cfg.num_codebooks)) / cfg.num_codebooks
+    else:
+        mask = None
+        if cfg.modality == "vlm":
+            B, S = labels.shape
+            mask = torch.ones((B, S), dtype=torch.float32, device=x.device)
+            mask[:, :cfg.img_tokens] = 0.0
+        ce = cross_entropy_chunked(x, w, labels, mask=mask, **kw)
+    return ce + cfg.moe_aux_coef * aux, {"ce": ce, "aux": aux}
 

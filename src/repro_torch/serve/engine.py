@@ -24,8 +24,10 @@ __all__ = ["make_prefill_step", "make_decode_step", "Engine", "Request", "sample
 def make_prefill_step(cfg: ModelConfig, engine: str = "auto") -> Callable:
     """(model, batch, cache) -> (last_logits, cache).  The tokens' length
     fills cache[0:S]; ``engine`` picks the attention (``"cuda"`` kernel,
-    ``"torch"`` plain version, ``"auto"`` by device)."""
+    ``"torch"`` plain version, ``"auto"`` by device).  Runs under
+    ``torch.inference_mode``: serving builds no autograd graph."""
 
+    @torch.inference_mode()
     def prefill(model, batch, cache):
         x, cache, _ = forward(model, batch, cache=cache, cache_index=0, mode="prefill",
                               engine=engine)
@@ -37,6 +39,7 @@ def make_prefill_step(cfg: ModelConfig, engine: str = "auto") -> Callable:
 def make_decode_step(cfg: ModelConfig) -> Callable:
     """(model, tokens [B,1] (or [B,K,1] audio), cache, index) -> (logits, cache)."""
 
+    @torch.inference_mode()
     def decode(model, tokens, cache, index):
         x, cache, _ = forward(model, {"tokens": tokens}, cache=cache, cache_index=index,
                               mode="decode")
@@ -81,7 +84,9 @@ class Engine:
     the plain version on the CPU.  The model is moved to the device and its
     matrices (parameters of two or more dimensions) are cast to the compute
     dtype in place, once: the reference casts them at every use, to the same
-    numbers.  Norm scales stay float32."""
+    numbers.  Norm scales stay float32.  So a model that is still being
+    trained must not be handed to an ``Engine``: serve a copy, or a
+    checkpoint restored into a new model."""
 
     def __init__(self, cfg: ModelConfig, model: Transformer, capacity: int = 256, slots: int = 4,
                  temperature: float = 0.0, seed: int = 0, device=None, engine: str = "auto"):

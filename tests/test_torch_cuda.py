@@ -13,7 +13,10 @@ Monte-Carlo hypervolume counts are integers and are held exactly.
 Flash attention is held to its plain version within the reference's kernel
 tolerances (``tests/test_kernels.py``): 1e-4 in float32 and 2e-2 in
 bfloat16, where the kernel's float32 sums run in another order and the
-output is rounded once to bfloat16.
+output is rounded once to bfloat16.  The fused cross-entropy is held to its
+plain version within atol 1e-4 / rtol 1e-5 (float32 sums and an online
+logsumexp in another order, on NLLs of order 10), and both written-out
+backwards to autograd through the plain versions.
 """
 
 import dataclasses
@@ -312,7 +315,7 @@ def test_flash_attention_cuda_tensor_of_the_wrong_kind_raises(cuda_device):
     with pytest.raises(TypeError):
         fa.flash_attention(q, k.bfloat16(), v)
     with pytest.raises(ValueError):
-        fa.flash_attention(q[..., :8], k[..., :8], v[..., :8])  # head dim 8
+        fa.flash_attention(q[..., :12], k[..., :12], v[..., :12])  # head dim 12
     with pytest.raises(ValueError):
         fa.flash_attention(q.transpose(2, 3), k.transpose(2, 3), v.transpose(2, 3))
     with pytest.raises(ValueError):
@@ -345,3 +348,152 @@ def test_engine_cuda_and_torch_give_the_same_greedy_tokens(cuda_device, arch):
         n_layers = len(cfg.superblock) * cfg.n_superblocks
         assert fa.launches() == (n_layers * 2 if engine == "cuda" else 0)
     assert outs["cuda"] == outs["torch"]
+
+
+# -- the training slice: fused cross-entropy and both gradients -----------------------
+
+#: the kernel against its plain version: the same float32 products summed in
+#: another order, and an online logsumexp against torch.logsumexp; the NLL
+#: rows are of order 5-15 (logits of standard deviation near 3)
+CE_ATOL, CE_RTOL = 1e-4, 1e-5
+
+
+def _ce_inputs(device, T, D, V, x_dtype, w_dtype, tied, seed, label_dtype=torch.int32):
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randn(T, D).astype(np.float32)).to(device, x_dtype)
+    scale = 3.0 / np.sqrt(D)
+    if tied:  # the tied head: a transposed view of a [V, D] embedding
+        w = torch.from_numpy((rng.randn(V, D) * scale).astype(np.float32)).to(device, w_dtype).T
+    else:
+        w = torch.from_numpy((rng.randn(D, V) * scale).astype(np.float32)).to(device, w_dtype)
+    labels = torch.from_numpy(rng.randint(0, V, T)).to(device, label_dtype)
+    labels[0] = -1  # no label logit
+    return x, w, labels
+
+
+@pytest.mark.parametrize(
+    "T,D,V,x_dtype,w_dtype,tied,softcap",
+    [(1000, 48, 1000, torch.float32, torch.float32, False, 0.0),
+     (1000, 48, 1000, torch.bfloat16, torch.float32, False, 30.0),
+     (100, 48, 1000, torch.float32, torch.float32, True, 0.0),
+     (512, 64, 256, torch.bfloat16, torch.float32, False, 0.0),
+     (300, 96, 5000, torch.bfloat16, torch.bfloat16, True, 30.0),
+     (7, 16, 50, torch.float32, torch.bfloat16, False, 0.0)],
+)
+def test_crossentropy_kernel_matches_plain_version(cuda_device, T, D, V, x_dtype, w_dtype, tied,
+                                                   softcap):
+    from repro_torch.kernels import crossentropy as ce
+    from repro_torch.kernels.ref import crossentropy_lse_ref
+
+    x, w, labels = _ce_inputs(cuda_device, T, D, V, x_dtype, w_dtype, tied, T + V)
+    before = ce.launches()
+    nll, lse = ce.crossentropy_forward(x, w, labels, softcap)
+    torch.cuda.synchronize()
+    assert ce.launches() == before + 1
+    want_nll, want_lse = crossentropy_lse_ref(x, w, labels, softcap)
+    torch.testing.assert_close(nll, want_nll, atol=CE_ATOL, rtol=CE_RTOL)
+    torch.testing.assert_close(lse, want_lse, atol=CE_ATOL, rtol=CE_RTOL)
+    got64 = ce.crossentropy_forward(x, w, labels.long(), softcap)[0]
+    torch.testing.assert_close(got64, nll, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("x_dtype,softcap", [(torch.float32, 0.0), (torch.float32, 30.0),
+                                             (torch.bfloat16, 30.0)])
+def test_crossentropy_gradient_matches_autograd_of_plain_version(cuda_device, x_dtype, softcap):
+    """dx / dW of the Function against autograd through the plain version on
+    the card (TF32 off: float32 products in full precision).  float32 within
+    1e-5; bfloat16 x within one bfloat16 step of the largest |dx| (the two
+    round dx to bfloat16 from float32 sums taken in another order)."""
+    from repro_torch.kernels.crossentropy import fused_crossentropy
+    from repro_torch.kernels.ref import crossentropy_ref
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, w, labels = _ce_inputs(cuda_device, 1000, 48, 1000, x_dtype, torch.float32, True, 4,
+                              torch.int64)
+    g = torch.from_numpy(np.random.RandomState(1).randn(1000).astype(np.float32)).to(cuda_device)
+    grads = []
+    for fn in (lambda a, b: fused_crossentropy(a, b, labels, softcap=softcap),
+               lambda a, b: crossentropy_ref(a, b, labels, softcap)):
+        xr = x.detach().requires_grad_()
+        emb = w.T.detach().requires_grad_()
+        grads.append(torch.autograd.grad((fn(xr, emb.T) * g).sum(), (xr, emb)))
+    tol = 1e-5 if x_dtype == torch.float32 else 3.2e-2
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=1e-4)
+
+
+def test_crossentropy_cuda_tensor_of_the_wrong_kind_raises(cuda_device):
+    from repro_torch.kernels import crossentropy as ce
+
+    x, w, labels = _ce_inputs(cuda_device, 16, 16, 50, torch.float32, torch.float32, False, 0)
+    before = ce.launches()
+    with pytest.raises(TypeError):
+        ce.fused_crossentropy(x.half(), w, labels)
+    with pytest.raises(TypeError):
+        ce.fused_crossentropy(x, w, labels.float())
+    with pytest.raises(ValueError):
+        ce.fused_crossentropy(x, w.cpu(), labels)
+    assert ce.launches() == before
+
+
+@pytest.mark.parametrize(
+    "dtype,B,Hq,Hkv,S,D,kw,tol",
+    [(torch.float32, 2, 4, 2, 200, 64, {}, 1e-4),
+     (torch.float32, 1, 4, 2, 130, 32, {"window": 48, "softcap": 20.0}, 1e-4),
+     (torch.bfloat16, 2, 8, 2, 256, 128, {}, 6.25e-2),
+     (torch.float32, 1, 2, 2, 64, 8, {}, 1e-4)],
+)
+def test_flash_attention_gradient_matches_autograd_of_plain_version(cuda_device, dtype, B, Hq, Hkv,
+                                                                    S, D, kw, tol):
+    """dq / dk / dv of ``FlashAttentionFunction`` against autograd through
+    the plain version: float32 sums in another order; in bfloat16 both round
+    their gradients to bfloat16 (one step at the largest |grad|)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _qkv(cuda_device, dtype, B, Hq, Hkv, S, S, D, S + D, scale=2.0)
+    g = _qkv(cuda_device, dtype, B, Hq, Hq, S, S, D, 7)[0]
+    grads = []
+    for fn in (lambda a, b, c: fa.FlashAttentionFunction.apply(
+                   a, b, c, True, kw.get("window", -1), kw.get("softcap", 0.0), 0, None, 64),
+               lambda a, b, c: flash_attention_ref(a, b, c, **kw)):
+        ins = [t.detach().requires_grad_() for t in (q, k, v)]
+        grads.append(torch.autograd.grad((fn(*ins).float() * g.float()).sum(), ins))
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=1e-3)
+
+
+def test_train_step_on_the_card_goes_through_both_kernels(cuda_device):
+    """tinyllama-smoke in float32 compute on the card: the loss and every
+    parameter's gradient on the ``cuda`` engine (both kernels and their
+    written-out backwards) against the ``torch`` engine (autograd through
+    both plain versions) from the same weights and batch, within 1e-5 /
+    rtol 1e-4 (float32 sums in another order); then one train step on the
+    ``cuda`` engine launches the cross-entropy kernel once and flash
+    attention twice a layer (the remat recomputes each superblock in the
+    backward pass) and reports the same loss."""
+    from repro_torch.kernels import crossentropy as ce
+    from repro_torch.models import loss_fn
+    from repro_torch.train import SyntheticLM, TrainConfig, make_train_step
+    from repro_torch.train.train_loop import make_optimizer_for
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(configs.get_smoke_config("tinyllama-1.1b"), compute_dtype="float32")
+    batch = SyntheticLM(cfg, batch=4, seq=64, device="cuda").batch_at(0)
+    model = init_model_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    named = dict(model.named_parameters())
+    model.requires_grad_(True)
+    out = {}
+    for engine in ("cuda", "torch"):
+        loss, _ = loss_fn(model, batch, engine=engine)
+        out[engine] = (float(loss.detach()), torch.autograd.grad(loss, list(named.values())))
+    assert abs(out["cuda"][0] - out["torch"][0]) <= 1e-5
+    for name, a, b in zip(named, out["cuda"][1], out["torch"][1]):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-4, msg=name)
+
+    opt = make_optimizer_for(cfg, TrainConfig(lr=1e-2, warmup_steps=1))
+    state = opt.init(named)
+    ce.reset_launches()
+    fa.reset_launches()
+    _, _, metrics = make_train_step(cfg, opt)(model, state, 0, batch)
+    torch.cuda.synchronize()
+    assert (ce.launches(), fa.launches()) == (1, 2 * cfg.n_layers)
+    assert float(metrics["loss"]) == out["cuda"][0]

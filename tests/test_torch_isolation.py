@@ -7,8 +7,8 @@
   caller passes ``device="cpu"``; ``engine="cuda"`` never runs on the CPU.
 * The sampling and serving paths hold no broad ``except`` that could hide a
   device error, and the parts of later slices raise ``NotImplementedError``.
-* A default serving ``Engine`` needs a CUDA device unless the caller passes
-  ``device="cpu"``.
+* A default serving ``Engine``, ``Trainer``, train launcher and tune
+  objective need a CUDA device unless the caller passes ``device="cpu"``.
 """
 
 import ast
@@ -26,9 +26,12 @@ from repro_torch import configs
 from repro_torch.core.pruners import pruner_from_spec
 from repro_torch.kernels import ops
 from repro_torch.launch import serve as launch_serve
-from repro_torch.models import Transformer, init_model_params, loss_fn
+from repro_torch.launch import train as launch_train
+from repro_torch.models import Transformer, init_model_params, loss_fn, params_tree
 from repro_torch.models import attention as attn
 from repro_torch.serve import Engine
+from repro_torch.train import SyntheticLM, TrainConfig, Trainer, save_pytree
+from repro_torch.tune import LMTuneSpec, make_lm_objective
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -147,7 +150,9 @@ def _broad_handlers(path: Path):
      "kernels/ref.py", "kernels/_build.py", "core/moo.py", "core/samplers/nsga2.py",
      "core/pruners/moo.py", "kernels/hypervolume.py", "kernels/flash_attention.py",
      "models/attention.py", "models/transformer.py", "models/transfer.py", "serve/engine.py",
-     "launch/serve.py"],
+     "launch/serve.py", "kernels/crossentropy.py", "models/layers.py", "train/optimizer.py",
+     "train/data.py", "train/checkpoint.py", "train/train_loop.py", "launch/train.py",
+     "tune/objective.py"],
 )
 def test_sampling_path_has_no_broad_except(rel):
     assert list(_broad_handlers(PORT / rel)) == []
@@ -195,7 +200,9 @@ def test_unported_block_kinds_raise(kind, slice_name):
         Transformer(cfg, device="meta")
 
 
-def test_moe_ffn_loss_mla_and_checkpoint_raise():
+def test_moe_ffn_loss_mla_and_checkpoint_raise(tmp_path):
+    """The MoE FFN and MLA still raise.  The training slice ported
+    ``loss_fn`` and ``launch.serve --checkpoint``: both now run."""
     import dataclasses
 
     from repro_torch.models import BlockDef
@@ -204,13 +211,18 @@ def test_moe_ffn_loss_mla_and_checkpoint_raise():
                               superblock=(BlockDef(kind="attn", ffn="moe"),))
     with pytest.raises(NotImplementedError, match="MLA/MoE"):
         Transformer(cfg, device="meta")
-    with pytest.raises(NotImplementedError, match="training"):
-        loss_fn(None, None, {})
     for fn in (attn.mla_specs, attn.mla_block_full, attn.mla_block_decode, attn.empty_mla_cache):
         with pytest.raises(NotImplementedError, match="MLA"):
             fn(cfg)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        launch_serve.main(["--smoke", "--device", "cpu", "--checkpoint", "x.ckpt"])
+    dense = configs.get_smoke_config("tinyllama-1.1b")
+    model = init_model_params(dense, torch.Generator().manual_seed(0), "cpu")
+    loss, metrics = loss_fn(model, SyntheticLM(dense, batch=2, seq=16).batch_at(0))
+    assert loss.shape == () and torch.isfinite(loss) and float(metrics["ce"]) > 0
+    path = str(tmp_path / "params.ckpt")
+    save_pytree(path, params_tree(model))
+    result = launch_serve.main(["--smoke", "--device", "cpu", "--checkpoint", path,
+                                "--requests", "2", "--max-new", "3"])
+    assert [len(o) for o in result["outputs"]] == [3, 3]
 
 
 def test_default_engine_needs_cuda_or_an_explicit_cpu(no_cuda):
@@ -226,3 +238,21 @@ def test_default_engine_needs_cuda_or_an_explicit_cpu(no_cuda):
         launch_serve.main(["--smoke"])
     with pytest.raises(RuntimeError, match="cannot run"):
         attn.attention_full(*[torch.zeros(1, 4, 2, 16)] * 3, engine="cuda")
+
+
+def test_default_trainer_and_train_launcher_need_cuda_or_an_explicit_cpu(no_cuda):
+    cfg = configs.get_smoke_config("smollm-135m")
+    data = SyntheticLM(cfg, batch=2, seq=16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(cfg, TrainConfig(total_steps=1), data)
+    assert Trainer(cfg, TrainConfig(total_steps=1), data, device="cpu").device == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch_train.main(["--arch", "smollm-135m", "--smoke", "--steps", "1"])
+    spec = LMTuneSpec(vocab=64, seq=16, batch=2, total_steps=2, eval_every=1, max_layers=1,
+                      max_width=32, families=("dense",))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_lm_objective(spec)(hpo.FixedTrial({"family": "dense", "n_layers": 1, "width_exp": 5,
+                                               "n_heads": 2, "ff_mult": 1, "window": -1,
+                                               "lr": 1e-3, "warmup": 0, "weight_decay": 0.01}))
+    with pytest.raises(NotImplementedError, match="multi-GPU"):
+        Trainer(cfg, TrainConfig(total_steps=1), data, device="cpu", mesh=object())
