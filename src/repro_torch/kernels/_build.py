@@ -51,6 +51,11 @@ _SIGNATURES = {
         _I, [_P, _I, _L, _L, _P, _I, _L, _L, _P, _I, _I, _I, _I, _F, _P, _P, _P, _P],
     ),
     "crossentropy_splits": (_I, [_I, _I]),
+    "ssd_launch": (
+        _I, [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+             _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _P],
+    ),
+    "ssd_smem_bytes": (_I, [_I, _I, _I]),
 }
 
 

@@ -15,6 +15,10 @@ The sampler stack (``core/samplers/tpe.py``) and the multi-objective engine
 
 The multi-objective dominance compare has no kernel: under both device
 engines it is one torch compare on the float64 values (``core/moo.py``).
+The model's kernels (``kernels/flash_attention.py``,
+``kernels/crossentropy.py``, ``kernels/ssd.py``) take the model's engines
+instead (``models/layers.py::ENGINES``: ``"auto"``, ``"cuda"``,
+``"torch"``), under the same rule.
 
 There is no environment opt-in and no probe that downgrades a requested
 engine: an engine that cannot run raises.  Device inputs are padded to

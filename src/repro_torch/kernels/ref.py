@@ -12,7 +12,7 @@ import math
 import torch
 
 __all__ = ["parzen_score_ref", "mc_hv_counts_ref", "flash_attention_ref", "crossentropy_ref",
-           "crossentropy_lse_ref"]
+           "crossentropy_lse_ref", "ssd_ref", "ssd_chunked_ref", "ssd_chunk_len"]
 
 #: elements of the boolean (samples, points, objectives) cube per chunk
 _MC_CUBE_ELEMS = 1 << 27
@@ -154,3 +154,94 @@ def crossentropy_ref(
     """Per-token negative log-likelihood ``lse(x W) - (x W)[label]`` as a [T]
     float32 tensor (see :func:`crossentropy_lse_ref`)."""
     return crossentropy_lse_ref(x, w, labels, softcap)[0]
+
+
+def ssd_ref(
+    x: torch.Tensor,  # [B, S, H, P]
+    dt: torch.Tensor,  # [B, S, H] (post-softplus)
+    A: torch.Tensor,  # [H] (negative)
+    Bm: torch.Tensor,  # [B, S, G, N]
+    Cm: torch.Tensor,  # [B, S, G, N]
+    initial_state: "torch.Tensor | None" = None,  # [B, H, P, N]
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The SSD recurrence step by step (the reference's ``ssd_ref``), in
+    float32: ``h_t = exp(dt_t A) h_{t-1} + (x_t dt_t) B_t^T`` and ``y_t = h_t
+    C_t``, query head ``h`` reading group ``h // (H // G)``.  Returns ``(y
+    [B, S, H, P], final state [B, H, P, N])``."""
+    b, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    rep = H // G
+    f32 = torch.float32
+    Bh = Bm.to(f32).repeat_interleave(rep, dim=2)  # [B,S,H,N]
+    Ch = Cm.to(f32).repeat_interleave(rep, dim=2)
+    dA = torch.exp(dt.to(f32) * A.to(f32)[None, None, :])  # [B,S,H]
+    xdt = x.to(f32) * dt.to(f32)[..., None]
+    state = (initial_state.to(f32) if initial_state is not None
+             else torch.zeros((b, H, P, N), dtype=f32, device=x.device))
+    ys = []
+    for t in range(S):
+        state = state * dA[:, t, :, None, None] + xdt[:, t, :, :, None] * Bh[:, t, :, None, :]
+        ys.append(torch.einsum("bhpn,bhn->bhp", state, Ch[:, t]))
+    return torch.stack(ys, dim=1), state
+
+
+def ssd_chunk_len(S: int, chunk: int) -> int:
+    """The reference's chunk length for ``S`` steps: ``min(chunk, S)``, halved
+    until it divides ``S`` (``repro/models/mamba2.py::ssd_chunked``)."""
+    L = min(chunk, S)
+    while S % L != 0:
+        L //= 2
+    return L
+
+
+def ssd_chunked_ref(
+    xh: torch.Tensor,  # [B, S, H, P]
+    dt: torch.Tensor,  # [B, S, H] (post-softplus), float32
+    A: torch.Tensor,  # [H] (negative), float32
+    Bm: torch.Tensor,  # [B, S, G, N]
+    Cm: torch.Tensor,  # [B, S, G, N]
+    chunk: int = 128,
+    initial_state: "torch.Tensor | None" = None,  # [B, H, P, N]
+    *,
+    compute_dtype: torch.dtype = torch.float32,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The reference's chunked SSD (``repro/models/mamba2.py::ssd_chunked``)
+    in float32 (``compute_dtype=torch.float64`` gives a yardstick of that
+    rounding), its ``lax.scan`` over chunks a Python loop: chunks of
+    :func:`ssd_chunk_len` steps; per chunk, the intra-chunk term
+    ``sum_{s<=t} exp(cum_t - cum_s) (C_t . B_s) x_s dt_s`` (the decay masked
+    at ``-inf`` before the ``exp``), the chunk's state contribution, and the
+    entering state's term ``exp(cum_t) C_t . h_in``.  Query head ``h`` reads
+    group ``h // (H // G)``.  Returns ``(y [B, S, H, P], final state [B, H,
+    P, N])``, both in ``compute_dtype``; autograd runs through it."""
+    b, S, H, P = xh.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    rep = H // G
+    L = ssd_chunk_len(S, chunk)
+    n = S // L
+    ct = compute_dtype
+    dA = dt.to(ct) * A.to(ct)[None, None, :]  # [B,S,H] log-decay per step
+    xdt = xh.to(ct) * dt.to(ct)[..., None]
+    dA_c = dA.reshape(b, n, L, H)
+    x_c = xdt.reshape(b, n, L, H, P)
+    B_c = Bm.to(ct).reshape(b, n, L, G, N).repeat_interleave(rep, dim=3)  # [b,n,L,H,N]
+    C_c = Cm.to(ct).reshape(b, n, L, G, N).repeat_interleave(rep, dim=3)
+    cum = torch.cumsum(dA_c, dim=2)  # [b,n,L,H] inclusive
+    total = cum[:, :, -1:, :]
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # [b,n,L,L,H]
+    causal = torch.ones((L, L), dtype=torch.bool, device=xh.device).tril()
+    decay = torch.exp(seg.masked_fill(~causal[None, None, :, :, None], float("-inf")))
+    cb = torch.einsum("bcthn,bcshn->bctsh", C_c, B_c)
+    y_diag = torch.einsum("bctsh,bcshp->bcthp", cb * decay, x_c)
+    decay_out = torch.exp(total - cum)  # [b,n,L,H]
+    states = torch.einsum("bclhn,bclh,bclhp->bchpn", B_c, decay_out, x_c)  # [b,n,H,P,N]
+    chunk_decay = torch.exp(total[:, :, 0, :])  # [b,n,H]
+    carry = (initial_state.to(ct) if initial_state is not None
+             else torch.zeros((b, H, P, N), dtype=ct, device=xh.device))
+    entering = []
+    for c in range(n):
+        entering.append(carry)
+        carry = carry * chunk_decay[:, c, :, None, None] + states[:, c]
+    entering = torch.stack(entering, dim=1)  # [b,n,H,P,N]
+    y_off = torch.einsum("bclhn,bchpn,bclh->bclhp", C_c, entering, torch.exp(cum))
+    return (y_diag + y_off).reshape(b, S, H, P), carry

@@ -4,8 +4,8 @@
         [--smoke] [--requests 8 --max-new 32 --slots 4 --capacity 256 \\
         --temperature 0] [--checkpoint PATH] [--device cpu]
 
-Runs on the card unless ``--device cpu`` is given (the prefill attention
-then takes the flash-attention kernel's plain PyTorch version).  The
+Runs on the card unless ``--device cpu`` is given (the prefill's flash
+attention and SSD scan then take their kernels' plain PyTorch versions).  The
 weights come from ``--checkpoint`` (a parameter tree saved with
 ``train.save_pytree``, by this package or the reference's), else they are
 random, drawn by ``init_model_params`` from a generator seeded with 0.

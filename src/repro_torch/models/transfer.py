@@ -5,8 +5,10 @@ of numpy arrays (``jax.tree.map(np.asarray, repro.models.init_model_params(
 cfg, key))``) and returns the state dict of the port's
 :class:`~repro_torch.models.transformer.Transformer` for the same config:
 each stacked ``stack`` leaf is split along its leading ``n_superblocks`` axis
-into one tensor per layer; every other leaf (the embedding, tied or not, and
-the audio ``[K, V, d]`` / ``[K, d, V]`` tables) keeps its name and shape.
+into one tensor per layer; every other leaf (the embedding, tied or not, the
+audio ``[K, V, d]`` / ``[K, d, V]`` tables, zamba2's ``shared`` block and its
+tail blocks) keeps its name and shape.  A shared stack position holds no
+leaves (``stack/<i>`` is ``{}`` in both packages).
 It takes numpy, so it imports no jax.  :func:`params_tree` goes the other
 way, to the reference's tree of a model (for checkpoints), and
 :func:`load_params_tree` copies such a tree into a model in place.

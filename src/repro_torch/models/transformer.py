@@ -7,15 +7,19 @@ Dh]``, ..., ``final_norm``, ``out``).  The reference stacks each superblock
 position's parameters along a leading ``n_superblocks`` axis and scans over
 it; here layer ``l`` of position ``i`` is ``model.stack[l][str(i)]``, index
 ``l`` of that axis, so carrying weights across is a copy
-(``models/transfer.py``).  The KV cache keeps the reference's stacked layout
-and is updated in place.
+(``models/transfer.py``).  The cache (KV tensors, and a mamba2 block's
+float32 conv and state) keeps the reference's stacked layout and is updated
+in place.
 
 The dense attention family (GQA, sliding windows, softcaps, sandwich norms;
-text, VLM and audio embeddings) is ported for serving and for training:
+text, VLM and audio embeddings) and the Mamba2 hybrid family (zamba2: mamba2
+blocks through the SSD kernel, and one shared attention block whose
+parameters ``model.shared`` serve every stack position marked ``shared``,
+each repeat with its own KV cache) are ported for serving and for training:
 ``forward`` builds an autograd graph in train mode when the parameters
 require grad, and ``loss_fn`` is the reference's mean-token cross-entropy
-through the fused cross-entropy kernel.  MLA, MoE, mLSTM, sLSTM and Mamba2
-belong to later slices and raise ``NotImplementedError``.
+through the fused cross-entropy kernel.  MLA, MoE, mLSTM and sLSTM belong to
+later slices and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..kernels.ops import full_float32_matmul
 from . import attention as attn
+from . import mamba2 as m2
 from .config import BlockDef, ModelConfig
 from .layers import (
     Spec,
@@ -62,7 +67,6 @@ _UNPORTED_KINDS = {
     "mla": "the MLA/MoE slice",
     "mlstm": "the xlstm slice",
     "slstm": "the xlstm slice",
-    "mamba2": "the mamba2 slice",
 }
 
 
@@ -96,6 +100,8 @@ def _ffn_specs(cfg: ModelConfig, bdef: BlockDef) -> dict:
 def block_specs(cfg: ModelConfig, bdef: BlockDef) -> dict:
     if bdef.kind in _UNPORTED_KINDS:
         raise _unported(f"the {bdef.kind!r} block", _UNPORTED_KINDS[bdef.kind])
+    if bdef.kind == "mamba2":
+        return m2.mamba2_specs(cfg)
     specs: dict = {"ln1": Spec((cfg.d_model,), ("embed",), init="zeros")}
     specs["attn"] = attn.attn_specs(cfg)
     if bdef.ffn != "none":
@@ -172,8 +178,6 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        if cfg.has_shared_block:
-            raise _unported("a shared block (zamba2)", "the mamba2 slice")
         self.cfg = cfg
         specs = param_specs(cfg)
         per_layer = {i: spec_map(lambda s: Spec(s.shape[1:], s.logical[1:], s.init, s.std), sub)
@@ -187,9 +191,20 @@ class Transformer(nn.Module):
             nn.ModuleDict({i: _Params(sub, device) for i, sub in per_layer.items()})
             for _ in range(cfg.n_superblocks)
         )
+        if "shared" in specs:
+            self.shared = _Params(specs["shared"], device)
         self.final_norm = _param(specs["final_norm"].shape, device)
         if "out" in specs:
             self.out = _param(specs["out"].shape, device)
+
+    def stack_block(self, layer: int, i: int) -> tuple[BlockDef, nn.Module]:
+        """``(bdef, params)`` of position ``i`` of stacked superblock
+        ``layer``: a ``shared`` position runs ``cfg.shared_block`` on
+        ``self.shared``, as the reference's scan body does."""
+        b = self.cfg.superblock[i]
+        if b.shared:
+            return self.cfg.shared_block, self.shared
+        return b, self.stack[layer][str(i)]
 
     def blocks(self) -> Iterator[tuple[str, str, int, BlockDef, nn.Module]]:
         """``(segment, position, layer, bdef, params)`` in execution order;
@@ -197,9 +212,9 @@ class Transformer(nn.Module):
         cfg = self.cfg
         for i, b in enumerate(cfg.head_blocks):
             yield "head", str(i), 0, b, self.head[str(i)]
-        for layer, sub in enumerate(self.stack):
-            for i, b in enumerate(cfg.superblock):
-                yield "stack", str(i), layer, b, sub[str(i)]
+        for layer in range(cfg.n_superblocks):
+            for i in range(len(cfg.superblock)):
+                yield "stack", str(i), layer, *self.stack_block(layer, i)
         for i, b in enumerate(cfg.tail_blocks):
             yield "tail", str(i), 0, b, self.tail[str(i)]
 
@@ -252,7 +267,15 @@ def _ffn_apply(p, x, cfg, bdef):
 
 
 def apply_block(bdef: BlockDef, p, x, cfg, positions, cache, cache_index, mode, engine="auto"):
-    """Returns (x_out, cache, aux_loss); the cache is updated in place."""
+    """Returns (x_out, cache, aux_loss); the cache is updated in place.  A
+    mamba2 block norms its input itself (no ``ln1``), as in the reference."""
+    if bdef.kind == "mamba2":
+        if mode == "decode":
+            out, cache = m2.mamba2_block_decode(p, x, cfg, bdef, cache, cache_index)
+        else:
+            out, cache = m2.mamba2_block_full(p, x, cfg, bdef, positions, cache=cache,
+                                              cache_index=cache_index, engine=engine)
+        return x + out, cache, 0.0
     h = rms_norm(x, p.ln1, cfg.norm_eps)
     if mode == "decode":
         o, cache = attn.attn_block_decode(p.attn, h, cfg, bdef, cache, cache_index)
@@ -271,10 +294,17 @@ def apply_block(bdef: BlockDef, p, x, cfg, positions, cache, cache_index, mode, 
 
 def init_cache(cfg: ModelConfig, batch: int, capacity: int, dtype=torch.bfloat16, device=None):
     """Cache dict matching the segment structure.  Stacked blocks carry a
-    leading n_superblocks dim (layer ``l`` uses index ``l``)."""
+    leading n_superblocks dim (layer ``l`` uses index ``l``; each repeat of a
+    shared block has its own cache).  An attention block's KV cache is in
+    ``dtype``; a mamba2 block's conv and state are float32."""
 
     def block_cache(b, n=None):
-        c = attn.empty_kv_cache(cfg, batch, capacity, dtype, window=b.window, device=device)
+        if b.shared:
+            b = cfg.shared_block
+        if b.kind == "mamba2":
+            c = m2.empty_mamba2_state(cfg, batch, device=device)
+        else:
+            c = attn.empty_kv_cache(cfg, batch, capacity, dtype, window=b.window, device=device)
         if n is None:
             return c
         return {key: t.unsqueeze(0).repeat(n, *([1] * t.dim())) for key, t in c.items()}
@@ -325,9 +355,9 @@ def _superblock(model: Transformer, layer: int, x, positions, engine):
     ``(x, aux)``."""
     cfg = model.cfg
     aux = 0.0
-    for i, bdef in enumerate(cfg.superblock):
-        x, _, a = apply_block(bdef, model.stack[layer][str(i)], x, cfg, positions, None, 0,
-                              "train", engine)
+    for i in range(len(cfg.superblock)):
+        bdef, p = model.stack_block(layer, i)
+        x, _, a = apply_block(bdef, p, x, cfg, positions, None, 0, "train", engine)
         aux += a
     return x, aux
 
@@ -340,7 +370,8 @@ def forward(model: Transformer, batch: dict, cache=None, cache_index: int = 0, m
       -> (x_final, cache, aux)
     * decode:  batch={tokens [B,1]}, cache, index -> (x_final [B,1,d], cache, aux)
 
-    ``engine`` picks the attention of train and prefill (``attention.ATTN_ENGINES``).
+    ``engine`` picks the attention and the SSD scan of train and prefill
+    (``layers.ENGINES``).
     The cache is updated in place and returned.  Train mode under grad (the
     parameters require it) builds an autograd graph; with ``cfg.remat`` other
     than ``"none"`` each stacked superblock is recomputed in the backward pass
@@ -401,7 +432,7 @@ def loss_fn(model: Transformer, batch: dict, *, engine: str = "auto"):
     materializing full logits; returns ``(loss, {"ce": ce, "aux": aux})``.
     ``batch["labels"]`` is [B, S] ([B, K, S] for audio, one loss per codebook,
     averaged); a VLM takes no loss on its ``img_tokens`` image positions.
-    ``engine`` picks the attention and the cross-entropy
+    ``engine`` picks the attention, the SSD scan and the cross-entropy
     (``layers.ENGINES``)."""
     cfg = model.cfg
     x, _, aux = forward(model, batch, mode="train", engine=engine)

@@ -23,8 +23,8 @@ __all__ = ["make_prefill_step", "make_decode_step", "Engine", "Request", "sample
 
 def make_prefill_step(cfg: ModelConfig, engine: str = "auto") -> Callable:
     """(model, batch, cache) -> (last_logits, cache).  The tokens' length
-    fills cache[0:S]; ``engine`` picks the attention (``"cuda"`` kernel,
-    ``"torch"`` plain version, ``"auto"`` by device).  Runs under
+    fills cache[0:S]; ``engine`` picks the attention and the SSD scan
+    (``"cuda"`` kernels, ``"torch"`` plain versions, ``"auto"`` by device).  Runs under
     ``torch.inference_mode``: serving builds no autograd graph."""
 
     @torch.inference_mode()
@@ -78,13 +78,15 @@ class Engine:
     prefill and one decode step per token.
 
     ``device=None`` means the card; without one the engine raises unless the
-    caller passes ``device="cpu"``.  ``engine`` picks the prefill attention:
-    ``"cuda"`` the flash-attention kernel (CUDA only), ``"torch"`` its plain
-    PyTorch version on any device, ``"auto"`` the kernel on a CUDA device and
-    the plain version on the CPU.  The model is moved to the device and its
-    matrices (parameters of two or more dimensions) are cast to the compute
-    dtype in place, once: the reference casts them at every use, to the same
-    numbers.  Norm scales stay float32.  So a model that is still being
+    caller passes ``device="cpu"``.  ``engine`` picks the prefill's kernels
+    (flash attention, the SSD scan): ``"cuda"`` the kernels (CUDA only),
+    ``"torch"`` their plain PyTorch versions on any device, ``"auto"`` the
+    kernels on a CUDA device and the plain versions on the CPU.  The model
+    is moved to the device and its matrices (parameters of two or more
+    dimensions, a mamba2 block's ``conv_w`` among them) are cast to the
+    compute dtype in place, once: the reference casts them at every use, to
+    the same numbers.  Norm scales and a mamba2 block's ``A_log``, ``D``,
+    ``dt_bias`` and ``conv_b`` stay float32.  So a model that is still being
     trained must not be handed to an ``Engine``: serve a copy, or a
     checkpoint restored into a new model."""
 

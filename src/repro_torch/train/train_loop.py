@@ -1,8 +1,8 @@
 """Train-step construction + the host-side training loop.
 
 ``make_train_step`` builds the step function: gradients of the
-cross-entropy loss (``models.loss_fn``, through the fused cross-entropy and
-flash-attention kernels and their written-out backwards), optional
+cross-entropy loss (``models.loss_fn``, through the fused cross-entropy,
+flash-attention and SSD kernels and their written-out backwards), optional
 microbatch accumulation, the optimizer update in place.
 
 ``Trainer`` adds the production concerns: init on a device from a seeded

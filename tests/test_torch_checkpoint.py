@@ -150,7 +150,7 @@ def test_trainer_checkpoint_has_the_reference_keys(tmp_path):
     assert float(jnp.abs(state["v"]["stack"]["0"]["attn"]["wq"]).max()) > 0
 
 
-@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "gemma2-9b"])
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "gemma2-9b", "zamba2-1.2b"])
 def test_reference_checkpoint_restores_into_the_port(tmp_path, arch):
     ref_cfg = ref_configs_pkg.get_smoke_config(arch)
     params = ref_models.init_model_params(ref_cfg, jax.random.PRNGKey(5))
@@ -183,6 +183,27 @@ def test_port_checkpoint_restores_into_the_reference(tmp_path):
     np.testing.assert_array_equal(np.asarray(params["embed"]), model.embed.detach().numpy())
     np.testing.assert_array_equal(np.asarray(params["stack"]["0"]["attn"]["wo"][1]),
                                   model.stack[1]["0"].attn.wo.detach().numpy())
+
+
+def test_port_zamba2_checkpoint_restores_into_the_reference(tmp_path):
+    """The shared block, the stacked mamba2 leaves and the tail blocks cross
+    to the reference's tree exactly."""
+    cfg = configs.get_smoke_config("zamba2-1.2b")
+    model = init_model_params(cfg, torch.Generator().manual_seed(4), "cpu")
+    path = str(tmp_path / "params.ckpt")
+    save_pytree(path, params_tree(model), step=3)
+    ref_cfg = ref_configs_pkg.get_smoke_config("zamba2-1.2b")
+    step, params = ref_train.restore_pytree(path, ref_models.abstract_params(ref_cfg))
+    assert step == 3
+    named = dict(model.named_parameters())
+    leaves = jax.tree_util.tree_leaves_with_path(params)
+    seen = set()
+    for keys, leaf in leaves:
+        for name, part in state_items(tuple(k.key for k in keys), np.asarray(leaf)):
+            np.testing.assert_array_equal(part, named[name].detach().numpy(), err_msg=name)
+            seen.add(name)
+    assert seen == set(named)
+    assert {"shared.attn.wq", "stack.1.0.A_log", "tail.0.conv_w"} <= seen
 
 
 @pytest.fixture

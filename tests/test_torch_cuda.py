@@ -16,7 +16,12 @@ bfloat16, where the kernel's float32 sums run in another order and the
 output is rounded once to bfloat16.  The fused cross-entropy is held to its
 plain version within atol 1e-4 / rtol 1e-5 (float32 sums and an online
 logsumexp in another order, on NLLs of order 10), and both written-out
-backwards to autograd through the plain versions.
+backwards to autograd through the plain versions.  The SSD scan is held to
+its plain version within the reference's kernel tolerance, atol 2e-3
+(float32 sums in another order and another chunk length: the kernel cuts
+``min(chunk, S)``-step chunks with a ragged last one, the plain version
+halves the chunk until it divides S), and its written-out backward to
+autograd through the plain version.
 """
 
 import dataclasses
@@ -496,4 +501,147 @@ def test_train_step_on_the_card_goes_through_both_kernels(cuda_device):
     _, _, metrics = make_train_step(cfg, opt)(model, state, 0, batch)
     torch.cuda.synchronize()
     assert (ce.launches(), fa.launches()) == (1, 2 * cfg.n_layers)
+    assert float(metrics["loss"]) == out["cuda"][0]
+
+
+# -- the mamba2 slice: the SSD scan ----------------------------------------------------
+
+SSD_TOL = 2e-3
+
+
+def _ssd_inputs(device, B, S, H, P, G, N, dtype, init, seed, model_layout=False):
+    """numpy-seeded inputs on the card; with ``model_layout`` x, B and C are
+    slices of one [B, S, H P + 2 G N] tensor, as the model's conv output."""
+    rng = np.random.RandomState(seed)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(device)  # noqa: E731
+    dt = t(np.abs(rng.randn(B, S, H)) * 0.5)
+    A = t(-np.abs(rng.randn(H)))
+    if model_layout:
+        conv = t(rng.randn(B, S, H * P + 2 * G * N)).to(dtype)
+        x = conv[..., :H * P].reshape(B, S, H, P)
+        Bm = conv[..., H * P:H * P + G * N].reshape(B, S, G, N)
+        Cm = conv[..., H * P + G * N:].reshape(B, S, G, N)
+    else:
+        x = t(rng.randn(B, S, H, P)).to(dtype)
+        Bm, Cm = (t(rng.randn(B, S, G, N)).to(dtype) for _ in range(2))
+    h0 = t(rng.randn(B, H, P, N)) if init else None
+    return x, dt, A, Bm, Cm, h0
+
+
+@pytest.mark.parametrize(
+    "B,S,H,P,G,N,chunk,dtype,init,model_layout",
+    [(3, 64, 1, 16, 1, 8, 16, torch.float32, False, False),  # the reference's sweep
+     (3, 128, 1, 32, 1, 16, 32, torch.float32, False, False),
+     (3, 32, 1, 8, 1, 8, 32, torch.float32, False, False),
+     (2, 96, 6, 16, 3, 16, 32, torch.float32, True, False),  # groups, an initial state
+     (2, 37, 4, 16, 1, 16, 16, torch.float32, True, False),  # odd S
+     (1, 131, 8, 16, 1, 8, 16, torch.float32, False, True),  # prime S
+     (4, 200, 8, 16, 1, 16, 16, torch.bfloat16, True, True),  # the smoke / tune widths
+     (2, 300, 16, 64, 1, 64, 128, torch.bfloat16, True, True)],  # zamba2's widths
+)
+def test_ssd_kernel_matches_plain_version(cuda_device, B, S, H, P, G, N, chunk, dtype, init,
+                                          model_layout):
+    from repro_torch.kernels import ssd
+    from repro_torch.kernels.ref import ssd_chunked_ref
+
+    args = _ssd_inputs(cuda_device, B, S, H, P, G, N, dtype, init, S + P, model_layout)
+    ssd.reset_launches()
+    y, f = ssd.ssd_forward(*args[:5], chunk, args[5])
+    torch.cuda.synchronize()
+    assert ssd.launches() == 1
+    ry, rf = ssd_chunked_ref(*args[:5], chunk, args[5])
+    for got, want in ((y, ry), (f, rf)):
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        err = float((got - want).abs().max())
+        assert err <= SSD_TOL and err <= 0.1 * float(want.pow(2).mean().sqrt()), err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_gradient_matches_autograd_of_plain_version(cuda_device, dtype):
+    from repro_torch.kernels.ref import ssd_chunked_ref
+    from repro_torch.kernels.ssd import SSDFunction
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = _ssd_inputs(cuda_device, 2, 100, 8, 16, 2, 16, dtype, True, 7)
+    rng = np.random.RandomState(8)
+    gy = torch.from_numpy(rng.randn(2, 100, 8, 16).astype(np.float32)).to(cuda_device)
+    gf = torch.from_numpy(rng.randn(2, 8, 16, 16).astype(np.float32)).to(cuda_device)
+    grads = []
+    for fn in (SSDFunction.apply, ssd_chunked_ref):
+        ins = [a.detach().clone().requires_grad_() for a in args]
+        y, f = fn(*ins[:5], 32, ins[5])
+        grads.append(torch.autograd.grad((y * gy).sum() + (f * gf).sum(), ins))
+    for got, want in zip(*grads):
+        scale = float(want.float().abs().max())
+        tol = 1e-5 if dtype == torch.float32 else 2.0**-7  # one bf16 rounding of dx, dB, dC
+        assert float((got.float() - want.float()).abs().max()) <= tol * scale
+
+
+def test_ssd_cuda_tensors_of_the_wrong_kind_raise(cuda_device):
+    from repro_torch.kernels.ssd import ssd_forward
+
+    x, dt, A, Bm, Cm, _ = _ssd_inputs(cuda_device, 1, 300, 4, 16, 1, 16, torch.float32, False, 1)
+    with pytest.raises(TypeError):  # x and B / C of two dtypes
+        ssd_forward(x.bfloat16(), dt, A, Bm, Cm, 16)
+    with pytest.raises(ValueError):  # the last dimension strided
+        ssd_forward(x.transpose(2, 3).contiguous().transpose(2, 3), dt, A, Bm, Cm, 16)
+    with pytest.raises(ValueError):  # a chunk past the kernel's largest
+        ssd_forward(x, dt, A, Bm, Cm, 256)
+    with pytest.raises(ValueError):  # two devices
+        ssd_forward(x, dt.cpu(), A, Bm, Cm, 16)
+
+
+def test_zamba2_engine_cuda_and_torch_give_the_same_greedy_tokens(cuda_device):
+    """zamba2-smoke in float32 on the card: the same greedy tokens on both
+    engines; the SSD kernel launches once per mamba2 block and prefill, the
+    flash kernel once per shared-block repeat and prefill."""
+    from repro_torch.kernels import ssd
+
+    rng = np.random.RandomState(4)
+    prompts = [rng.randint(1, 256, size=n) for n in (5, 23, 17, 9, 31)]  # two groups
+    outs = {}
+    for engine in ("torch", "cuda"):
+        cfg, eng = _smoke_engine("zamba2-1.2b", engine, cuda_device)
+        fa.reset_launches()
+        ssd.reset_launches()
+        outs[engine] = eng.generate(prompts, max_new=12)
+        torch.cuda.synchronize()
+        n_mamba = sum(b.kind == "mamba2" for b in cfg.superblock) * cfg.n_superblocks + len(
+            cfg.tail_blocks)
+        want = (n_mamba * 2, cfg.n_superblocks * 2) if engine == "cuda" else (0, 0)
+        assert (ssd.launches(), fa.launches()) == want
+    assert outs["cuda"] == outs["torch"]
+
+
+def test_zamba2_train_step_on_the_card_goes_through_the_ssd_kernel(cuda_device):
+    """zamba2-smoke in float32 compute: the loss and every gradient on the
+    ``cuda`` engine against the ``torch`` engine within 1e-5 / rtol 1e-4;
+    one train step launches the SSD kernel twice for each stacked mamba2
+    block (the remat recomputes each superblock) and once for each tail
+    block."""
+    from repro_torch.kernels import ssd
+    from repro_torch.models import loss_fn
+    from repro_torch.train import SyntheticLM, TrainConfig, make_train_step
+    from repro_torch.train.train_loop import make_optimizer_for
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(configs.get_smoke_config("zamba2-1.2b"), compute_dtype="float32")
+    batch = SyntheticLM(cfg, batch=4, seq=64, device="cuda").batch_at(0)
+    model = init_model_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    named = dict(model.named_parameters())
+    model.requires_grad_(True)
+    out = {}
+    for engine in ("cuda", "torch"):
+        loss, _ = loss_fn(model, batch, engine=engine)
+        out[engine] = (float(loss.detach()), torch.autograd.grad(loss, list(named.values())))
+    assert abs(out["cuda"][0] - out["torch"][0]) <= 1e-5
+    for name, a, b in zip(named, out["cuda"][1], out["torch"][1]):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-4, msg=name)
+    opt = make_optimizer_for(cfg, TrainConfig(lr=1e-2, warmup_steps=1))
+    state = opt.init(named)
+    ssd.reset_launches()
+    _, _, metrics = make_train_step(cfg, opt)(model, state, 0, batch)
+    torch.cuda.synchronize()
+    stacked = sum(b.kind == "mamba2" for b in cfg.superblock) * cfg.n_superblocks
+    assert ssd.launches() == 2 * stacked + len(cfg.tail_blocks)
     assert float(metrics["loss"]) == out["cuda"][0]

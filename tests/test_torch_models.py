@@ -1,4 +1,5 @@
-"""The port's dense-family models against the reference on the CPU.
+"""The port's dense and Mamba2 hybrid (zamba2) models against the reference
+on the CPU.
 
 The reference initializes each smoke config's weights
 (``repro.models.init_model_params``); ``params_from_jax`` carries them into
@@ -18,7 +19,14 @@ the logits (``logits_from_hidden``) and the KV caches are compared:
   prefill / decode bound (``tests/test_models_smoke.py``): the port keeps
   the attention probabilities in float32 for ``P V``, where the reference
   rounds them to bfloat16 first, and the two frameworks round bfloat16
-  matmuls at different places.
+  matmuls at different places.  zamba2's caches (the mamba2 blocks' conv
+  inputs and float32 states, the shared block's k/v) are held to 1.25e-1 in
+  bfloat16: XLA's bfloat16 ``jax.nn.silu`` (its ``logistic``) differs from
+  the correctly rounded one in 39% of values by up to one bfloat16 step, and
+  each mamba2 block gates twice through it, so over the smoke model's five
+  blocks the caches drift by up to 0.090 (the shared block's v at the decode
+  step, on values up to 3.9; 0.086 on the last block's conv input) while
+  the logits stay within 0.015.  In float32 every cache agrees within 5e-6.
 
 Parameter counts of the full configs equal the reference's, and every
 config the port copied equals its reference twin field by field.
@@ -47,7 +55,10 @@ from repro_torch.models.layers import Spec, init_params
 
 DENSE = ["tinyllama-1.1b", "smollm-135m", "internlm2-1.8b", "gemma2-9b", "llava-next-34b",
          "musicgen-medium"]
+ARCHS = DENSE + ["zamba2-1.2b"]
 TOL = {"float32": dict(atol=1e-4, rtol=1e-4), "bfloat16": dict(atol=8e-2, rtol=0)}
+#: zamba2's bfloat16 caches (see the module docstring)
+HYBRID_CACHE_TOL = dict(atol=1.25e-1, rtol=0)
 B, S, CAPACITY = 2, 16, 32
 
 
@@ -126,18 +137,19 @@ def runs(request):
         model = Transformer(cfg, device="cpu")
         model.load_state_dict(params_from_jax(cfg, jax.tree.map(np.asarray, params)))
         batch = make_batch(cfg)
-        _RUNS[arch, dtype] = (dtype, run_reference(ref_cfg, params, batch), run_port(cfg, model, batch))
+        _RUNS[arch, dtype] = (arch, dtype, run_reference(ref_cfg, params, batch),
+                              run_port(cfg, model, batch))
     return _RUNS[arch, dtype]
 
 
-CASES = [(a, d) for a in DENSE for d in TOL]
+CASES = [(a, d) for a in ARCHS for d in TOL]
 IDS = [f"{a}-{d}" for a, d in CASES]
 
 
 @pytest.mark.parametrize("runs", CASES, ids=IDS, indirect=True)
 @pytest.mark.parametrize("mode", ["train", "prefill", "decode"])
 def test_logits_match_the_reference(runs, mode):
-    dtype, ref, port = runs
+    _, dtype, ref, port = runs
     assert port[mode].dtype == np.float32 and port[mode].shape == ref[mode].shape
     assert np.isfinite(port[mode]).all()
     np.testing.assert_allclose(port[mode], ref[mode], **TOL[dtype])
@@ -146,16 +158,18 @@ def test_logits_match_the_reference(runs, mode):
 @pytest.mark.parametrize("runs", CASES, ids=IDS, indirect=True)
 @pytest.mark.parametrize("step", ["prefill_cache", "decode_cache"])
 def test_kv_cache_matches_the_reference(runs, step):
-    dtype, ref, port = runs
+    arch, dtype, ref, port = runs
+    tol = HYBRID_CACHE_TOL if (arch, dtype) == ("zamba2-1.2b", "bfloat16") else TOL[dtype]
+    assert ref[step].keys() == port[step].keys()
     for seg, sub in ref[step].items():
         for i, c in sub.items():
             for key, want in c.items():
                 got = port[step][seg][i][key].numpy()
                 assert got.shape == want.shape, (seg, i, key)
-                np.testing.assert_allclose(got, want, **TOL[dtype], err_msg=f"{seg}/{i}/{key}")
+                np.testing.assert_allclose(got, want, **tol, err_msg=f"{seg}/{i}/{key}")
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_full_config_param_counts_equal_the_reference(arch):
     n = count_params(configs.get_config(arch))
     assert n == ref_models.count_params(ref_configs.get_config(arch))

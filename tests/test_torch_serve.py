@@ -4,8 +4,10 @@
 from the same weights (carried across by ``params_from_jax``) and the same
 prompts of unequal length, so left padding, the bfloat16 KV cache, ring
 caches (gemma2's window of 8 under prompts of up to 12 tokens and 10 new
-tokens) and slot groups all take part.  In float32 compute the tokens must
-be identical.  The launcher runs once with ``--smoke --device cpu``.
+tokens), zamba2's float32 mamba2 states and shared-block KV caches, and
+slot groups all take part.  In float32 compute the tokens must be
+identical.  The launcher runs with ``--smoke --device cpu`` on tinyllama and
+zamba2.
 """
 
 import dataclasses
@@ -23,7 +25,7 @@ from repro_torch.launch import serve as launch_serve
 from repro_torch.models import Transformer, params_from_jax
 from repro_torch.serve import Engine, sample_token
 
-TEXT = ["tinyllama-1.1b", "smollm-135m", "internlm2-1.8b", "gemma2-9b"]
+TEXT = ["tinyllama-1.1b", "smollm-135m", "internlm2-1.8b", "gemma2-9b", "zamba2-1.2b"]
 PROMPT_LENS = [5, 12, 3, 9, 7]  # slots=4: a group of four, then one alone
 MAX_NEW, CAPACITY, SLOTS = 10, 32, 4
 
@@ -45,8 +47,9 @@ def test_greedy_tokens_equal_the_reference(arch):
     assert all(len(row) == MAX_NEW for row in got)
 
 
-def test_engine_casts_matrices_once_and_keeps_norms_float32():
-    cfg = configs.get_smoke_config("gemma2-9b")  # bfloat16 compute
+@pytest.mark.parametrize("arch", ["gemma2-9b", "zamba2-1.2b"])
+def test_engine_casts_matrices_once_and_keeps_norms_float32(arch):
+    cfg = configs.get_smoke_config(arch)  # bfloat16 compute
     model = Transformer(cfg, device="cpu")
     for p in model.parameters():
         torch.nn.init.normal_(p, std=0.02)
@@ -76,9 +79,11 @@ def test_sample_token_greedy_and_top_k():
     assert set(draws[:, 0, 0].tolist()) <= {1, 2} and set(draws[:, 1, 0].tolist()) <= {0, 3}
 
 
-def test_launcher_smoke_on_the_cpu(capsys):
-    result = launch_serve.main(["--arch", "tinyllama-1.1b", "--smoke", "--device", "cpu",
+@pytest.mark.parametrize("arch,name", [("tinyllama-1.1b", "tinyllama-smoke"),
+                                       ("zamba2-1.2b", "zamba2-smoke")])
+def test_launcher_smoke_on_the_cpu(capsys, arch, name):
+    result = launch_serve.main(["--arch", arch, "--smoke", "--device", "cpu",
                                 "--requests", "3", "--max-new", "5"])
     assert result["device"] == "cpu" and result["tokens"] == 15
     assert [len(o) for o in result["outputs"]] == [5, 5, 5]
-    assert "[serve] tinyllama-smoke on cpu: 15 tokens" in capsys.readouterr().out
+    assert f"[serve] {name} on cpu: 15 tokens" in capsys.readouterr().out

@@ -11,13 +11,18 @@ both packages' ``loss_fn`` in float32 compute:
   most 40 keys and 2 query heads, in another order);
 * the loss within 1e-5 and the gradient of every parameter within atol
   1e-5 / rtol 1e-4 on the six dense smoke configs (text, the VLM image mask,
-  audio codebooks): float32 sums in another order through two to four
+  audio codebooks) and zamba2's (mamba2 blocks through ``SSDFunction``'s
+  written-out backward, the shared attention block's parameters summed over
+  its two repeats): float32 sums in another order through two to five
   layers, the loss's mean over 64 tokens and the gradients' sums over them
-  (the largest difference seen was 2.1e-6, on gradients up to 1.9);
+  (the largest difference seen was 2.1e-6, on gradients up to 1.9; on
+  zamba2 at most 5% of the bound);
 * ``warmup_cosine`` equal to the reference's within 1e-7 (the reference
   computes in float32, the port in float64);
 * remat on and off give the same gradients (the recomputation repeats the
-  forward's operations).
+  forward's operations), on gemma2 and on zamba2;
+* the ``torch`` engine (autograd through the plain versions) against the
+  kernels' Functions, on gemma2 and on zamba2.
 
 The train steps (optimizers, microbatches) are in ``test_torch_train_step.py``.
 """
@@ -42,6 +47,7 @@ from repro_torch.train import MemmapTokens, SyntheticLM, warmup_cosine
 
 DENSE = ["tinyllama-1.1b", "smollm-135m", "internlm2-1.8b", "gemma2-9b", "llava-next-34b",
          "musicgen-medium"]
+ARCHS = DENSE + ["zamba2-1.2b"]
 B, S = 2, 32
 
 
@@ -99,7 +105,7 @@ def test_attention_full_gradients_match_jax_grad(window, softcap):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5, rtol=1e-4, err_msg=name)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_loss_and_every_gradient_match_the_reference(arch):
     ref_cfg, cfg = _configs(arch)
     params = ref_models.init_model_params(ref_cfg, jax.random.PRNGKey(1))
@@ -120,10 +126,11 @@ def test_loss_and_every_gradient_match_the_reference(arch):
     assert seen == set(grads)
 
 
-def test_remat_on_and_off_give_the_same_gradients():
-    _, cfg = _configs("gemma2-9b")
+@pytest.mark.parametrize("arch", ["gemma2-9b", "zamba2-1.2b"])
+def test_remat_on_and_off_give_the_same_gradients(arch):
+    _, cfg = _configs(arch)
     params = ref_models.init_model_params(dataclasses.replace(
-        ref_configs.get_smoke_config("gemma2-9b"), compute_dtype="float32"), jax.random.PRNGKey(3))
+        ref_configs.get_smoke_config(arch), compute_dtype="float32"), jax.random.PRNGKey(3))
     batch = SyntheticLM(cfg, batch=B, seq=S, seed=2).batch_at(1)
     runs = {}
     for remat in ("nothing_saveable", "dots_saveable", "none"):
@@ -135,12 +142,13 @@ def test_remat_on_and_off_give_the_same_gradients():
             assert torch.equal(runs[remat][2][name], g), (remat, name)
 
 
-def test_torch_engine_matches_the_kernel_path():
-    """``engine="torch"`` (autograd through both plain versions) against the
+@pytest.mark.parametrize("arch", ["gemma2-9b", "zamba2-1.2b"])
+def test_torch_engine_matches_the_kernel_path(arch):
+    """``engine="torch"`` (autograd through the plain versions) against the
     default path (the kernels' Functions, plain forward on the CPU)."""
-    _, cfg = _configs("gemma2-9b")
+    _, cfg = _configs(arch)
     params = ref_models.init_model_params(dataclasses.replace(
-        ref_configs.get_smoke_config("gemma2-9b"), compute_dtype="float32"), jax.random.PRNGKey(4))
+        ref_configs.get_smoke_config(arch), compute_dtype="float32"), jax.random.PRNGKey(4))
     batch = SyntheticLM(cfg, batch=B, seq=S, seed=5).batch_at(0)
     auto = _port_grads(_model(cfg, params), batch)
     plain = _port_grads(_model(cfg, params), batch, engine="torch")

@@ -93,7 +93,7 @@ def _run_both(arch, optimizer, steps, microbatch=0, eps=1e-4):
     "arch,optimizer,steps,microbatch",
     [("smollm-135m", "adamw", 5, 0), ("gemma2-9b", "adamw", 5, 0),
      ("smollm-135m", "adafactor", 3, 0), ("smollm-135m", "sgd", 3, 0),
-     ("musicgen-medium", "adamw", 3, 2)],
+     ("musicgen-medium", "adamw", 3, 2), ("zamba2-1.2b", "adamw", 3, 2)],
 )
 def test_train_steps_match_the_reference(arch, optimizer, steps, microbatch):
     model, state, params, ref_state, losses, _ = _run_both(arch, optimizer, steps, microbatch)

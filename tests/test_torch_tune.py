@@ -1,7 +1,7 @@
 """The port's HPO-over-training loop (``repro_torch.tune``) on the CPU: twins
 of ``tests/test_tune_integration.py`` with ``families=("dense",)`` and
-``device="cpu"``, the spaces held equal to the reference's, and the
-families of later slices raising.  (The dashboard of the reference's test
+``device="cpu"``, a ``("dense", "mamba2")`` study, the spaces held equal to
+the reference's, and the families of later slices raising.  (The dashboard of the reference's test
 belongs to the storage and HPO-surfaces slice of the port.)"""
 
 import dataclasses
@@ -94,10 +94,28 @@ def test_train_config_space():
     assert tcfg.total_steps == SPEC.total_steps
 
 
+def test_dense_and_mamba2_study_runs():
+    """Both families train, report and get pruned; no trial raises."""
+    spec = dataclasses.replace(SPEC, families=("dense", "mamba2"))
+    study = hpo.create_study(
+        sampler=hpo.TPESampler(seed=1, n_startup_trials=3, device="cpu"),
+        pruner=hpo.SuccessiveHalvingPruner(min_resource=3, reduction_factor=2),
+    )
+    objective = make_lm_objective(spec, device="cpu")
+    study.optimize(objective, n_trials=8)
+    states = [t.state for t in study.trials]
+    assert TrialState.FAIL not in states
+    assert set(states) <= {TrialState.COMPLETE, TrialState.PRUNED}
+    assert {t.params["family"] for t in study.trials} == {"dense", "mamba2"}
+    assert np.isfinite(study.best_value)
+    fixed = {"family": "mamba2", "n_layers": 2, "width_exp": 5, "ssm_state": 16, "lr": 3e-3,
+             "warmup": 0, "weight_decay": 0.01}
+    assert np.isfinite(objective(hpo.FixedTrial(fixed)))
+
+
 @pytest.mark.parametrize(
     "family,params,slice_name",
     [("mlstm", {"ssm_heads": 2, "proj_factor": 1}, "xlstm"),
-     ("mamba2", {"ssm_state": 8}, "mamba2"),
      ("moe", {"n_experts": 4, "top_k": 1}, "MLA/MoE")],
 )
 def test_later_families_raise_naming_their_slice(family, params, slice_name):
