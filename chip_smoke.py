@@ -111,7 +111,34 @@ Phases, each of which fails the run by raising:
     kernel's and its written-out backward's share of the step;
 20. phase 16's study over ``families=("dense", "mamba2")``: trials of both
     families complete or are pruned, none raises, every kernel of the path
-    launched.
+    launched;
+21. the sLSTM recurrence kernel against its plain PyTorch version run in
+    float64 (every step's h, c, n, m within 1e-5 + 1e-5 |x| of one float64
+    step from the kernel's own entering state; the whole run's h_seq and
+    final state within a tenth of the exact output's rms, the float32
+    plain version's own distance printed beside) at the reference's test
+    sweep, an initial state, S = 1, an odd S, the smoke width and
+    xlstm-1.3b's prefill / training shape (B 8, S 2048, 4 heads of 512,
+    bf16 pre-activations read as a slice of a wider tensor), its decode
+    shape (B 8, S 1) and phase 22(b)'s prefill groups, each with its time,
+    the plain version's, the bound, the kernel's ``ptxas`` registers and
+    spills and the blocks launched; the Function's gradients against
+    autograd through the plain version at two shapes;
+22. the serving main path at xlstm-1.3b's full size (42 mLSTM and 6 sLSTM
+    blocks, random weights from a seeded generator): (a) ``launch.serve.
+    main`` on the arch, (b) the ``Engine`` with phase 10(b)'s traffic, (c)
+    the first group on the ``"cuda"`` and ``"torch"`` engines in float32
+    compute (last-token logits within 2.5e-2: the two sLSTM runs drift
+    apart over the prompt's steps, see XLSTM_F32_LOGITS_TOL; then the
+    teacher-forced decode), the bfloat16 gap measured beside it; the sLSTM
+    launches must equal 6 x (prefill groups + decode steps): a decode step
+    runs the block's full form on one token;
+23. training xlstm-1.3b at full size through ``launch.train.main``: 3 steps
+    of 8 x 2048 tokens, bf16, AdamW, remat; 1 cross-entropy and 2 x 6 sLSTM
+    launches a step, a falling finite loss on the first batch, the ``cuda``
+    and ``torch`` engine losses within 3e-3, a traced step, and the sLSTM
+    kernel's and its written-out backward's share of the step;
+24. phase 16's study over ``families=("dense", "mlstm", "mamba2")``.
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -193,6 +220,27 @@ HYBRID_F32_LOGITS_TOL = 1e-3
 #: the plain engine's distance from float32 (it was 1.07x)
 HYBRID_BF16_LOGITS_TOL = 0.25
 HYBRID_BF16_RATIO = 1.5
+#: xlstm's last-token prefill logits on the two engines in float32 compute
+#: (a float32 cache): the sLSTM kernel and its plain version each stay
+#: within float32 rounding of every step (phase 21), but the recurrence
+#: amplifies that rounding over the steps, and the two runs of the 6 sLSTM
+#: blocks drift apart: on the H100 the logits (rms 1.0) lay 9.5e-4 apart
+#: after 256 prompt tokens and 8.0e-3 after 2022, so 2.5e-2, three times
+#: that, stands where zamba2's 1e-3 does
+XLSTM_F32_LOGITS_TOL = 2.5e-2
+#: the same in bfloat16 compute.  Rounding to bfloat16 in 48 blocks moves
+#: xlstm's logits by order 1 at these random weights, on both engines and
+#: in the reference alike (on the CPU, at full width cut to 8 blocks and 128
+#: tokens, the reference's bfloat16 logits lay 2.13 from its float32 ones,
+#: rms 1.0; the port's 1.57): on the H100 the two engines lay 6.34 (cuda) and
+#: 5.69 (torch) from the float32 logits and 2.68 apart.  The gap is held to
+#: 4.0 and the kernels' engine to HYBRID_BF16_RATIO x the plain engine's
+#: distance from float32 (it was 1.11x)
+XLSTM_BF16_LOGITS_TOL = 4.0
+#: one batch's training loss on the two engines: xlstm's sLSTM runs drift
+#: apart in float32 over 2048 steps as above; on the H100 the losses lay
+#: 7.4e-4 apart (near 11.33), so 3e-3
+XLSTM_TRAIN_LOSS_TOL = 3e-3
 
 
 def nvidia_smi(query: str) -> str:
@@ -979,16 +1027,30 @@ def model_blocks(cfg) -> list[tuple[str, object]]:
     return blocks + [("tail", b) for b in cfg.tail_blocks]
 
 
+#: the kernel each block kind launches once per prefill (an mLSTM block none)
+BLOCK_KERNELS = {"mamba2": "ssd", "slstm": "slstm", "mlstm": None}
+
+
 def launches_per_call(cfg, train: bool = False) -> dict:
-    """Flash-attention and SSD launches of one prefill (or, with ``train``,
-    one train step's forward and backward): one per attention / mamba2
-    block, twice for a stacked block under remat (the backward recomputes
-    each superblock's forward)."""
-    n = {"flash_attention": 0, "ssd": 0}
+    """Flash-attention, SSD and sLSTM launches of one prefill (or, with
+    ``train``, one train step's forward and backward): one per attention /
+    mamba2 / sLSTM block, twice for a stacked block under remat (the
+    backward recomputes each superblock's forward); an mLSTM block runs in
+    torch ops."""
+    n = {"flash_attention": 0, "ssd": 0, "slstm": 0}
     for seg, b in model_blocks(cfg):
-        kernel = "ssd" if b.kind == "mamba2" else "flash_attention"
-        n[kernel] += 2 if train and seg == "stack" and cfg.remat != "none" else 1
+        kernel = BLOCK_KERNELS.get(b.kind, "flash_attention")
+        if kernel:
+            n[kernel] += 2 if train and seg == "stack" and cfg.remat != "none" else 1
     return n
+
+
+def launches_per_decode(cfg) -> dict:
+    """Kernel launches of one decode step: an sLSTM block runs its full form
+    on the one token (the sLSTM kernel at S = 1); attention and mamba2
+    blocks decode in torch ops."""
+    n = launches_per_call(cfg)
+    return {k: (v if k == "slstm" else 0) for k, v in n.items()}
 
 
 def prefill_attention_calls(cfg, B: int, S: int, capacity: int) -> list[tuple[int, tuple, dict]]:
@@ -997,7 +1059,7 @@ def prefill_attention_calls(cfg, B: int, S: int, capacity: int) -> list[tuple[in
     k/v; any other layer over its cache with ``kv_len = S``."""
     calls: dict = {}
     for _, b in model_blocks(cfg):
-        if b.kind == "mamba2":
+        if b.kind in BLOCK_KERNELS:
             continue
         kw = {"window": b.window, "softcap": cfg.attn_softcap or 0.0}
         if b.window > 0:  # the cache of a window layer is a ring of min(capacity, window)
@@ -1019,16 +1081,27 @@ def ssd_model_inputs(gen, cfg, B: int, S: int, dtype=torch.bfloat16, init: bool 
 
 
 def kernel_seconds_of_prefills(cfg, shapes: list[tuple], capacity: int) -> tuple[float, list]:
-    """Kernel time of every flash-attention and SSD launch the prefills
-    made, timed again at each call's shape (bf16 inputs from a seeded
-    generator)."""
+    """Kernel time of every flash-attention, SSD and sLSTM launch the
+    prefills made, timed again at each call's shape (bf16 inputs from a
+    seeded generator)."""
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.slstm import slstm_forward
     from repro_torch.kernels.ssd import kernel_chunk_len, ssd_forward
 
     gen = torch.Generator(device="cuda").manual_seed(10)
     total, rows = 0.0, []
     n_ssd = launches_per_call(cfg)["ssd"]
+    n_slstm = launches_per_call(cfg)["slstm"]
     for B, S in shapes:
+        if n_slstm:
+            H, D = cfg.n_heads, cfg.d_model // cfg.n_heads
+            args = slstm_inputs(gen, B, S, H, D, torch.bfloat16, False, True)
+            ms = time_ms(lambda: slstm_forward(*args), 3)
+            bound, by, _ = slstm_bound_ms(B, S, H, D, torch.bfloat16)
+            rows.append({"kernel": "slstm", "B": B, "S": S, "launches": n_slstm, "ms": ms,
+                         "bound_ms": bound, "bound_by": by})
+            total += n_slstm * ms / 1e3
+            del args
         if n_ssd:
             args = ssd_model_inputs(gen, cfg, B, S)
             ms = time_ms(lambda: ssd_forward(*args[:5], cfg.ssm_chunk, args[5]), 3)
@@ -1054,28 +1127,33 @@ def serve_engine(label: str, cfg, model, prompts, slots: int, capacity: int, max
     """Greedy generation through ``Engine(engine="cuda")`` with the launch
     counts set to 0 just before and read just after (one flash-attention
     launch per attention block and prefill, one SSD launch per mamba2 block
-    and prefill); prefill and decode steps timed; the kernels' share of the
-    wall time."""
+    and prefill, one sLSTM launch per sLSTM block and prefill or decode
+    step); prefill and decode steps timed; the kernels' share of the wall
+    time."""
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ssd
+    from repro_torch.kernels import slstm, ssd
     from repro_torch.serve import Engine
 
     engine = Engine(cfg, model, capacity=capacity, slots=slots, device="cuda", engine="cuda")
     engine._prefill = prefill = StepTimer(engine._prefill)
     engine._decode = decode = StepTimer(engine._decode)
     per_prefill = launches_per_call(cfg)
+    per_decode = launches_per_decode(cfg)
     torch.cuda.reset_peak_memory_stats()
-    fa.reset_launches()
-    ssd.reset_launches()
+    for kernel in (fa, ssd, slstm):
+        kernel.reset_launches()
     t0 = time.perf_counter()
     outs = engine.generate(prompts, max_new=max_new)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = fa.launches()
     ssd_launches = ssd.launches()
+    slstm_launches = slstm.launches()
     groups = len(prefill.seconds)
-    assert {"flash_attention": launches, "ssd": ssd_launches} == {
-        k: n * groups for k, n in per_prefill.items()}, (label, launches, ssd_launches, groups)
+    steps = len(decode.seconds)
+    got = {"flash_attention": launches, "ssd": ssd_launches, "slstm": slstm_launches}
+    want = {k: n * groups + per_decode[k] * steps for k, n in per_prefill.items()}
+    assert got == want, (label, got, want, groups, steps)
     assert [len(o) for o in outs] == [max_new] * len(prompts)
     assert all(0 <= t < cfg.vocab for o in outs for t in o)
     n_tokens = sum(len(o) for o in outs)
@@ -1088,7 +1166,8 @@ def serve_engine(label: str, cfg, model, prompts, slots: int, capacity: int, max
         "prefill_s": prefill.seconds, "prefill_shapes": prefill.shapes,
         "decode_steps": len(decode_ms), "decode_ms_mean": float(np.mean(decode_ms)),
         "decode_ms_p50": float(np.median(decode_ms)), "decode_s_total": sum(decode.seconds),
-        "flash_launches": launches, "ssd_launches": ssd_launches, "kernel_s": kernel_s,
+        "flash_launches": launches, "ssd_launches": ssd_launches,
+        "slstm_launches": slstm_launches, "kernel_s": kernel_s,
         "kernel_share": kernel_s / seconds,
         "kernel_calls": kernel_rows, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
@@ -1101,11 +1180,14 @@ def serve_engine(label: str, cfg, model, prompts, slots: int, capacity: int, max
           f"median {result['decode_ms_p50']:.3f} ms a step ({sum(decode.seconds):.3f} s)")
     print(f"    flash_attention launches {launches} == {per_prefill['flash_attention']} "
           f"attention blocks x {groups} prefills; ssd launches {ssd_launches} == "
-          f"{per_prefill['ssd']} mamba2 blocks x {groups} prefills; kernels {kernel_s:.4f} s = "
+          f"{per_prefill['ssd']} mamba2 blocks x {groups} prefills; slstm launches "
+          f"{slstm_launches} == {per_prefill['slstm']} slstm blocks x ({groups} prefills + "
+          f"{steps} decode steps); prefill kernels {kernel_s:.4f} s = "
           f"{100 * kernel_s / seconds:.2f}% of the wall time")
     for r in kernel_rows:
         where = (f"Skv={r['Skv']} window={r['window']} kv_len={r.get('kv_len')}"
-                 if r["kernel"] == "flash_attention" else f"L={r['L']}")
+                 if r["kernel"] == "flash_attention" else
+                 f"L={r['L']}" if r["kernel"] == "ssd" else "")
         print(f"      {r['kernel']} at B={r['B']} S={r['S']} {where}: {r['ms']:.4f} ms x "
               f"{r['launches']} (bound {r['bound_ms']:.4f} ms, {r['bound_by']})")
     return result
@@ -1519,15 +1601,17 @@ class TrainStepTimer:
         return make_timed
 
 
-def run_training(label: str, cfg, run, tokens_per_step: int) -> dict:
+def run_training(label: str, cfg, run, tokens_per_step: int, falling: bool = True) -> dict:
     """Runs ``run()`` (a launcher or a Trainer) with every train step timed
     and the kernels' launch counts set to 0 just before and read just
-    after; asserts one cross-entropy launch a step and the flash-attention
-    and SSD launches of ``launches_per_call(cfg, train=True)`` a step (the
-    remat recomputes each superblock's forward in the backward pass)."""
+    after; asserts one cross-entropy launch a step and the flash-attention,
+    SSD and sLSTM launches of ``launches_per_call(cfg, train=True)`` a step
+    (the remat recomputes each superblock's forward in the backward pass),
+    and, with ``falling``, a last loss below the first (each step's loss is
+    on a new batch)."""
     from repro_torch.kernels import crossentropy as ce
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ssd
+    from repro_torch.kernels import slstm, ssd
     from repro_torch.train import train_loop
 
     timer = TrainStepTimer()
@@ -1535,14 +1619,14 @@ def run_training(label: str, cfg, run, tokens_per_step: int) -> dict:
     train_loop.make_train_step = timer.wrap(real)
     try:
         torch.cuda.reset_peak_memory_stats()
-        for kernel in (ce, fa, ssd):
+        for kernel in (ce, fa, ssd, slstm):
             kernel.reset_launches()
         t0 = time.perf_counter()
         result = run()
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = {"crossentropy": ce.launches(), "flash_attention": fa.launches(),
-                    "ssd": ssd.launches()}
+                    "ssd": ssd.launches(), "slstm": slstm.launches()}
     finally:
         train_loop.make_train_step = real
     steps = len(timer.seconds)
@@ -1550,7 +1634,7 @@ def run_training(label: str, cfg, run, tokens_per_step: int) -> dict:
     assert launches == {k: n * steps for k, n in per_step.items()}, (launches, per_step, steps)
     losses = result["losses"]
     assert len(losses) == steps and all(math.isfinite(l) for l in losses), losses
-    assert losses[-1] < losses[0], losses
+    assert not falling or losses[-1] < losses[0], losses
     out = {"label": label, "steps": steps, "seconds": seconds, "step_s": timer.seconds,
            "tokens_per_step": tokens_per_step,
            "tokens_per_s": [tokens_per_step / s for s in timer.seconds], "losses": losses,
@@ -1560,23 +1644,24 @@ def run_training(label: str, cfg, run, tokens_per_step: int) -> dict:
     print(f"  {label}: {steps} steps in {seconds:.2f} s; peak memory {out['peak_mem_gib']:.2f} GiB; "
           f"launches: crossentropy {launches['crossentropy']} == {steps} steps, flash_attention "
           f"{launches['flash_attention']} == {per_step['flash_attention']} x {steps} steps, ssd "
-          f"{launches['ssd']} == {per_step['ssd']} x {steps} steps")
+          f"{launches['ssd']} == {per_step['ssd']} x {steps} steps, slstm {launches['slstm']} == "
+          f"{per_step['slstm']} x {steps} steps")
     return result, out
 
 
-def engines_loss(cfg, model, batch) -> dict:
-    """The loss of one batch at the same weights on the ``cuda`` engine (both
-    kernels) and the ``torch`` engine (both plain versions), within
-    TRAIN_LOSS_TOL."""
+def engines_loss(cfg, model, batch, tol: float = TRAIN_LOSS_TOL) -> dict:
+    """The loss of one batch at the same weights on the ``cuda`` engine (the
+    kernels) and the ``torch`` engine (their plain versions), within
+    ``tol``."""
     from repro_torch.models import loss_fn
 
     with torch.no_grad():
         losses = {e: float(loss_fn(model, batch, engine=e)[0]) for e in ("cuda", "torch")}
     gap = abs(losses["cuda"] - losses["torch"])
-    assert gap <= TRAIN_LOSS_TOL, (losses, gap)
+    assert gap <= tol, (losses, gap)
     print(f"  cuda vs torch engine, one batch at the same weights: loss {losses['cuda']:.6f} vs "
-          f"{losses['torch']:.6f}, |d| {gap:.3e} (<= {TRAIN_LOSS_TOL})")
-    return {**losses, "abs_diff": gap, "tol": TRAIN_LOSS_TOL}
+          f"{losses['torch']:.6f}, |d| {gap:.3e} (<= {tol})")
+    return {**losses, "abs_diff": gap, "tol": tol}
 
 
 def trace_train_step(cfg, model, batch, name: str) -> dict:
@@ -1611,7 +1696,7 @@ def trace_train_step(cfg, model, batch, name: str) -> dict:
                     and e["ts"] < hi and e["ts"] + e["dur"] > lo)
     busy, end = 0.0, lo
     kinds = {"crossentropy kernel": 0.0, "flash_attention kernel": 0.0, "ssd kernel": 0.0,
-             "GEMM (cuBLAS)": 0.0, "other kernels, copies": 0.0}
+             "slstm kernel": 0.0, "GEMM (cuBLAS)": 0.0, "other kernels, copies": 0.0}
     for a, b, kname in device:
         a, b = max(a, lo), min(b, hi)
         if b > end:
@@ -1621,6 +1706,7 @@ def trace_train_step(cfg, model, batch, name: str) -> dict:
         kind = ("crossentropy kernel" if "crossentropy" in low else
                 "flash_attention kernel" if "flash_attention" in low else
                 "ssd kernel" if "ssd_kernel" in low else
+                "slstm kernel" if "slstm_kernel" in low else
                 "GEMM (cuBLAS)" if any(t in low for t in ("gemm", "xmma", "cutlass", "cublas"))
                 else "other kernels, copies")
         kinds[kind] += (b - a) / 1e3
@@ -1737,12 +1823,14 @@ def phase_train_gemma2(ce_rows) -> dict:
 
 
 def phase_tune(phase: int, families: tuple) -> dict:
-    """Phases 16 and 20: a tune study over ``families`` on the card."""
+    """Phases 16, 20 and 24: a tune study over ``families`` on the card (the
+    tune space's ``mlstm`` family is mLSTM blocks alone: torch ops, no
+    sLSTM launch)."""
     import repro_torch.core as hpo
     from repro_torch.core.frozen import TrialState
     from repro_torch.kernels import crossentropy as ce
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import parzen, ssd
+    from repro_torch.kernels import parzen, slstm, ssd
     from repro_torch.tune import LMTuneSpec, make_lm_objective
 
     n_trials = 16
@@ -1760,14 +1848,15 @@ def phase_tune(phase: int, families: tuple) -> dict:
                              pruner=hpo.SuccessiveHalvingPruner(min_resource=10,
                                                                 reduction_factor=2))
     objective = make_lm_objective(spec)
-    for kernel in (ce, fa, parzen, ssd):
+    for kernel in (ce, fa, parzen, ssd, slstm):
         kernel.reset_launches()
     t0 = time.perf_counter()
     study.optimize(objective, n_trials=n_trials)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {"parzen_score": parzen.launches(), "crossentropy": ce.launches(),
-                "flash_attention": fa.launches(), "ssd": ssd.launches()}
+                "flash_attention": fa.launches(), "ssd": ssd.launches(),
+                "slstm": slstm.launches()}
     states = [t.state for t in study.trials]
     complete, pruned = states.count(TrialState.COMPLETE), states.count(TrialState.PRUNED)
     assert complete + pruned == n_trials and complete >= 1, states
@@ -1775,7 +1864,8 @@ def phase_tune(phase: int, families: tuple) -> dict:
                  for f in families}
     assert all(by_family.values()), by_family  # every family trained and reported
     expected = {"parzen_score": True, "crossentropy": True,
-                "flash_attention": "dense" in families, "ssd": "mamba2" in families}
+                "flash_attention": "dense" in families, "ssd": "mamba2" in families,
+                "slstm": False}
     assert all((launches[k] > 0) == v for k, v in expected.items()), launches
     steps = sum(len(t.intermediate_values) * spec.eval_every for t in study.trials)
     assert launches["crossentropy"] == steps, (launches, steps)
@@ -1792,7 +1882,7 @@ def phase_tune(phase: int, families: tuple) -> dict:
           f"{deployed:.4f}")
     print(f"  launches: parzen_score {launches['parzen_score']}, crossentropy "
           f"{launches['crossentropy']} == {steps} train steps, flash_attention "
-          f"{launches['flash_attention']}, ssd {launches['ssd']}")
+          f"{launches['flash_attention']}, ssd {launches['ssd']}, slstm {launches['slstm']}")
     return out
 
 
@@ -1999,7 +2089,7 @@ def phase_ssd(build_log: str) -> tuple[list[dict], list[dict], dict]:
     return rows, grads, ptxas
 
 
-#: phase 18(b)'s traffic: 16 requests of 512-2048 tokens in groups of 8 slots
+#: phase 18(b)'s and 22(b)'s traffic: 16 requests of 512-2048 tokens in groups of 8 slots
 ZAMBA2_SLOTS = 8
 
 
@@ -2022,7 +2112,7 @@ def phase_serve_zamba2(ssd_rows) -> dict:
     """Phase 18: zamba2-1.2b at full size, served on the card."""
     from repro_torch import configs
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ssd
+    from repro_torch.kernels import slstm, ssd
     from repro_torch.kernels.ref import ssd_chunk_len
     from repro_torch.kernels.ssd import kernel_chunk_len
     from repro_torch.launch import serve as launch_serve
@@ -2034,11 +2124,12 @@ def phase_serve_zamba2(ssd_rows) -> dict:
           f"applications of the shared attention / SwiGLU block, d_model 2048, "
           f"{count_params(cfg) / 1e9:.3f} B parameters) served on the card; "
           f"{nvidia_smi('name,power.limit')}")
-    fa.reset_launches()
-    ssd.reset_launches()
+    for kernel in (fa, ssd, slstm):
+        kernel.reset_launches()
     entry = launch_serve.main(["--arch", "zamba2-1.2b"])  # 8 requests, 2 groups of 4
     torch.cuda.synchronize()
-    entry_launches = {"flash_attention": fa.launches(), "ssd": ssd.launches()}
+    entry_launches = {"flash_attention": fa.launches(), "ssd": ssd.launches(),
+                      "slstm": slstm.launches()}
     assert entry_launches == {k: 2 * n for k, n in per_prefill.items()}, entry_launches
     assert [len(o) for o in entry["outputs"]] == [32] * 8
     print(f"  (a) launch.serve.main(['--arch', 'zamba2-1.2b']): {entry['tokens']} tokens in "
@@ -2137,6 +2228,335 @@ def phase_train_zamba2(ssd_rows) -> dict:
     return train
 
 
+# -- xlstm slice -----------------------------------------------------------------------
+
+#: the sLSTM kernel against its plain version run in float64.  Each step is
+#: held to one float64 step from the kernel's own entering state (the
+#: previous step's h, c, n, m): within SLSTM_STEP_TOL (atol and rtol), a few
+#: float32 roundings of the step.  The whole run from the initial state is
+#: held to a tenth of each exact tensor's rms, with the float32 plain
+#: version's own distance printed beside it: the recurrence amplifies each
+#: step's rounding, and over 2048 steps float32 itself drifts past the SSD's
+#: 2e-3 (on the H100 at B 8 x S 2048 x 4 heads of 512 from the empty state
+#: the float32 plain version lay 0.037 from float64 on the state's n, of rms
+#: 4.8, and the kernel 0.100; from a non-empty state 2.7e-3 on h_seq, the
+#: kernel 1.6e-3).  h_seq's rms must be at least 10 x SLSTM_TOL
+SLSTM_TOL = 2e-3
+SLSTM_STEP_TOL = 1e-5
+
+
+def slstm_inputs(gen, B, S, H, D, dtype, init, model_layout, u_std=1.0, r_std=None):
+    """u [B, S, 4 H D] ~ N(0, u_std^2) (the model's normed input times
+    ``w_zifo`` has unit scale), R [4, H, D, D] ~ N(0, r_std^2) (default the
+    model's init, 1 / sqrt(D)), and a float32 state: with ``init`` c ~
+    N(0, 1), n = 1 + |N(0, 1)|, h ~ N(0, 0.1^2), m ~ N(0, 1), else the empty
+    cache's (zeros, m = -1e30).  With ``model_layout`` u is a slice of a
+    wider [B, S, 4 H D + 64] tensor, read through its strides."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    d4 = 4 * H * D
+    if model_layout:
+        u = (randn(B, S, d4 + 64) * u_std).to(dtype)[..., 32:32 + d4]
+    else:
+        u = (randn(B, S, d4) * u_std).to(dtype)
+    R = randn(4, H, D, D) * (r_std if r_std is not None else 1.0 / math.sqrt(D))
+    if init:
+        state = (randn(B, H, D), 1.0 + randn(B, H, D).abs(), 0.1 * randn(B, H, D),
+                 randn(B, H, D))
+    else:
+        zeros = torch.zeros((B, H, D), device="cuda")
+        state = (zeros, zeros, zeros, torch.full((B, H, D), -1e30, device="cuda"))
+    return (u, R, *state)
+
+
+def slstm_bound_ms(B, S, H, D, dtype) -> tuple[float, str, int]:
+    """Least time for one sLSTM scan: the larger of the recurrent products'
+    2 S B 4 H D^2 float32 FLOPs over the float32 rate (the reference keeps
+    them in float32) and the bytes (u, R and the initial state read once,
+    h_seq and the final state written once) over the memory rate."""
+    flops = 2 * S * B * 4 * H * D * D
+    elem = torch.finfo(dtype).bits // 8
+    nbytes = (elem * B * S * 4 * H * D + 4 * B * S * H * D + 4 * 4 * H * D * D
+              + 2 * 4 * 4 * B * H * D)
+    ops_s, bytes_s = flops / FP32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(ops_s, bytes_s), ("operations" if ops_s >= bytes_s else "bytes"), flops
+
+
+def slstm_ptxas(build_log: str) -> dict:
+    """``ptxas`` lines of each sLSTM kernel instance, keyed by dtype."""
+    out: dict = {}
+    key = None
+    for line in build_log.splitlines():
+        m = re.search(r"entry function '(\S*slstm_kernel\S*)'", line)
+        if m:
+            key = "bfloat16" if "bfloat16" in m.group(1) else "float32"
+            out[key] = []
+            continue
+        if "entry function" in line:
+            key = None
+        elif key and ("Used" in line or "spill" in line):
+            out[key].append(line.strip().removeprefix("ptxas info    : "))
+    return out
+
+
+def slstm_steps_f64(u, R, c0, n0, h0, m0, h_seq, c_seq, n_seq, m_seq) -> tuple:
+    """One float64 step of the recurrence from every step's entering state
+    (the initial state, then the given per-step h, c, n, m [B, S, d]): the
+    (h, c, n, m) each step would reach, as [B, S, d] float64."""
+    B, S, d4 = u.shape
+    H, D = R.shape[1], R.shape[2]
+    d = d4 // 4
+    f64 = torch.float64
+
+    def entering(first, seq):
+        return torch.cat([first.reshape(B, 1, d), seq[:, :-1]], dim=1).to(f64)
+
+    hp, cp, np_, mp = (entering(a, b) for a, b in ((h0, h_seq), (c0, c_seq), (n0, n_seq),
+                                                    (m0, m_seq)))
+    rec = torch.einsum("bshd,ghde->bsghe", hp.reshape(B, S, H, D), R.to(f64))
+    a = u.to(f64).reshape(B, S, 4, d) + rec.reshape(B, S, 4, d)
+    del rec
+    z, i, f, o = torch.tanh(a[:, :, 0]), a[:, :, 1], a[:, :, 2], torch.sigmoid(a[:, :, 3])
+    m = torch.maximum(f + mp, i)
+    ig, fg = torch.exp(i - m), torch.exp(f + mp - m)
+    c = fg * cp + ig * z
+    n = torch.maximum(fg * np_ + ig, torch.exp(-m))
+    return o * c / n, c, n, m
+
+
+def check_slstm(gen, label, B, S, H, D, dtype, init, model_layout, reps, **dist) -> dict:
+    """The sLSTM kernel against its plain version run in float64 (see
+    SLSTM_TOL): every step's h, c, n, m within SLSTM_STEP_TOL of one
+    float64 step from the kernel's own entering state, and h_seq and the
+    final state within a tenth of the exact tensor's rms, the float32 plain
+    version's distances printed beside; CUDA-event times, the bound and the
+    launch plan."""
+    from repro_torch.kernels.ref import slstm_scan_ref
+    from repro_torch.kernels.slstm import slstm_forward, slstm_plan
+
+    args = slstm_inputs(gen, B, S, H, D, dtype, init, model_layout, **dist)
+    hs, fin, seqs = slstm_forward(*args, save_states=True)
+    step_errs = {}
+    for name, got, want in zip(("h", "c", "n", "m"), (hs, *seqs),
+                               slstm_steps_f64(*args, hs, *seqs)):
+        excess = (got.double() - want).abs() - SLSTM_STEP_TOL * want.abs()
+        step_errs[name] = float((got.double() - want).abs().max())
+        assert float(excess.max()) <= SLSTM_STEP_TOL, (label, name, step_errs[name])
+    del seqs
+    phs, pfin = slstm_scan_ref(*args)
+    ehs, efin = slstm_scan_ref(*args, compute_dtype=torch.float64)
+    torch.cuda.synchronize()
+    errs, plain_errs, rms = {}, {}, {}
+    for name, got, plain, want in zip(("h_seq", "c", "n", "h", "m"), (hs, *fin), (phs, *pfin),
+                                      (ehs, *efin)):
+        errs[name] = float((got.double() - want).abs().max())
+        plain_errs[name] = float((plain.double() - want).abs().max())
+        rms[name] = float(want.pow(2).mean().sqrt())
+        assert errs[name] <= rms[name] / 10, (label, name, errs[name], plain_errs[name], rms[name])
+    assert rms["h_seq"] >= 10 * SLSTM_TOL, (label, rms)
+    del hs, fin, phs, pfin, ehs, efin
+    ms = time_ms(lambda: slstm_forward(*args), reps)
+    plain_ms = time_ms(lambda: slstm_scan_ref(*args), max(1, reps // 5), 1)
+    bound_ms, bound_by, flops = slstm_bound_ms(B, S, H, D, dtype)
+    plan = slstm_plan(B, H, D, dtype)
+    dname = "bfloat16" if dtype == torch.bfloat16 else "float32"
+    row = {"label": label, "B": B, "S": S, "H": H, "D": D, "dtype": dname, "init": init,
+           "layout": "model" if model_layout else "contiguous", "plan": plan,
+           "max_abs_err": max(errs.values()), "errs": errs, "plain_f32_errs": plain_errs,
+           "ref_rms": rms, "step_errs": step_errs, "step_tol": SLSTM_STEP_TOL, "ms": ms,
+           "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+           "flops": flops, "tflops": flops / (ms * 1e9)}
+    print(f"  slstm {label:<28} B={B} S={S} H={H} D={D} {dname}{' init' if init else ''}: "
+          f"each step from float64 "
+          + ", ".join(f"{n} {e:.3e}" for n, e in step_errs.items())
+          + f" (tolerance {SLSTM_STEP_TOL:g} + {SLSTM_STEP_TOL:g} |x|); the run from float64, "
+          f"max_abs_err "
+          + ", ".join(f"{n} {errs[n]:.3e} (float32 plain {plain_errs[n]:.3e}, rms {rms[n]:.3g})"
+                      for n in errs)
+          + f"; {plan['blocks']} blocks of E={plan['E']} dims, {plan['smem_bytes']} B smem; "
+          f"kernel={ms:.4f} ms ({row['tflops']:.2f} TFLOP/s) plain={plain_ms:.4f} ms "
+          f"bound={bound_ms:.4g} ms ({bound_by})")
+    return row
+
+
+def check_slstm_grad(gen, label, B, S, H, D, dtype) -> dict:
+    """``SLSTMFunction``'s gradients (the kernel forward, the written-out
+    backward) against autograd through the float32 plain version, each
+    within GRAD_TOL x its largest |reference|, from a non-empty state with
+    gradients on the final state; the backward's time."""
+    from repro_torch.kernels.ref import slstm_scan_ref
+    from repro_torch.kernels.slstm import SLSTMFunction, slstm_backward, slstm_forward
+
+    args = slstm_inputs(gen, B, S, H, D, dtype, True, dtype == torch.bfloat16)
+    gh = torch.randn(B, S, H * D, generator=gen, device="cuda")
+    gfin = [torch.randn(B, H, D, generator=gen, device="cuda") for _ in range(4)]
+    grads = []
+    for fn in (SLSTMFunction.apply, lambda *a: (lambda h, f: (h, *f))(*slstm_scan_ref(*a))):
+        ins = [a.detach().clone().requires_grad_() for a in args]
+        hs, *fin = fn(*ins)
+        loss = (hs * gh).sum() + sum((f * g).sum() for f, g in zip(fin, gfin))
+        grads.append(torch.autograd.grad(loss, ins))
+        del ins, hs, fin, loss
+    torch.cuda.synchronize()
+    tol = GRAD_TOL[dtype]
+    row = {"label": label, "B": B, "S": S, "H": H, "D": D,
+           "dtype": "bfloat16" if dtype == torch.bfloat16 else "float32", "tol": tol}
+    names = ["du", "dR", "dc0", "dn0", "dh0", "dm0"]
+    for name, got, want in zip(names, *grads):
+        err = float((got.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
+        assert err <= tol * scale, (label, name, err, scale)
+        row[name] = {"max_abs_err": err, "max_abs_ref": scale}
+    del grads
+    hs, fin, seqs = slstm_forward(*args, save_states=True)
+    row["backward_ms"] = time_ms(lambda: slstm_backward(*args, hs, *seqs, gh, gfin), 1, 1)
+    print(f"  slstm grad {label:<18} B={B} S={S} H={H} D={D} {row['dtype']}: "
+          + ", ".join(f"{n} {row[n]['max_abs_err']:.3e} (max |ref| {row[n]['max_abs_ref']:.3e})"
+                      for n in names)
+          + f"; tolerance {tol:g} x max |ref|; backward {row['backward_ms']:.2f} ms")
+    return row
+
+
+def phase_slstm(build_log: str) -> tuple[list[dict], list[dict], dict]:
+    """Phase 21: the sLSTM kernel against its plain version, and the
+    Function's gradients against autograd through the plain version."""
+    print(f"phase 21: slstm kernel vs plain PyTorch version; {nvidia_smi('name,power.limit')}")
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    ptxas = slstm_ptxas(build_log)
+    for key, lines in ptxas.items():
+        print(f"  ptxas slstm_kernel ({key}): {'; '.join(lines)}")
+    f32, bf16 = torch.float32, torch.bfloat16
+    rows = []
+    # the reference's own sweep (tests/test_kernels.py) and its distributions
+    for B, S, H, D in ((4, 24, 2, 8), (2, 16, 4, 16), (8, 8, 2, 8)):
+        rows.append(check_slstm(gen, "reference sweep", B, S, H, D, f32, False, False, 20,
+                                u_std=0.5, r_std=0.2))
+    rows.append(check_slstm(gen, "initial state", 3, 20, 2, 16, f32, True, False, 20))
+    rows.append(check_slstm(gen, "S = 1", 5, 1, 2, 32, bf16, True, True, 20))
+    rows.append(check_slstm(gen, "odd S", 2, 1001, 4, 64, bf16, True, True, 5))
+    rows.append(check_slstm(gen, "xlstm smoke", 2, 64, 2, 32, f32, False, True, 20))
+    rows.append(check_slstm(gen, "xlstm-1.3b prefill / training", 8, 2048, 4, 512, bf16, False,
+                            True, 5))
+    rows.append(check_slstm(gen, "xlstm-1.3b decode", 8, 1, 4, 512, bf16, True, True, 20))
+    for B, S in zamba2_groups():  # phase 22(b)'s prefills, from the empty cache
+        rows.append(check_slstm(gen, "xlstm-1.3b serve group", B, S, 4, 512, bf16, False,
+                                True, 5))
+    grads = [check_slstm_grad(gen, "smoke", 2, 64, 2, 32, f32),
+             check_slstm_grad(gen, "xlstm heads", 2, 256, 4, 512, bf16)]
+    return rows, grads, ptxas
+
+
+def phase_serve_xlstm(slstm_rows) -> dict:
+    """Phase 22: xlstm-1.3b at full size, served on the card."""
+    from repro_torch import configs
+    from repro_torch.kernels import slstm
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import Transformer, count_params, init_model_params
+
+    cfg = configs.get_config("xlstm-1.3b")
+    per_prefill = launches_per_call(cfg)
+    n_mlstm = sum(b.kind == "mlstm" for _, b in model_blocks(cfg))
+    print(f"phase 22: xlstm-1.3b ({n_mlstm} mLSTM + {per_prefill['slstm']} sLSTM blocks, "
+          f"d_model 2048, 4 heads, {count_params(cfg) / 1e9:.3f} B parameters) served on the "
+          f"card; {nvidia_smi('name,power.limit')}")
+    slstm.reset_launches()
+    entry = launch_serve.main(["--arch", "xlstm-1.3b"])  # 8 requests, 2 groups of 4, 32 new
+    torch.cuda.synchronize()
+    entry_launches = slstm.launches()
+    assert entry_launches == per_prefill["slstm"] * (2 + 2 * 31), entry_launches
+    assert [len(o) for o in entry["outputs"]] == [32] * 8
+    print(f"  (a) launch.serve.main(['--arch', 'xlstm-1.3b']): {entry['tokens']} tokens in "
+          f"{entry['seconds']:.3f} s; slstm launches {entry_launches} == "
+          f"{per_prefill['slstm']} x (2 prefills + 62 decode steps)")
+    t0 = time.perf_counter()
+    model = init_model_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = zamba2_prompts(cfg.vocab)
+    result = serve_engine("(b) Engine", cfg, model, prompts, slots=ZAMBA2_SLOTS, capacity=4096,
+                          max_new=64)
+    checked = {(r["B"], r["S"]) for r in slstm_rows if r["label"] == "xlstm-1.3b serve group"}
+    assert set(result["prefill_shapes"]) <= checked, (result["prefill_shapes"], checked)
+    result["init_s"] = init_s
+    result["entry"] = {"tokens": entry["tokens"], "seconds": entry["seconds"],
+                       "slstm_launches": entry_launches}
+    result["decode_trace"] = decode_idle_share(cfg, model, prompts[:8], 4096, steps=16)
+    # (c) as phase 18(c): float32 compute with a float32 cache first (the
+    # weights the served model's, rounded to bfloat16 by the Engine but for
+    # the sLSTM's float32 r_zifo), then bfloat16 beside the float32 logits
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    model32 = Transformer(cfg32, device="cuda")
+    model32.load_state_dict(model.state_dict())
+    result["agreement"] = engines_agree("(c) first group", cfg32, model32, prompts[:8], 4096, 64,
+                                        tol=XLSTM_F32_LOGITS_TOL, cache_dtype=torch.float32)
+    reference = prefill_last_logits(cfg32, model32, left_padded(prompts[:8]), 4096, "torch",
+                                    torch.float32)[0].float()
+    del model32
+    torch.cuda.empty_cache()
+    result["agreement_bf16"] = engines_agree("(c) first group", cfg, model, prompts[:8], 4096, 16,
+                                             tol=XLSTM_BF16_LOGITS_TOL, reference=reference)
+    del model, reference
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_train_xlstm(slstm_rows) -> dict:
+    """Phase 23: train xlstm-1.3b at full size through the launcher."""
+    from repro_torch import configs
+    from repro_torch.kernels.slstm import slstm_backward, slstm_forward
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import init_model_params, loss_fn
+    from repro_torch.train import SyntheticLM
+
+    B, S, steps = 8, 2048, 3
+    cfg = configs.get_config("xlstm-1.3b")
+    print(f"phase 23: train xlstm-1.3b at full size: launch.train.main, {steps} steps, batch "
+          f"{B}, seq {S}, bf16 compute, adamw, remat; {nvidia_smi('name,power.limit')}")
+    argv = ["--arch", "xlstm-1.3b", "--steps", str(steps), "--batch", str(B), "--seq", str(S)]
+    result, train = run_training("launch.train.main", cfg, lambda: launch_train.main(argv),
+                                 B * S, falling=False)
+    # each step's loss is on a new batch: hold the first batch's loss at the
+    # trained weights to its loss at the initial ones (step 0's loss)
+    batch = SyntheticLM(cfg, B, S, device="cuda").batch_at(0)
+    with torch.no_grad():
+        trained = float(loss_fn(result["model"], batch)[0])
+    initial = train["losses"][0]
+    assert math.isfinite(trained) and trained < initial, (initial, trained)
+    train["batch0_loss"] = {"initial": initial, "trained": trained}
+    print(f"  the first batch's loss: {initial:.6f} at the initial weights, {trained:.6f} after "
+          f"{steps} steps")
+    del result
+    torch.cuda.empty_cache()
+    model = init_model_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    train["engines"] = engines_loss(cfg, model, batch, tol=XLSTM_TRAIN_LOSS_TOL)
+    train["trace"] = trace_train_step(cfg, model, batch, "train_trace_xlstm")
+    del model, batch
+    torch.cuda.empty_cache()
+    # the kernels' share: the sLSTM forward at the step's shape x its
+    # launches, its written-out backward once per sLSTM block (CUDA events)
+    slstm_ms = next(r["ms"] for r in slstm_rows if r["label"] == "xlstm-1.3b prefill / training")
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    H, D = cfg.n_heads, cfg.d_model // cfg.n_heads
+    args = slstm_inputs(gen, B, S, H, D, torch.bfloat16, False, True)
+    hs, _, seqs = slstm_forward(*args, save_states=True)
+    dh = torch.randn(hs.shape, generator=gen, device="cuda")
+    bw_ms = time_ms(lambda: slstm_backward(*args, hs, *seqs, dh, None), 1, 1)
+    del args, hs, seqs, dh
+    torch.cuda.empty_cache()
+    wall = sum(train["step_s"])
+    slstm_s = train["launches"]["slstm"] * slstm_ms / 1e3
+    bw_s = launches_per_call(cfg)["slstm"] * train["steps"] * bw_ms / 1e3
+    train["share"] = {"wall_s": wall, "slstm_s": slstm_s, "slstm_share": slstm_s / wall,
+                      "slstm_backward_ms": bw_ms, "slstm_backward_s": bw_s,
+                      "slstm_backward_share": bw_s / wall}
+    print(f"  xlstm kernel share of {wall:.3f} s of steps: slstm {slstm_s:.3f} s "
+          f"({100 * slstm_s / wall:.2f}%: {slstm_ms:.3f} ms x {train['launches']['slstm']} "
+          f"launches); the written-out slstm backward {bw_ms:.2f} ms a block (CUDA events), "
+          f"{bw_s:.3f} s ({100 * bw_s / wall:.2f}%)")
+    return train
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every measurement to this JSON file")
@@ -2180,6 +2600,10 @@ def main() -> int:
     serve_zamba2 = phase_serve_zamba2(ssd_rows)
     train_zamba2 = phase_train_zamba2(ssd_rows)
     tune_hybrid = phase_tune(20, ("dense", "mamba2"))
+    slstm_rows, slstm_grads, slstm_ptx = phase_slstm(_build.build_log())
+    serve_xlstm = phase_serve_xlstm(slstm_rows)
+    train_xlstm = phase_train_xlstm(slstm_rows)
+    tune_xlstm = phase_tune(24, ("dense", "mlstm", "mamba2"))
 
     shape_rows = optimize_rows + wave_rows
     table = wave_rows[-1]  # the score-table build: the kernel's large shape
@@ -2239,11 +2663,13 @@ def main() -> int:
         "launches_zamba2": serve_zamba2["flash_launches"],
         "launches_train_zamba2": train_zamba2["launches"]["flash_attention"],
         "launches_tune_hybrid": tune_hybrid["launches"]["flash_attention"],
+        "launches_tune_xlstm": tune_xlstm["launches"]["flash_attention"],
         "shapes": flash_rows,
         "gradient_checks": flash_grads,
     })
     kernels[0]["launches_tune"] = tune["launches"]["parzen_score"]
     kernels[0]["launches_tune_hybrid"] = tune_hybrid["launches"]["parzen_score"]
+    kernels[0]["launches_tune_xlstm"] = tune_xlstm["launches"]["parzen_score"]
     # the training main path's own shape: tinyllama-1.1b's loss at B = 8, S = 2048
     ce_main = next(r for r in ce_rows if r["label"] == "tinyllama training")
     kernels.append({
@@ -2256,6 +2682,8 @@ def main() -> int:
         "launches_tune": tune["launches"]["crossentropy"],
         "launches_train_zamba2": train_zamba2["launches"]["crossentropy"],
         "launches_tune_hybrid": tune_hybrid["launches"]["crossentropy"],
+        "launches_train_xlstm": train_xlstm["launches"]["crossentropy"],
+        "launches_tune_xlstm": tune_xlstm["launches"]["crossentropy"],
         "max_abs_err": max(r["max_abs_err"] for r in ce_rows),
         "ms": ce_main["ms"],
         "plain_ms": ce_main["plain_ms"],
@@ -2276,6 +2704,7 @@ def main() -> int:
         "launches_entry_point": serve_zamba2["entry"]["launches"]["ssd"],
         "launches_train_zamba2": train_zamba2["launches"]["ssd"],
         "launches_tune_hybrid": tune_hybrid["launches"]["ssd"],
+        "launches_tune_xlstm": tune_xlstm["launches"]["ssd"],
         "max_abs_err": max(r["max_abs_err"] for r in ssd_rows),
         "ms": ssd_main["ms"],
         "plain_ms": ssd_main["plain_ms"],
@@ -2285,6 +2714,26 @@ def main() -> int:
         "ptxas": ssd_ptx,
         "shapes": ssd_rows,
         "gradient_checks": ssd_grads,
+    })
+    # the serving main path's own shape: xlstm-1.3b's prefill (and training) at B = 8, S = 2048
+    slstm_main = next(r for r in slstm_rows if r["label"] == "xlstm-1.3b prefill / training")
+    kernels.append({
+        "name": "slstm",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/slstm.cu",
+        "replaces": "src/repro/kernels/slstm.py:31",
+        "launches": serve_xlstm["slstm_launches"],
+        "launches_entry_point": serve_xlstm["entry"]["slstm_launches"],
+        "launches_train_xlstm": train_xlstm["launches"]["slstm"],
+        "max_abs_err": max(max(r["step_errs"].values()) for r in slstm_rows),
+        "ms": slstm_main["ms"],
+        "plain_ms": slstm_main["plain_ms"],
+        "bound_ms": slstm_main["bound_ms"],
+        "bound_by": slstm_main["bound_by"],
+        "library_ms": None,
+        "ptxas": slstm_ptx,
+        "shapes": slstm_rows,
+        "gradient_checks": slstm_grads,
     })
     if opts.out:
         os.makedirs(os.path.dirname(os.path.abspath(opts.out)), exist_ok=True)
@@ -2296,7 +2745,9 @@ def main() -> int:
                        "gemma2": gemma2, "train_tinyllama": train_tinyllama,
                        "train_gemma2": train_gemma2, "tune": tune,
                        "serve_zamba2": serve_zamba2, "train_zamba2": train_zamba2,
-                       "tune_hybrid": tune_hybrid, "kernels": kernels}, f,
+                       "tune_hybrid": tune_hybrid, "serve_xlstm": serve_xlstm,
+                       "train_xlstm": train_xlstm, "tune_xlstm": tune_xlstm,
+                       "kernels": kernels}, f,
                       indent=1)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s "
           f"(kernel build {_build.build_seconds():.2f} s)")

@@ -56,6 +56,11 @@ _SIGNATURES = {
              _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _P],
     ),
     "ssd_smem_bytes": (_I, [_I, _I, _I]),
+    "slstm_plan": (_I, [_I, _I, _I, _I, _P]),
+    "slstm_launch": (
+        _I, [_P, _I, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+             _I, _I, _I, _I, _I, _P],
+    ),
 }
 
 

@@ -12,7 +12,7 @@ import math
 import torch
 
 __all__ = ["parzen_score_ref", "mc_hv_counts_ref", "flash_attention_ref", "crossentropy_ref",
-           "crossentropy_lse_ref", "ssd_ref", "ssd_chunked_ref", "ssd_chunk_len"]
+           "crossentropy_lse_ref", "ssd_ref", "ssd_chunked_ref", "ssd_chunk_len", "slstm_scan_ref"]
 
 #: elements of the boolean (samples, points, objectives) cube per chunk
 _MC_CUBE_ELEMS = 1 << 27
@@ -245,3 +245,52 @@ def ssd_chunked_ref(
     entering = torch.stack(entering, dim=1)  # [b,n,H,P,N]
     y_off = torch.einsum("bclhn,bchpn,bclh->bclhp", C_c, entering, torch.exp(cum))
     return (y_diag + y_off).reshape(b, S, H, P), carry
+
+
+def slstm_scan_ref(
+    u: torch.Tensor,  # [B, S, 4 d] pre-activations, gate g / head h / dim e at g d + h D + e
+    R: torch.Tensor,  # [4, H, D, D] recurrent weights
+    c0: torch.Tensor,  # [B, H, D] initial state
+    n0: torch.Tensor,
+    h0: torch.Tensor,
+    m0: torch.Tensor,
+    *,
+    compute_dtype: torch.dtype = torch.float32,
+    states: bool = False,
+) -> tuple:
+    """The sLSTM recurrence step by step (the reference's
+    ``models/ssm_xlstm.py::_slstm_scan``), in ``compute_dtype``: per step
+    ``rec = h @ R`` per head and gate, ``z = tanh``, ``o = sigmoid``, ``i``
+    and ``f`` raw logits, ``m' = max(f + m, i)``, ``c' = exp(f + m - m') c
+    + exp(i - m') z``, ``n' = max(exp(f + m - m') n + exp(i - m'),
+    exp(-m'))`` and ``h' = o c' / n'``.  Returns ``(h_seq [B, S, d], (c, n,
+    h, m))``, with ``states`` also the per-step ``(c, n, m)`` as ``[B, S,
+    d]`` (what the written-out backward reads); everything in
+    ``compute_dtype`` (``torch.float64`` gives a yardstick of float32's
+    rounding).  Autograd runs through it."""
+    B, S, d4 = u.shape
+    H, D = R.shape[1], R.shape[2]
+    ct = compute_dtype
+    Rc = R.to(ct)
+    c, n, h, m = (t.to(ct) for t in (c0, n0, h0, m0))
+    hs, cs, ns, ms = [], [], [], []
+    for t in range(S):
+        rec = torch.einsum("bhd,ghde->gbhe", h, Rc)
+        a = u[:, t].to(ct).reshape(B, 4, H, D).transpose(0, 1) + rec
+        z, i, f, o = torch.tanh(a[0]), a[1], a[2], torch.sigmoid(a[3])
+        m_new = torch.maximum(f + m, i)
+        i_ = torch.exp(i - m_new)
+        f_ = torch.exp(f + m - m_new)
+        c = f_ * c + i_ * z
+        n = torch.maximum(f_ * n + i_, torch.exp(-m_new))
+        h = o * c / n
+        m = m_new
+        hs.append(h.reshape(B, d4 // 4))
+        if states:
+            cs.append(c.reshape(B, d4 // 4))
+            ns.append(n.reshape(B, d4 // 4))
+            ms.append(m.reshape(B, d4 // 4))
+    h_seq = torch.stack(hs, dim=1)
+    if not states:
+        return h_seq, (c, n, h, m)
+    return h_seq, (c, n, h, m), tuple(torch.stack(x, dim=1) for x in (cs, ns, ms))

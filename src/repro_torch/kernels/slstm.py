@@ -1,0 +1,299 @@
+"""The sLSTM time recurrence (xLSTM's scalar-memory block).
+
+Wrapper around the hand-written CUDA kernel in ``csrc/slstm.cu``, which
+replaces the reference package's Pallas kernel
+(``repro/kernels/slstm.py::slstm_kernel``): one cooperative launch runs the
+whole time loop, R [4, H, D, D] split by output dims across the blocks of
+the grid and resident in their shared memory, one grid-wide barrier a step;
+the source states its design and its bound on the card.
+
+The kernel computes what the reference's model computes
+(``repro/models/ssm_xlstm.py::_slstm_scan``), which is more than the TPU
+kernel takes:
+
+* the model's ``[B, S, 4 d]`` pre-activations (gate ``g``, head ``h``, dim
+  ``e`` at column ``g d + h D + e``), float32 or bfloat16, read through
+  their strides, where the TPU kernel takes a transposed ``[S, B, 4, H, D]``
+  copy;
+* an initial state ``(c, n, h, m)`` ``[B, H, D]`` in float32 (prefill and
+  decode continue the cache's state), where the TPU kernel zero-fills;
+* any ``S >= 1`` (decode is ``S = 1``).
+
+It returns ``h_seq [B, S, d]`` and the final state in float32.
+
+:class:`SLSTMFunction` makes it differentiable for training.  Its forward is
+the kernel, which then also writes the per-step ``c``, ``n`` and ``m``; the
+reference trains by autodiff through ``lax.scan`` (each step checkpointed),
+so the backward (:func:`slstm_backward`) is that gradient written out in
+torch ops: the gates recomputed for all steps at once from the saved states,
+a reverse loop over time for the state's gradient, and ``dR`` as one
+product at the end.
+
+CPU tensors take the plain PyTorch version (``kernels/ref.py::
+slstm_scan_ref``); CUDA tensors launch the kernel or raise.  Every launch
+adds one to a thread-safe counter (:func:`launches`), so a run can show that
+its main path went through the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+
+import torch
+
+from .ops import full_float32_matmul
+from .ref import slstm_scan_ref
+
+__all__ = ["slstm_forward", "slstm_backward", "slstm_plan", "SLSTMFunction", "launches",
+           "reset_launches"]
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+_count_lock = threading.Lock()
+_launches = 0
+
+
+def launches() -> int:
+    """Kernel launches since the last :func:`reset_launches`."""
+    with _count_lock:
+        return _launches
+
+
+def reset_launches() -> None:
+    global _launches
+    with _count_lock:
+        _launches = 0
+
+
+def _count_launch() -> None:
+    global _launches
+    with _count_lock:
+        _launches += 1
+
+
+def _check(u, R, state) -> None:
+    named = (("u", u), ("R", R)) + tuple(zip(("c0", "n0", "h0", "m0"), state))
+    for name, t in named:
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
+        if t.device != u.device:
+            raise ValueError(f"{name} is on {t.device}, u on {u.device}")
+    if u.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the sLSTM scan runs on CPU or CUDA tensors, got {u.device}")
+    if u.dim() != 3 or R.dim() != 4 or R.shape[0] != 4 or R.shape[2] != R.shape[3]:
+        raise ValueError(f"u must be [B, S, 4 d] and R [4, H, D, D]; got {tuple(u.shape)}, "
+                         f"{tuple(R.shape)}")
+    B, S, d4 = u.shape
+    H, D = R.shape[1], R.shape[2]
+    if d4 != 4 * H * D:
+        raise ValueError(f"u's last dimension {d4} is not 4 x {H} heads x {D} dims")
+    if min(B, S, H, D) == 0:
+        raise ValueError(f"empty input: u {tuple(u.shape)}, R {tuple(R.shape)}")
+    for name, t in zip(("c0", "n0", "h0", "m0"), state):
+        if tuple(t.shape) != (B, H, D):
+            raise ValueError(f"{name} must be {(B, H, D)}, got {tuple(t.shape)}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if R.dtype != torch.float32:
+        raise TypeError(f"R must be float32 (the reference reads it in float32), got {R.dtype}")
+    if u.dtype not in _DTYPE_CODES:
+        raise TypeError(f"u must be float32 or bfloat16, got {u.dtype}")
+
+
+def slstm_plan(B: int, H: int, D: int, dtype: torch.dtype) -> dict:
+    """The kernel's launch plan on the current card: ``E`` output dims a
+    block, ``blocks`` (``H D / E``, one an SM), ``smem_bytes`` a block and
+    the card's ``sms``.  Raises ``ValueError`` where no plan keeps R's
+    slices resident."""
+    from ._build import load
+
+    out = (ctypes.c_int * 4)()
+    rc = load().slstm_plan(B, H, D, _DTYPE_CODES[dtype], out)
+    if rc == -1:
+        raise ValueError(
+            f"the sLSTM kernel keeps R [4, {H}, {D}, {D}] resident in the shared memory of one "
+            f"block an SM; no split of the {D} output dims of {H} heads fits this card "
+            f"(B = {B} rows of state)")
+    if rc != 0:
+        raise RuntimeError(f"slstm_plan failed: cudaError {rc}")
+    return {"E": out[0], "blocks": out[1], "smem_bytes": out[2], "sms": out[3]}
+
+
+def _launch(u, R, state, save_states: bool):
+    """The kernel on CUDA tensors."""
+    B, S, d4 = u.shape
+    H, D = R.shape[1], R.shape[2]
+    if u.stride(-1) != 1:
+        raise ValueError("u's last dimension must be contiguous (stride 1)")
+    plan = slstm_plan(B, H, D, u.dtype)
+    from ._build import load
+
+    lib = load()
+    R = R.contiguous()
+    c0, n0, h0, m0 = (t.contiguous() for t in state)
+    dev = u.device
+    f32 = torch.float32
+    h_seq = torch.empty((B, S, H * D), dtype=f32, device=dev)
+    seqs = tuple(torch.empty_like(h_seq) for _ in range(3)) if save_states else None
+    final = tuple(torch.empty((B, H, D), dtype=f32, device=dev) for _ in range(4))
+    hbuf = torch.empty((2, B, H, D), dtype=f32, device=dev)
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)
+    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.slstm_launch(
+            u.data_ptr(), _DTYPE_CODES[u.dtype], u.stride(0), u.stride(1), R.data_ptr(),
+            c0.data_ptr(), n0.data_ptr(), h0.data_ptr(), m0.data_ptr(), h_seq.data_ptr(),
+            *(ptr(t) for t in (seqs or (None, None, None))), *(t.data_ptr() for t in final),
+            hbuf.data_ptr(), counter.data_ptr(), B, S, H, D, plan["E"], stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"slstm kernel launch failed: cudaError {err}")
+    _count_launch()
+    return (h_seq, final, seqs) if save_states else (h_seq, final)
+
+
+def slstm_forward(
+    u: torch.Tensor,  # [B, S, 4 d] float32 / bfloat16, last dim contiguous
+    R: torch.Tensor,  # [4, H, D, D] float32
+    c0: torch.Tensor,  # [B, H, D] float32
+    n0: torch.Tensor,
+    h0: torch.Tensor,
+    m0: torch.Tensor,
+    save_states: bool = False,
+) -> tuple:
+    """``(h_seq [B, S, d], (c, n, h, m) [B, H, D])`` in float32, no gradient
+    (with ``save_states`` a third item, the per-step ``(c, n, m)`` as ``[B,
+    S, d]``): the kernel on CUDA tensors, the plain version on CPU ones."""
+    state = (c0, n0, h0, m0)
+    _check(u, R, state)
+    if u.device.type == "cpu":
+        with torch.no_grad():
+            return slstm_scan_ref(u, R, *state, states=save_states)
+    return _launch(u, R, state, save_states)
+
+
+def _by_head(t: torch.Tensor, B: int, S: int, H: int, D: int) -> torch.Tensor:
+    """``[B, S, H D]`` -> ``[S, H, B, D]`` float32 (a copy)."""
+    return t.reshape(B, S, H, D).permute(1, 2, 0, 3).to(torch.float32).contiguous()
+
+
+def _tie_weight(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The share of ``max(a, b)``'s gradient that goes to ``a``: 1 where ``a >
+    b``, 0 where ``a < b`` and 1/2 at a tie (XLA's and torch's rule)."""
+    return (a > b).to(a.dtype) + 0.5 * (a == b).to(a.dtype)
+
+
+@full_float32_matmul()
+def slstm_backward(u, R, c0, n0, h0, m0, h_seq, c_seq, n_seq, m_seq, dh_seq, dfinal=None):
+    """``(du, dR, dc0, dn0, dh0, dm0)`` of ``sum(dh_seq * h_seq) + sum(dfinal
+    * final)`` (``dfinal`` the final ``(c, n, h, m)``'s gradients, ``None``
+    entries zero): the gradient XLA derives for the reference's
+    ``_slstm_scan``, written out in float32.
+
+    The saved ``h_seq`` and per-step ``c``, ``n``, ``m`` give every step's
+    entering state, so the gates of all steps are recomputed at once (``rec
+    = h_prev @ R`` as one product a head) with the step's coefficients: the
+    recurrence of the gradients is linear in ``(dh, dc, dn, dm)``.  The
+    reverse loop over time then carries them back one step with a few
+    elementwise operations and ``dgates @ R^T`` a head; ``max`` splits its
+    gradient evenly at a tie, as ``jnp.maximum``'s does.  ``dR = sum_t
+    h_{t-1}^T dgates_t`` is one product at the end.  ``du`` comes back in
+    ``u``'s dtype; the float32 products run with TF32 off, the caller's
+    setting put back after."""
+    B, S, d4 = u.shape
+    H, D = R.shape[1], R.shape[2]
+    f32 = torch.float32
+    seq = lambda t: _by_head(t, B, S, H, D)  # noqa: E731
+    first = lambda t: t.to(f32).transpose(0, 1)[None]  # noqa: E731  [B,H,D] -> [1,H,B,D]
+    h_all = seq(h_seq)
+    h_prev = torch.cat([first(h0), h_all[:-1]])  # [S,H,B,D]
+    del h_all
+    c_new, n_new, m_all = seq(c_seq), seq(n_seq), seq(m_seq)
+    c_prev = torch.cat([first(c0), c_new[:-1]])
+    n_prev = torch.cat([first(n0), n_new[:-1]])
+    m_prev = torch.cat([first(m0), m_all[:-1]])
+    del c_new, n_new, m_all
+    R32 = R.to(f32)
+    # the gates of every step: a[s, h, b, g, e] = u + (h_prev @ R)
+    rec = torch.bmm(h_prev.transpose(0, 1).reshape(H, S * B, D),
+                    R32.permute(1, 2, 0, 3).reshape(H, D, 4 * D))
+    a = rec.reshape(H, S, B, 4, D).transpose(0, 1)
+    a = a + u.reshape(B, S, 4, H, D).permute(1, 3, 0, 2, 4).to(f32)
+    del rec
+    z = torch.tanh(a[:, :, :, 0])
+    i, f = a[:, :, :, 1], a[:, :, :, 2]
+    o = torch.sigmoid(a[:, :, :, 3])
+    s1 = f + m_prev
+    m_new = torch.maximum(s1, i)
+    w1 = _tie_weight(s1, i)  # m' = max(f + m, i)
+    w2 = 1.0 - w1
+    ig = torch.exp(i - m_new)
+    fg = torch.exp(s1 - m_new)
+    del a, i, f, s1
+    c_new = fg * c_prev + ig * z
+    q = fg * n_prev + ig
+    r = torch.exp(-m_new)
+    n_new = torch.maximum(q, r)
+    wq = _tie_weight(q, r)  # n' = max(q, exp(-m'))
+    del q, m_new
+    k1 = o / n_new  # dh' -> dc'
+    k2 = -(o * c_new) / (n_new * n_new)  # dh' -> dn'
+    k4 = (c_new / n_new) * (o * (1.0 - o))  # dh' -> da_o
+    k3 = ig * (1.0 - z * z)  # dc' -> da_z
+    wqr = (1.0 - wq) * r  # dn' -> dm' through exp(-m')
+    fwq = fg * wq  # dn' -> dn
+    del o, c_new, n_new, r
+    RT = R32.permute(1, 0, 3, 2).reshape(H, 4 * D, D)  # [h, (g, e), k]
+    dgates = torch.empty((S, H, B, 4, D), dtype=f32, device=u.device)
+    dh_out = seq(dh_seq)
+    zeros = torch.zeros((H, B, D), dtype=f32, device=u.device)
+    carry = [zeros if g is None else g.to(f32).transpose(0, 1)
+             for g in (dfinal if dfinal is not None else (None,) * 4)]
+    dc, dn, dh, dm = carry
+    for t in range(S - 1, -1, -1):
+        dh = dh_out[t] + dh
+        dc_tot = torch.addcmul(dc, dh, k1[t])
+        dn_tot = torch.addcmul(dn, dh, k2[t])
+        dq = dn_tot * wq[t]
+        dm_tot = dm - dn_tot * wqr[t]
+        di_part = (dc_tot * z[t] + dq) * ig[t]
+        dlogf = (dc_tot * c_prev[t] + dq * n_prev[t]) * fg[t]
+        dm_tot = dm_tot - di_part - dlogf
+        g = dgates[t]
+        torch.mul(dc_tot, k3[t], out=g[:, :, 0])
+        torch.addcmul(di_part, dm_tot, w2[t], out=g[:, :, 1])
+        torch.addcmul(dlogf, dm_tot, w1[t], out=g[:, :, 2])
+        torch.mul(dh, k4[t], out=g[:, :, 3])
+        dh = torch.bmm(g.reshape(H, B, 4 * D), RT)
+        dc = dc_tot * fg[t]
+        dn = dn_tot * fwq[t]
+        dm = g[:, :, 2]  # f and m enter m' and f~ only as f + m
+    del k1, k2, k3, k4, wq, wqr, fwq, w1, w2, z, ig, fg, c_prev, n_prev, m_prev, dh_out
+    dR = torch.bmm(h_prev.transpose(0, 1).reshape(H, S * B, D).transpose(1, 2),
+                   dgates.transpose(0, 1).reshape(H, S * B, 4 * D))  # [h, k, (g, e)]
+    dR = dR.reshape(H, D, 4, D).permute(2, 0, 1, 3).to(R.dtype)
+    du = dgates.permute(2, 0, 3, 1, 4).reshape(B, S, d4).to(u.dtype)
+    back = lambda t, like: t.transpose(0, 1).to(like.dtype)  # noqa: E731
+    return du, dR, back(dc, c0), back(dn, n0), back(dh, h0), back(dm.contiguous(), m0)
+
+
+class SLSTMFunction(torch.autograd.Function):
+    """The sLSTM recurrence, differentiable in ``u``, ``R`` and the initial
+    state.
+
+    ``apply(u, R, c0, n0, h0, m0)`` -> ``(h_seq, c, n, h, m)``: the forward
+    is :func:`slstm_forward` with the per-step states saved (the kernel, or
+    its plain version on CPU tensors); the backward is
+    :func:`slstm_backward`."""
+
+    @staticmethod
+    def forward(ctx, u, R, c0, n0, h0, m0):
+        h_seq, final, seqs = slstm_forward(u, R, c0, n0, h0, m0, save_states=True)
+        ctx.save_for_backward(u, R, c0, n0, h0, m0, h_seq, *seqs)
+        return (h_seq, *final)
+
+    @staticmethod
+    def backward(ctx, dh_seq, dc, dn, dh, dm):
+        return slstm_backward(*ctx.saved_tensors, dh_seq, (dc, dn, dh, dm))

@@ -1,7 +1,8 @@
 """The port's model zoo: the dense attention family (GQA, sliding windows,
-softcaps; text, VLM and audio backbones) and the Mamba2 hybrid family
-(zamba2) for serving and training.  The other families (MLA, MoE, xLSTM)
-load their configs and raise ``NotImplementedError`` when built."""
+softcaps; text, VLM and audio backbones), the Mamba2 hybrid family (zamba2)
+and the xLSTM family (mLSTM and sLSTM blocks) for serving and training.
+The other families (MLA, MoE) load their configs and raise
+``NotImplementedError`` when built."""
 
 from __future__ import annotations
 

@@ -5,9 +5,11 @@ of numpy arrays (``jax.tree.map(np.asarray, repro.models.init_model_params(
 cfg, key))``) and returns the state dict of the port's
 :class:`~repro_torch.models.transformer.Transformer` for the same config:
 each stacked ``stack`` leaf is split along its leading ``n_superblocks`` axis
-into one tensor per layer; every other leaf (the embedding, tied or not, the
-audio ``[K, V, d]`` / ``[K, d, V]`` tables, zamba2's ``shared`` block and its
-tail blocks) keeps its name and shape.  A shared stack position holds no
+into one tensor per layer (an sLSTM block's ``r_zifo`` ``[n_superblocks, 4,
+H, D, D]`` into ``[4, H, D, D]`` tensors, an mLSTM block's ``wq`` / ``wk``
+``[n_superblocks, H, D, D]`` into ``[H, D, D]``); every other leaf (the
+embedding, tied or not, the audio ``[K, V, d]`` / ``[K, d, V]`` tables,
+zamba2's ``shared`` block and its tail blocks) keeps its name and shape.  A shared stack position holds no
 leaves (``stack/<i>`` is ``{}`` in both packages).
 It takes numpy, so it imports no jax.  :func:`params_tree` goes the other
 way, to the reference's tree of a model (for checkpoints), and

@@ -12,14 +12,16 @@ float32 conv and state) keeps the reference's stacked layout and is updated
 in place.
 
 The dense attention family (GQA, sliding windows, softcaps, sandwich norms;
-text, VLM and audio embeddings) and the Mamba2 hybrid family (zamba2: mamba2
+text, VLM and audio embeddings), the Mamba2 hybrid family (zamba2: mamba2
 blocks through the SSD kernel, and one shared attention block whose
 parameters ``model.shared`` serve every stack position marked ``shared``,
-each repeat with its own KV cache) are ported for serving and for training:
+each repeat with its own KV cache) and the xLSTM family (xlstm: mLSTM blocks
+in torch ops, sLSTM blocks through the sLSTM recurrence kernel; both with
+float32 recurrent caches) are ported for serving and for training:
 ``forward`` builds an autograd graph in train mode when the parameters
 require grad, and ``loss_fn`` is the reference's mean-token cross-entropy
-through the fused cross-entropy kernel.  MLA, MoE, mLSTM and sLSTM belong to
-later slices and raise ``NotImplementedError``.
+through the fused cross-entropy kernel.  MLA and MoE belong to a later
+slice and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from torch.utils.checkpoint import checkpoint
 from ..kernels.ops import full_float32_matmul
 from . import attention as attn
 from . import mamba2 as m2
+from . import ssm_xlstm as xl
 from .config import BlockDef, ModelConfig
 from .layers import (
     Spec,
@@ -63,10 +66,12 @@ __all__ = [
 ]
 
 MODES = ("train", "prefill", "decode")
-_UNPORTED_KINDS = {
-    "mla": "the MLA/MoE slice",
-    "mlstm": "the xlstm slice",
-    "slstm": "the xlstm slice",
+_UNPORTED_KINDS = {"mla": "the MLA/MoE slice"}
+#: blocks that norm their own input and add ``x + out``: (train / prefill, decode)
+_RECURRENT_BLOCKS = {
+    "mamba2": (m2.mamba2_block_full, m2.mamba2_block_decode),
+    "mlstm": (xl.mlstm_block_full, xl.mlstm_block_decode),
+    "slstm": (xl.slstm_block_full, xl.slstm_block_decode),
 }
 
 
@@ -102,6 +107,10 @@ def block_specs(cfg: ModelConfig, bdef: BlockDef) -> dict:
         raise _unported(f"the {bdef.kind!r} block", _UNPORTED_KINDS[bdef.kind])
     if bdef.kind == "mamba2":
         return m2.mamba2_specs(cfg)
+    if bdef.kind == "mlstm":
+        return xl.mlstm_specs(cfg)
+    if bdef.kind == "slstm":
+        return xl.slstm_specs(cfg)
     specs: dict = {"ln1": Spec((cfg.d_model,), ("embed",), init="zeros")}
     specs["attn"] = attn.attn_specs(cfg)
     if bdef.ffn != "none":
@@ -268,13 +277,15 @@ def _ffn_apply(p, x, cfg, bdef):
 
 def apply_block(bdef: BlockDef, p, x, cfg, positions, cache, cache_index, mode, engine="auto"):
     """Returns (x_out, cache, aux_loss); the cache is updated in place.  A
-    mamba2 block norms its input itself (no ``ln1``), as in the reference."""
-    if bdef.kind == "mamba2":
+    mamba2, mLSTM or sLSTM block norms its input itself (no ``ln1``) and has
+    no FFN, as in the reference."""
+    if bdef.kind in _RECURRENT_BLOCKS:
+        full, decode = _RECURRENT_BLOCKS[bdef.kind]
         if mode == "decode":
-            out, cache = m2.mamba2_block_decode(p, x, cfg, bdef, cache, cache_index)
+            out, cache = decode(p, x, cfg, bdef, cache, cache_index)
         else:
-            out, cache = m2.mamba2_block_full(p, x, cfg, bdef, positions, cache=cache,
-                                              cache_index=cache_index, engine=engine)
+            out, cache = full(p, x, cfg, bdef, positions, cache=cache, cache_index=cache_index,
+                              engine=engine)
         return x + out, cache, 0.0
     h = rms_norm(x, p.ln1, cfg.norm_eps)
     if mode == "decode":
@@ -296,13 +307,18 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int, dtype=torch.bfloat16
     """Cache dict matching the segment structure.  Stacked blocks carry a
     leading n_superblocks dim (layer ``l`` uses index ``l``; each repeat of a
     shared block has its own cache).  An attention block's KV cache is in
-    ``dtype``; a mamba2 block's conv and state are float32."""
+    ``dtype``; a mamba2 block's conv and state, an mLSTM block's ``C``, ``n``,
+    ``m`` and an sLSTM block's ``c``, ``n``, ``h``, ``m`` are float32."""
 
     def block_cache(b, n=None):
         if b.shared:
             b = cfg.shared_block
         if b.kind == "mamba2":
             c = m2.empty_mamba2_state(cfg, batch, device=device)
+        elif b.kind == "mlstm":
+            c = xl.empty_mlstm_state(cfg, batch, device=device)
+        elif b.kind == "slstm":
+            c = xl.empty_slstm_state(cfg, batch, device=device)
         else:
             c = attn.empty_kv_cache(cfg, batch, capacity, dtype, window=b.window, device=device)
         if n is None:
@@ -370,8 +386,8 @@ def forward(model: Transformer, batch: dict, cache=None, cache_index: int = 0, m
       -> (x_final, cache, aux)
     * decode:  batch={tokens [B,1]}, cache, index -> (x_final [B,1,d], cache, aux)
 
-    ``engine`` picks the attention and the SSD scan of train and prefill
-    (``layers.ENGINES``).
+    ``engine`` picks the attention, the SSD scan and the sLSTM scan of train
+    and prefill (``layers.ENGINES``).
     The cache is updated in place and returned.  Train mode under grad (the
     parameters require it) builds an autograd graph; with ``cfg.remat`` other
     than ``"none"`` each stacked superblock is recomputed in the backward pass

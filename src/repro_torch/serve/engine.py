@@ -23,8 +23,8 @@ __all__ = ["make_prefill_step", "make_decode_step", "Engine", "Request", "sample
 
 def make_prefill_step(cfg: ModelConfig, engine: str = "auto") -> Callable:
     """(model, batch, cache) -> (last_logits, cache).  The tokens' length
-    fills cache[0:S]; ``engine`` picks the attention and the SSD scan
-    (``"cuda"`` kernels, ``"torch"`` plain versions, ``"auto"`` by device).  Runs under
+    fills cache[0:S]; ``engine`` picks the attention, the SSD scan and the
+    sLSTM scan (``"cuda"`` kernels, ``"torch"`` plain versions, ``"auto"`` by device).  Runs under
     ``torch.inference_mode``: serving builds no autograd graph."""
 
     @torch.inference_mode()
@@ -79,16 +79,19 @@ class Engine:
 
     ``device=None`` means the card; without one the engine raises unless the
     caller passes ``device="cpu"``.  ``engine`` picks the prefill's kernels
-    (flash attention, the SSD scan): ``"cuda"`` the kernels (CUDA only),
+    (flash attention, the SSD scan, the sLSTM scan): ``"cuda"`` the kernels (CUDA only),
     ``"torch"`` their plain PyTorch versions on any device, ``"auto"`` the
     kernels on a CUDA device and the plain versions on the CPU.  The model
     is moved to the device and its matrices (parameters of two or more
-    dimensions, a mamba2 block's ``conv_w`` among them) are cast to the
-    compute dtype in place, once: the reference casts them at every use, to
-    the same numbers.  Norm scales and a mamba2 block's ``A_log``, ``D``,
-    ``dt_bias`` and ``conv_b`` stay float32.  So a model that is still being
-    trained must not be handed to an ``Engine``: serve a copy, or a
-    checkpoint restored into a new model."""
+    dimensions, a mamba2 block's ``conv_w`` and an mLSTM block's ``wq``,
+    ``wk`` and ``w_if`` among them) are cast to the compute dtype in place,
+    once: the reference casts them to the compute dtype at every use, to the
+    same numbers.  An sLSTM block's recurrent weights ``r_zifo`` stay
+    float32, because the reference reads them in float32 at every step; so
+    do norm scales, biases and a mamba2 block's ``A_log``, ``D`` and
+    ``dt_bias``.  So a model that is still being trained must not be handed
+    to an ``Engine``: serve a copy, or a checkpoint restored into a new
+    model."""
 
     def __init__(self, cfg: ModelConfig, model: Transformer, capacity: int = 256, slots: int = 4,
                  temperature: float = 0.0, seed: int = 0, device=None, engine: str = "auto"):
@@ -103,8 +106,8 @@ class Engine:
         compute = getattr(torch, cfg.compute_dtype)
         self.model = model.to(self.device)
         with torch.no_grad():
-            for p in self.model.parameters():
-                if p.dim() >= 2 and p.dtype != compute:
+            for name, p in self.model.named_parameters():
+                if p.dim() >= 2 and p.dtype != compute and not name.endswith("r_zifo"):
                     p.data = p.data.to(compute)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self._prefill = make_prefill_step(cfg, engine)

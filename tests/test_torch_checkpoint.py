@@ -3,10 +3,11 @@ as twins, and files crossing between the two packages.
 
 The format is the reference's (``.npz`` + a JSON manifest keyed by
 ``jax.tree_util.keystr`` paths), so a parameter tree that the reference
-saves restores into the port, and ``repro_torch.launch.serve --checkpoint``
-on it gives the same greedy tokens as ``repro.launch.serve`` reading the
-same file (float32 compute in both, as ``tests/test_torch_serve.py`` holds
-the engines).
+saves restores into the port (dense, zamba2 and xlstm smoke configs), one
+the port saves restores into the reference, and ``repro_torch.launch.serve
+--checkpoint`` on it gives the same greedy tokens as ``repro.launch.serve``
+reading the same file (float32 compute in both, as
+``tests/test_torch_serve.py`` holds the engines).
 """
 
 import dataclasses
@@ -150,7 +151,7 @@ def test_trainer_checkpoint_has_the_reference_keys(tmp_path):
     assert float(jnp.abs(state["v"]["stack"]["0"]["attn"]["wq"]).max()) > 0
 
 
-@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "gemma2-9b", "zamba2-1.2b"])
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "gemma2-9b", "zamba2-1.2b", "xlstm-1.3b"])
 def test_reference_checkpoint_restores_into_the_port(tmp_path, arch):
     ref_cfg = ref_configs_pkg.get_smoke_config(arch)
     params = ref_models.init_model_params(ref_cfg, jax.random.PRNGKey(5))
@@ -204,6 +205,27 @@ def test_port_zamba2_checkpoint_restores_into_the_reference(tmp_path):
             seen.add(name)
     assert seen == set(named)
     assert {"shared.attn.wq", "stack.1.0.A_log", "tail.0.conv_w"} <= seen
+
+
+def test_port_xlstm_checkpoint_restores_into_the_reference(tmp_path):
+    """The stacked mLSTM and sLSTM leaves (``wq`` / ``wk`` ``[n, H, D, D]``,
+    ``r_zifo`` ``[n, 4, H, D, D]``) cross to the reference's tree exactly."""
+    cfg = configs.get_smoke_config("xlstm-1.3b")
+    model = init_model_params(cfg, torch.Generator().manual_seed(6), "cpu")
+    path = str(tmp_path / "params.ckpt")
+    save_pytree(path, params_tree(model), step=5)
+    ref_cfg = ref_configs_pkg.get_smoke_config("xlstm-1.3b")
+    step, params = ref_train.restore_pytree(path, ref_models.abstract_params(ref_cfg))
+    assert step == 5
+    assert params["stack"]["1"]["r_zifo"].shape == (cfg.n_superblocks, 4, 2, 32, 32)
+    named = dict(model.named_parameters())
+    seen = set()
+    for keys, leaf in jax.tree_util.tree_leaves_with_path(params):
+        for name, part in state_items(tuple(k.key for k in keys), np.asarray(leaf)):
+            np.testing.assert_array_equal(part, named[name].detach().numpy(), err_msg=name)
+            seen.add(name)
+    assert seen == set(named)
+    assert {"stack.1.0.wq", "stack.0.1.r_zifo", "stack.1.1.b_zifo"} <= seen
 
 
 @pytest.fixture

@@ -21,7 +21,11 @@ its plain version within the reference's kernel tolerance, atol 2e-3
 (float32 sums in another order and another chunk length: the kernel cuts
 ``min(chunk, S)``-step chunks with a ragged last one, the plain version
 halves the chunk until it divides S), and its written-out backward to
-autograd through the plain version.
+autograd through the plain version.  The sLSTM recurrence is held to its
+plain version run in float64 within the reference's kernel tolerance, atol
+1e-4, with rtol 1e-4 for the state's n and m, which grow with the steps
+(float32 sums in another order over at most 40 steps), and its
+written-out backward to autograd through the float32 plain version.
 """
 
 import dataclasses
@@ -644,4 +648,161 @@ def test_zamba2_train_step_on_the_card_goes_through_the_ssd_kernel(cuda_device):
     torch.cuda.synchronize()
     stacked = sum(b.kind == "mamba2" for b in cfg.superblock) * cfg.n_superblocks
     assert ssd.launches() == 2 * stacked + len(cfg.tail_blocks)
+    assert float(metrics["loss"]) == out["cuda"][0]
+
+
+# -- the xlstm slice: the sLSTM recurrence ------------------------------------------------
+
+SLSTM_TOL = 1e-4
+
+
+def _slstm_inputs(device, B, S, H, D, dtype, init, seed, model_layout=False):
+    """numpy-seeded inputs on the card: u * 0.5 and R * 0.2 (the reference's
+    test distributions) at its test widths, D <= 16; wider heads take R at
+    the model's init std, 1 / sqrt(D) (R * 0.2 at D = 512 is a sum of 512
+    terms that drives the recurrence far from any state the model reaches).
+    With ``model_layout`` u is a slice of a wider [B, S, 4 d + 32] tensor;
+    with ``init`` a non-empty float32 state."""
+    rng = np.random.RandomState(seed)
+    t = lambda a: torch.from_numpy(np.asarray(a, dtype=np.float32)).to(device)  # noqa: E731
+    d4 = 4 * H * D
+    if model_layout:
+        u = t(rng.randn(B, S, d4 + 32) * 0.5).to(dtype)[..., 16:16 + d4]
+    else:
+        u = t(rng.randn(B, S, d4) * 0.5).to(dtype)
+    R = t(rng.randn(4, H, D, D) * (0.2 if D <= 16 else 1.0 / np.sqrt(D)))
+    if init:
+        state = (t(rng.randn(B, H, D)), t(1.0 + np.abs(rng.randn(B, H, D))),
+                 t(rng.randn(B, H, D) * 0.5), t(rng.randn(B, H, D)))
+    else:
+        z = np.zeros((B, H, D))
+        state = (t(z), t(z), t(z), t(z - 1e30))
+    return u, R, state
+
+
+@pytest.mark.parametrize(
+    "B,S,H,D,dtype,init,model_layout",
+    [(4, 24, 2, 8, torch.float32, False, False),  # the reference's sweep
+     (2, 16, 4, 16, torch.float32, False, False),
+     (8, 8, 2, 8, torch.float32, False, False),
+     (3, 20, 2, 16, torch.float32, True, False),  # an initial state
+     (5, 1, 2, 32, torch.bfloat16, True, True),  # decode: S = 1
+     (2, 37, 2, 32, torch.bfloat16, True, True),  # odd S, the smoke widths
+     (11, 9, 2, 32, torch.float32, False, True),  # two batch tiles, one ragged
+     (2, 40, 4, 512, torch.bfloat16, True, True)],  # xlstm-1.3b's widths
+)
+def test_slstm_kernel_matches_plain_version(cuda_device, B, S, H, D, dtype, init, model_layout):
+    from repro_torch.kernels import slstm
+    from repro_torch.kernels.ref import slstm_scan_ref
+
+    u, R, state = _slstm_inputs(cuda_device, B, S, H, D, dtype, init, B * 31 + S, model_layout)
+    slstm.reset_launches()
+    hs, fin = slstm.slstm_forward(u, R, *state)
+    torch.cuda.synchronize()
+    assert slstm.launches() == 1
+    want_hs, want_fin = slstm_scan_ref(u, R, *state, compute_dtype=torch.float64)
+    for got, want in ((hs, want_hs), *zip(fin, want_fin)):
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        torch.testing.assert_close(got.double(), want, atol=SLSTM_TOL, rtol=SLSTM_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_slstm_gradient_matches_autograd_of_plain_version(cuda_device, dtype):
+    from repro_torch.kernels.ref import slstm_scan_ref
+    from repro_torch.kernels.slstm import SLSTMFunction
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, S, H, D = 3, 30, 2, 64
+    u, R, state = _slstm_inputs(cuda_device, B, S, H, D, dtype, True, 5)
+    rng = np.random.RandomState(6)
+    gh = torch.from_numpy(rng.randn(B, S, H * D).astype(np.float32)).to(cuda_device)
+    gf = [torch.from_numpy(rng.randn(B, H, D).astype(np.float32)).to(cuda_device)
+          for _ in range(4)]
+    grads = []
+    for fn in (SLSTMFunction.apply, lambda *a: (lambda h, f: (h, *f))(*slstm_scan_ref(*a))):
+        ins = [a.detach().clone().requires_grad_() for a in (u, R, *state)]
+        hs, *fin = fn(*ins)
+        loss = (hs * gh).sum() + sum((f * g).sum() for f, g in zip(fin, gf))
+        grads.append(torch.autograd.grad(loss, ins))
+    for got, want in zip(*grads):
+        scale = float(want.float().abs().max())
+        tol = 1e-4 if dtype == torch.float32 else 2.0**-7  # one bf16 rounding of du
+        assert float((got.float() - want.float()).abs().max()) <= tol * scale
+
+
+def test_slstm_cuda_tensors_of_the_wrong_kind_raise(cuda_device):
+    from repro_torch.kernels import slstm
+
+    u, R, state = _slstm_inputs(cuda_device, 2, 4, 2, 16, torch.float32, False, 1)
+    slstm.reset_launches()
+    with pytest.raises(TypeError):  # float16 pre-activations
+        slstm.slstm_forward(u.half(), R, *state)
+    with pytest.raises(TypeError):  # R not float32
+        slstm.slstm_forward(u, R.bfloat16(), *state)
+    with pytest.raises(ValueError):  # the last dimension strided
+        slstm.slstm_forward(u.transpose(1, 2).contiguous().transpose(1, 2), R, *state)
+    with pytest.raises(ValueError):  # two devices
+        slstm.slstm_forward(u, R.cpu(), *state)
+    with pytest.raises(ValueError):  # a state of the wrong shape
+        slstm.slstm_forward(u, R, state[0][:1], *state[1:])
+    big, R_big, st_big = _slstm_inputs(cuda_device, 1, 2, 1, 4096, torch.float32, False, 2)
+    with pytest.raises(ValueError, match="resident"):  # R's slices fit no plan
+        slstm.slstm_forward(big, R_big, *st_big)
+    assert slstm.launches() == 0
+
+
+def _n_slstm(cfg):
+    return sum(b.kind == "slstm" for b in cfg.superblock) * cfg.n_superblocks
+
+
+def test_xlstm_engine_cuda_and_torch_give_the_same_greedy_tokens(cuda_device):
+    """xlstm-smoke in float32 on the card: the same greedy tokens on both
+    engines; the sLSTM kernel launches once per sLSTM block and prefill on
+    the ``cuda`` engine, and once per sLSTM block and decode step on both
+    (a decode step runs the block's full form on one token)."""
+    from repro_torch.kernels import slstm
+
+    rng = np.random.RandomState(4)
+    prompts = [rng.randint(1, 256, size=n) for n in (5, 23, 17, 9, 31)]  # two groups
+    outs = {}
+    for engine in ("torch", "cuda"):
+        cfg, eng = _smoke_engine("xlstm-1.3b", engine, cuda_device)
+        slstm.reset_launches()
+        outs[engine] = eng.generate(prompts, max_new=12)
+        torch.cuda.synchronize()
+        per_call = _n_slstm(cfg)
+        want = per_call * (2 * 11 + (2 if engine == "cuda" else 0))
+        assert slstm.launches() == want
+    assert outs["cuda"] == outs["torch"]
+
+
+def test_xlstm_train_step_on_the_card_goes_through_the_slstm_kernel(cuda_device):
+    """xlstm-smoke in float32 compute: the loss and every gradient on the
+    ``cuda`` engine against the ``torch`` engine within 1e-5 / rtol 1e-4;
+    one train step launches the sLSTM kernel twice for each stacked sLSTM
+    block (the remat recomputes each superblock)."""
+    from repro_torch.kernels import slstm
+    from repro_torch.models import loss_fn
+    from repro_torch.train import SyntheticLM, TrainConfig, make_train_step
+    from repro_torch.train.train_loop import make_optimizer_for
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(configs.get_smoke_config("xlstm-1.3b"), compute_dtype="float32")
+    batch = SyntheticLM(cfg, batch=4, seq=64, device="cuda").batch_at(0)
+    model = init_model_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    named = dict(model.named_parameters())
+    model.requires_grad_(True)
+    out = {}
+    for engine in ("cuda", "torch"):
+        loss, _ = loss_fn(model, batch, engine=engine)
+        out[engine] = (float(loss.detach()), torch.autograd.grad(loss, list(named.values())))
+    assert abs(out["cuda"][0] - out["torch"][0]) <= 1e-5
+    for name, a, b in zip(named, out["cuda"][1], out["torch"][1]):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-4, msg=name)
+    opt = make_optimizer_for(cfg, TrainConfig(lr=1e-2, warmup_steps=1))
+    state = opt.init(named)
+    slstm.reset_launches()
+    _, _, metrics = make_train_step(cfg, opt)(model, state, 0, batch)
+    torch.cuda.synchronize()
+    assert slstm.launches() == 2 * _n_slstm(cfg)
     assert float(metrics["loss"]) == out["cuda"][0]

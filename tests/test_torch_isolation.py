@@ -6,7 +6,8 @@
 * Without a CUDA device every engine but ``"numpy"`` raises unless the
   caller passes ``device="cpu"``; ``engine="cuda"`` never runs on the CPU.
 * The sampling and serving paths hold no broad ``except`` that could hide a
-  device error, and the parts of later slices raise ``NotImplementedError``.
+  device error, and the parts of later slices raise ``NotImplementedError``
+  (MLA and MoE); the xlstm family builds.
 * A default serving ``Engine``, ``Trainer``, train launcher and tune
   objective need a CUDA device unless the caller passes ``device="cpu"``.
 """
@@ -152,7 +153,8 @@ def _broad_handlers(path: Path):
      "models/attention.py", "models/transformer.py", "models/transfer.py", "serve/engine.py",
      "launch/serve.py", "kernels/crossentropy.py", "models/layers.py", "train/optimizer.py",
      "train/data.py", "train/checkpoint.py", "train/train_loop.py", "launch/train.py",
-     "tune/objective.py", "kernels/ssd.py", "models/mamba2.py"],
+     "tune/objective.py", "kernels/ssd.py", "models/mamba2.py", "kernels/slstm.py",
+     "models/ssm_xlstm.py"],
 )
 def test_sampling_path_has_no_broad_except(rel):
     assert list(_broad_handlers(PORT / rel)) == []
@@ -175,11 +177,10 @@ def test_later_slices_raise_not_implemented():
 
 @pytest.mark.parametrize(
     "arch,slice_name",
-    [("deepseek-v2-lite-16b", "MLA/MoE"), ("qwen3-moe-235b-a22b", "MLA/MoE"),
-     ("xlstm-1.3b", "xlstm")],
+    [("deepseek-v2-lite-16b", "MLA/MoE"), ("qwen3-moe-235b-a22b", "MLA/MoE")],
 )
 def test_unported_model_families_raise(arch, slice_name):
-    """MLA, MoE and mLSTM / sLSTM configs load; building them raises."""
+    """MLA and MoE configs load; building them raises."""
     cfg = configs.get_smoke_config(arch)
     with pytest.raises(NotImplementedError, match=slice_name):
         Transformer(cfg, device="meta")
@@ -187,16 +188,50 @@ def test_unported_model_families_raise(arch, slice_name):
         init_model_params(cfg, torch.Generator().manual_seed(0), "cpu")
 
 
-@pytest.mark.parametrize("kind,slice_name", [("mlstm", "xlstm"), ("slstm", "xlstm"),
-                                             ("mla", "MLA/MoE")])
-def test_unported_block_kinds_raise(kind, slice_name):
+@pytest.mark.parametrize("get", ["get_config", "get_smoke_config"])
+def test_xlstm_family_builds(get):
+    """The xlstm configs (mLSTM and sLSTM blocks) build on ``meta``; the
+    smoke config builds on the CPU and its loss is finite."""
+    cfg = getattr(configs, get)("xlstm-1.3b")
+    model = Transformer(cfg, device="meta")
+    kinds = {b.kind for b in cfg.superblock}
+    assert kinds == {"mlstm", "slstm"}
+    assert any(name.endswith("r_zifo") for name, _ in model.named_parameters())
+    if get == "get_smoke_config":
+        model = init_model_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        loss, _ = loss_fn(model, SyntheticLM(cfg, batch=2, seq=16).batch_at(0))
+        assert torch.isfinite(loss)
+
+
+@pytest.mark.parametrize("kind", ["mlstm", "slstm"])
+def test_xlstm_block_kinds_build(kind):
+    """A stack of one block kind builds and runs train, prefill and decode."""
+    import dataclasses
+
+    from repro_torch.models import BlockDef, forward, init_cache
+
+    cfg = dataclasses.replace(configs.get_smoke_config("tinyllama-1.1b"),
+                              superblock=(BlockDef(kind=kind, ffn="none"),), d_ff=0)
+    Transformer(cfg, device="meta")
+    model = init_model_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    tokens = torch.randint(0, cfg.vocab, (2, 8), generator=torch.Generator().manual_seed(1))
+    x, _, _ = forward(model, {"tokens": tokens}, mode="train")
+    cache = init_cache(cfg, 2, 16, device="cpu")
+    _, cache, _ = forward(model, {"tokens": tokens[:, :7]}, cache=cache, mode="prefill")
+    y, cache, _ = forward(model, {"tokens": tokens[:, 7:]}, cache=cache, cache_index=7,
+                          mode="decode")
+    assert torch.isfinite(x).all() and torch.isfinite(y).all()
+    assert all(t.dtype == torch.float32 for t in cache["stack"]["0"].values())
+
+
+def test_mla_block_kind_raises():
     import dataclasses
 
     from repro_torch.models import BlockDef
 
     cfg = dataclasses.replace(configs.get_smoke_config("tinyllama-1.1b"),
-                              superblock=(BlockDef(kind=kind),))
-    with pytest.raises(NotImplementedError, match=slice_name):
+                              superblock=(BlockDef(kind="mla"),))
+    with pytest.raises(NotImplementedError, match="MLA/MoE"):
         Transformer(cfg, device="meta")
 
 

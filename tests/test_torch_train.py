@@ -11,18 +11,27 @@ both packages' ``loss_fn`` in float32 compute:
   most 40 keys and 2 query heads, in another order);
 * the loss within 1e-5 and the gradient of every parameter within atol
   1e-5 / rtol 1e-4 on the six dense smoke configs (text, the VLM image mask,
-  audio codebooks) and zamba2's (mamba2 blocks through ``SSDFunction``'s
+  audio codebooks), zamba2's (mamba2 blocks through ``SSDFunction``'s
   written-out backward, the shared attention block's parameters summed over
-  its two repeats): float32 sums in another order through two to five
+  its two repeats) and xlstm's (mLSTM blocks in torch ops, the sLSTM blocks
+  through ``SLSTMFunction``'s written-out backward through time): float32
+  sums in another order through two to five
   layers, the loss's mean over 64 tokens and the gradients' sums over them
   (the largest difference seen was 2.1e-6, on gradients up to 1.9; on
-  zamba2 at most 5% of the bound);
+  zamba2 at most 5% of the bound).  xlstm's gradients are held within atol
+  1e-5 x max(1, the leaf's largest |gradient|) / rtol 1e-4: its embedding
+  gradient reaches 3.9 (the mLSTM's exponential gates amplify float32
+  rounding), and there the two packages lie 2.4e-5 apart, the reference's
+  own float32 gradient 1.4e-5 from its float64 one, and both of the
+  port's engines (the sLSTM kernel's written-out backward and autograd
+  through the plain version) alike; every other xlstm leaf agrees within
+  1.6e-6;
 * ``warmup_cosine`` equal to the reference's within 1e-7 (the reference
   computes in float32, the port in float64);
 * remat on and off give the same gradients (the recomputation repeats the
-  forward's operations), on gemma2 and on zamba2;
+  forward's operations), on gemma2, zamba2 and xlstm;
 * the ``torch`` engine (autograd through the plain versions) against the
-  kernels' Functions, on gemma2 and on zamba2.
+  kernels' Functions, on gemma2, zamba2 and xlstm.
 
 The train steps (optimizers, microbatches) are in ``test_torch_train_step.py``.
 """
@@ -47,7 +56,7 @@ from repro_torch.train import MemmapTokens, SyntheticLM, warmup_cosine
 
 DENSE = ["tinyllama-1.1b", "smollm-135m", "internlm2-1.8b", "gemma2-9b", "llava-next-34b",
          "musicgen-medium"]
-ARCHS = DENSE + ["zamba2-1.2b"]
+ARCHS = DENSE + ["zamba2-1.2b", "xlstm-1.3b"]
 B, S = 2, 32
 
 
@@ -120,13 +129,14 @@ def test_loss_and_every_gradient_match_the_reference(arch):
     seen = set()
     for path, leaf in _flat(want_grads):
         for name, part in state_items(path, leaf):
-            np.testing.assert_allclose(grads[name].numpy(), part, atol=1e-5, rtol=1e-4,
+            atol = 1e-5 * max(1.0, float(np.abs(part).max())) if arch == "xlstm-1.3b" else 1e-5
+            np.testing.assert_allclose(grads[name].numpy(), part, atol=atol, rtol=1e-4,
                                        err_msg=name)
             seen.add(name)
     assert seen == set(grads)
 
 
-@pytest.mark.parametrize("arch", ["gemma2-9b", "zamba2-1.2b"])
+@pytest.mark.parametrize("arch", ["gemma2-9b", "zamba2-1.2b", "xlstm-1.3b"])
 def test_remat_on_and_off_give_the_same_gradients(arch):
     _, cfg = _configs(arch)
     params = ref_models.init_model_params(dataclasses.replace(
@@ -142,7 +152,7 @@ def test_remat_on_and_off_give_the_same_gradients(arch):
             assert torch.equal(runs[remat][2][name], g), (remat, name)
 
 
-@pytest.mark.parametrize("arch", ["gemma2-9b", "zamba2-1.2b"])
+@pytest.mark.parametrize("arch", ["gemma2-9b", "zamba2-1.2b", "xlstm-1.3b"])
 def test_torch_engine_matches_the_kernel_path(arch):
     """``engine="torch"`` (autograd through the plain versions) against the
     default path (the kernels' Functions, plain forward on the CPU)."""

@@ -16,7 +16,13 @@ shipped (eps 1e-8) and names those near-zero-gradient entries.
 Each step's loss must agree within rtol 1e-5 (a float32 mean over 128
 tokens, the parameters a few float32 updates apart), every parameter after
 the last step within atol 1e-5, and the optimizer state (the reference's
-tree, stacked leaves and all) within atol 1e-5 / rtol 1e-3.
+tree, stacked leaves and all) within atol 1e-5 / rtol 1e-3.  xlstm's
+parameters are held within atol 2e-4, 2% of the largest step AdamW takes
+at lr 1e-2: its gradients are an order of magnitude noisier in float32 (the
+embedding's reach 3.9; at step 0 the two packages' lie 2.4e-5 apart, and
+the reference's own float32 gradient lies 1.4e-5 from its float64 one), and
+AdamW normalizes that noise in entries whose gradient is near eps; after 3
+steps the embedding was up to 1.5e-4 apart, every other leaf within 2.8e-5.
 """
 
 import dataclasses
@@ -38,6 +44,8 @@ from repro_torch.train.train_loop import make_optimizer_for
 
 B, S = 4, 32
 TCFG = dict(lr=1e-2, warmup_steps=2, total_steps=8, weight_decay=0.1)
+#: xlstm's parameters after the steps (see the module docstring)
+XLSTM_PARAM_ATOL = 2e-4
 
 
 def _flat(tree, path=()):
@@ -93,16 +101,18 @@ def _run_both(arch, optimizer, steps, microbatch=0, eps=1e-4):
     "arch,optimizer,steps,microbatch",
     [("smollm-135m", "adamw", 5, 0), ("gemma2-9b", "adamw", 5, 0),
      ("smollm-135m", "adafactor", 3, 0), ("smollm-135m", "sgd", 3, 0),
-     ("musicgen-medium", "adamw", 3, 2), ("zamba2-1.2b", "adamw", 3, 2)],
+     ("musicgen-medium", "adamw", 3, 2), ("zamba2-1.2b", "adamw", 3, 2),
+     ("xlstm-1.3b", "adamw", 3, 2)],
 )
 def test_train_steps_match_the_reference(arch, optimizer, steps, microbatch):
     model, state, params, ref_state, losses, _ = _run_both(arch, optimizer, steps, microbatch)
     for got, want in losses:
         np.testing.assert_allclose(got, want, rtol=1e-5)
     named = dict(model.named_parameters())
+    atol = XLSTM_PARAM_ATOL if arch == "xlstm-1.3b" else 1e-5
     for path, leaf in _flat(params):
         for name, part in state_items(path, np.asarray(leaf)):
-            np.testing.assert_allclose(named[name].detach().numpy(), part, atol=1e-5,
+            np.testing.assert_allclose(named[name].detach().numpy(), part, atol=atol,
                                        err_msg=name)
     got_state = dict(_flat(state))
     want_state = dict(_flat(ref_state))

@@ -1,7 +1,8 @@
 """The port's HPO-over-training loop (``repro_torch.tune``) on the CPU: twins
 of ``tests/test_tune_integration.py`` with ``families=("dense",)`` and
-``device="cpu"``, a ``("dense", "mamba2")`` study, the spaces held equal to
-the reference's, and the families of later slices raising.  (The dashboard of the reference's test
+``device="cpu"``, ``("dense", "mamba2")`` and ``("dense", "mlstm")``
+studies, the spaces held equal to the reference's, and the family of a later
+slice (MoE) raising.  (The dashboard of the reference's test
 belongs to the storage and HPO-surfaces slice of the port.)"""
 
 import dataclasses
@@ -113,10 +114,32 @@ def test_dense_and_mamba2_study_runs():
     assert np.isfinite(objective(hpo.FixedTrial(fixed)))
 
 
+@pytest.mark.parametrize("proj_factor,heads", [(1, 2), (2, 4)])
+def test_mlstm_family_trains(proj_factor, heads):
+    """An ``mlstm`` trial builds and trains: a finite loss."""
+    fixed = {"family": "mlstm", "n_layers": 2, "width_exp": 5, "ssm_heads": heads,
+             "proj_factor": proj_factor, "lr": 3e-3, "warmup": 0, "weight_decay": 0.01}
+    objective = make_lm_objective(dataclasses.replace(SPEC, families=("mlstm",)), device="cpu")
+    assert np.isfinite(objective(hpo.FixedTrial(fixed)))
+
+
+def test_dense_and_mlstm_study_runs():
+    """Both families train, report and get pruned; no trial raises."""
+    spec = dataclasses.replace(SPEC, families=("dense", "mlstm"))
+    study = hpo.create_study(
+        sampler=hpo.TPESampler(seed=1, n_startup_trials=3, device="cpu"),
+        pruner=hpo.SuccessiveHalvingPruner(min_resource=3, reduction_factor=2),
+    )
+    study.optimize(make_lm_objective(spec, device="cpu"), n_trials=8)
+    states = [t.state for t in study.trials]
+    assert set(states) <= {TrialState.COMPLETE, TrialState.PRUNED}
+    assert {t.params["family"] for t in study.trials} == {"dense", "mlstm"}
+    assert np.isfinite(study.best_value)
+
+
 @pytest.mark.parametrize(
     "family,params,slice_name",
-    [("mlstm", {"ssm_heads": 2, "proj_factor": 1}, "xlstm"),
-     ("moe", {"n_experts": 4, "top_k": 1}, "MLA/MoE")],
+    [("moe", {"n_experts": 4, "top_k": 1}, "MLA/MoE")],
 )
 def test_later_families_raise_naming_their_slice(family, params, slice_name):
     fixed = {"family": family, "n_layers": 1, "width_exp": 5, "lr": 1e-3, "warmup": 0,
