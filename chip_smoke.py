@@ -7,7 +7,10 @@ Needs one CUDA device (an H100 for the ``sm_90a`` kernels) and ``nvcc``; it
 builds the kernels from ``src/repro_torch/kernels/csrc`` at first use.
 Phases, each of which fails the run by raising:
 
-1. device: the card's name and power limit, the kernels' build time;
+1. device: the card's name and power limit, the kernels' build time and
+   ``ptxas`` lines, and the count of tensor-core instructions (``HMMA`` /
+   ``HGMMA``) in the SASS of the two bfloat16 tensor-core kernels (from
+   ``cuobjdump -sass`` of the built library; "not available" without it);
 2. every kernel against its plain PyTorch version on numpy-seeded inputs,
    with times from CUDA events;
 3. the main path as a user calls it: ``create_study(engine="cuda",
@@ -39,13 +42,16 @@ Phases, each of which fails the run by raising:
    at the below-set and front-0 shapes the final history gives it;
 8. NSGA-II (``engine="cuda"``) on the same DTLZ2, 1024 trials as waves of
    24, and ``study.best_trials`` on the card against the pairwise loop;
-9. the flash-attention kernel against its plain PyTorch version (atol /
-   rtol 1e-4 in float32, 2e-2 in bfloat16, each at most a tenth of the
-   reference output's root mean square) at the reference's test shapes,
-   a ``q_offset`` / ``kv_len`` shape and the main path's prefill shapes
-   (tinyllama-1.1b, gemma2-9b windowed and global), each with its time,
-   the plain version's, ``scaled_dot_product_attention``'s where it
-   computes the same function, the bound and the kernel's ``ptxas`` build;
+9. the flash-attention kernels against their plain PyTorch version (atol /
+   rtol 1e-4 in float32, the CUDA-core kernel; 2e-2 in bfloat16, the
+   tensor-core kernel; each at most a tenth of the reference output's root
+   mean square) at the reference's test shapes, window, softcap and
+   non-causal cases in both dtypes, every head width in bfloat16 at a
+   served group's length (1895, GQA 8x), a ``q_offset`` / ``kv_len`` shape
+   and the main path's prefill shapes (tinyllama-1.1b, gemma2-9b windowed
+   and global), each with its time, TFLOP/s and share of the bound, the
+   plain version's time, ``scaled_dot_product_attention``'s where it
+   computes the same function, and the kernel's ``ptxas`` build;
 10. the serving main path at tinyllama-1.1b's full width (22 layers,
     random weights from a seeded generator): (a) ``repro_torch.launch.
     serve.main`` with its defaults; (b) the ``Engine`` with 16 requests of
@@ -59,14 +65,18 @@ Phases, each of which fails the run by raising:
 11. the same at gemma2-9b's full width cut to 2 superblocks (4 layers: two
     sliding-window layers on ring caches, two global, softcap 50): two
     requests of 4608 and 8192 tokens, capacity 8224, 16 new tokens;
-12. the fused cross-entropy kernel against its plain PyTorch version (atol
-    1e-4, rtol 1e-5) at the tune study's shapes, ragged edges in float32 and
-    bfloat16 with and without softcap 30, and the training shapes of
+12. the fused cross-entropy kernels against their plain PyTorch version
+    (atol 1e-4, rtol 1e-5; a bfloat16 x's tensor-core kernel against the
+    plain version run in float64 on the same bf16-rounded operands, the
+    float32 plain version's own distance printed beside) at the tune
+    study's shapes, ragged edges in float32 and bfloat16 with and without
+    softcap 30 and each W layout, and the training shapes of
     tinyllama-1.1b (T 16384, D 2048, V 32000) and gemma2-9b (T 8192, D 3584,
     V 256000, softcap 30, the tied head as a transposed view), each with
-    its time, the plain version's, ``F.cross_entropy(x @ W)``'s where it
-    computes the same function, and the bound; then the Function's dx / dW
-    against autograd through the plain version;
+    its time, TFLOP/s and share of the bound, the plain version's time and
+    ``F.cross_entropy(x @ W)``'s where it computes the same function; the
+    kernels' ``ptxas`` lines; then the Function's dx / dW against autograd
+    through the plain version;
 13. the flash-attention Function's dq / dk / dv against autograd through
     the plain version: tinyllama's heads at B 2, S 2048 in bf16 and f32,
     gemma2's (window 4096, softcap 50, D 256) at B 1, S 8192;
@@ -135,9 +145,10 @@ Phases, each of which fails the run by raising:
     runs the block's full form on one token;
 23. training xlstm-1.3b at full size through ``launch.train.main``: 3 steps
     of 8 x 2048 tokens, bf16, AdamW, remat; 1 cross-entropy and 2 x 6 sLSTM
-    launches a step, a falling finite loss on the first batch, the ``cuda``
-    and ``torch`` engine losses within 3e-3, a traced step, and the sLSTM
-    kernel's and its written-out backward's share of the step;
+    launches a step, finite losses, the ``cuda`` and ``torch`` engine losses
+    within 3e-3, a traced step, the loss of one batch of 8 x 256 tokens
+    falling over 8 AdamW steps on that batch (XLSTM_DESCENT_SEQ), and the
+    sLSTM kernel's and its written-out backward's share of the step;
 24. phase 16's study over ``families=("dense", "mlstm", "mamba2")``.
 
 The line before the last is a JSON object describing each kernel; the last
@@ -241,6 +252,16 @@ XLSTM_BF16_LOGITS_TOL = 4.0
 #: apart in float32 over 2048 steps as above; on the H100 the losses lay
 #: 7.4e-4 apart (near 11.33), so 3e-3
 XLSTM_TRAIN_LOSS_TOL = 3e-3
+#: phase 23's descent check: AdamW at the launcher's lr (3e-4) on one batch
+#: of 8 x 256 tokens, 8 steps, at full width and depth in bfloat16.  At 2048
+#: tokens xlstm-1.3b's loss at random weights is too rough for a few steps
+#: to show a descent (scripts/xlstm_descent_probe.py, on the H100): in
+#: float32, |grad| was 4.2e5, and steps along -grad / |grad| of every length
+#: from 1e-9 to 1e-6 moved the loss by 2e-4 to 5e-3 with either sign; 6
+#: AdamW steps moved it by -0.015 and, with the lr's sign flipped, +0.001.
+#: At 256 tokens 8 steps lowered the loss by 0.099 to 0.144 on three batches
+#: and the flipped updates raised it by 0.069 to 0.124
+XLSTM_DESCENT_SEQ, XLSTM_DESCENT_STEPS = 256, 8
 
 
 def nvidia_smi(query: str) -> str:
@@ -842,25 +863,88 @@ def phase_nsga2() -> dict:
 # -- serving slice -----------------------------------------------------------------
 
 
-def flash_ptxas(build_log: str) -> dict:
-    """``ptxas`` lines of each flash-attention template instance, keyed by
-    (dtype name, head dim), from this process's build log."""
+def kernel_ptxas(build_log: str, kernel: str) -> dict:
+    """``ptxas`` lines (registers, shared memory, spills) of each template
+    instance of ``kernel`` in this process's build log, keyed by mangled
+    name (``kernel`` is matched whole: its length prefix and template
+    arguments around it)."""
     out: dict = {}
     key = None
     for line in build_log.splitlines():
-        m = re.search(r"entry function '(\S*flash_attention_kernel\S*)'", line)
+        m = re.search(r"entry function '(\S*)'", line)
         if m:
-            name = m.group(1)
-            dims = re.search(r"Li(\d+)ELi(\d+)ELi(\d+)E", name)
-            dtype = "bfloat16" if "bfloat16" in name else "float32"
-            key = (dtype, int(dims.group(1))) if dims else None
+            key = m.group(1) if re.search(rf"\d{kernel}[IE]", m.group(1)) else None
             if key:
                 out[key] = []
-            continue
-        if "entry function" in line:
-            key = None
         elif key and ("Used" in line or "spill" in line):
             out[key].append(line.strip().removeprefix("ptxas info    : "))
+    return out
+
+
+def flash_ptxas(build_log: str) -> dict:
+    """``ptxas`` lines of each flash-attention kernel instance, keyed by
+    (dtype name, head dim): bfloat16 the tensor-core kernel (its softcap
+    and plain instances), float32 the CUDA-core one."""
+    out: dict = {}
+    for dtype, kernel in (("bfloat16", "flash_attention_tc_kernel"),
+                          ("float32", "flash_attention_kernel")):
+        for name, lines in kernel_ptxas(build_log, kernel).items():
+            key = (dtype, int(re.search(r"Li(\d+)E", name).group(1)))
+            cap = "" if dtype == "float32" else ("softcap: " if "Lb1E" in name else "no softcap: ")
+            out.setdefault(key, []).extend(cap + line for line in lines)
+    return out
+
+
+def ce_ptxas(build_log: str) -> dict:
+    """``ptxas`` lines of each cross-entropy kernel instance, keyed by the
+    operand types."""
+    out: dict = {}
+    for name, lines in kernel_ptxas(build_log, "crossentropy_tc_kernel").items():
+        out[f"bfloat16 x, K-major bf16 W, {'softcap' if 'ILb1E' in name else 'no softcap'}"] = lines
+    for name, lines in kernel_ptxas(build_log, "crossentropy_kernel").items():
+        out[f"float32 x, {'bfloat16' if 'bfloat16' in name else 'float32'} W"] = lines
+    return out
+
+
+def cuobjdump() -> "str | None":
+    """``cuobjdump`` from the CUDA toolkit, else the copy Triton ships, else
+    None."""
+    import importlib.util
+    import shutil
+
+    cands = [os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump"),
+             shutil.which("cuobjdump")]
+    spec = importlib.util.find_spec("triton")
+    if spec and spec.origin:
+        cands.append(os.path.join(os.path.dirname(spec.origin), "backends", "nvidia", "bin",
+                                  "cuobjdump"))
+    return next((c for c in cands if c and os.path.exists(c)), None)
+
+
+def tensor_core_sass(kernels=("flash_attention_tc_kernel", "crossentropy_tc_kernel")) -> dict:
+    """Tensor-core instructions (``HMMA``, ``HGMMA``) in the SASS of each
+    instance of ``kernels`` in the built library, by mangled name, from
+    ``cuobjdump -sass``; ``{"not available": reason}`` without the tool."""
+    from repro_torch.kernels import _build
+
+    tool = cuobjdump()
+    if tool is None:
+        return {"not available": "no cuobjdump in the CUDA toolkit or Triton's package"}
+    sass = subprocess.run([tool, "-sass", str(_build.library_path())], capture_output=True,
+                          text=True)
+    if sass.returncode:
+        return {"not available": f"cuobjdump exited {sass.returncode}: {sass.stderr[-200:]}"}
+    out: dict = {}
+    name = None
+    for line in sass.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = (m.group(1) if any(re.search(rf"\d{k}[IE]", m.group(1)) for k in kernels)
+                    else None)
+            if name:
+                out[name] = 0
+        elif name and re.search(r"\bH(G)?MMA\b", line):
+            out[name] += 1
     return out
 
 
@@ -944,20 +1028,23 @@ def check_flash(gen, label, B, Hq, Hkv, Sq, Skv, D, dtype, kw, model_layout, rep
     build = ptxas.get((dname, D), ["not in this process's build log"])
     from repro_torch.kernels import _build
 
-    smem = _build.load().flash_attention_smem_bytes(D)  # dynamic: ptxas does not see it
+    # dynamic: ptxas does not see it
+    smem = _build.load().flash_attention_smem_bytes(D, int(dtype == torch.bfloat16))
     row = {
         "label": label, "B": B, "Hq": Hq, "Hkv": Hkv, "Sq": Sq, "Skv": Skv, "D": D,
         "dtype": dname, "layout": "bshd" if model_layout else "bhsd", "qk_scale": qk_scale,
         **{k_: v_ for k_, v_ in kw.items()}, "max_abs_err": err, "ref_rms": ref_rms, "tol": tol, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "library_max_abs_err": library_err,
         "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
-        "tflops": flops / (ms * 1e9), "ptxas": build, "dynamic_smem_bytes": smem,
+        "tflops": flops / (ms * 1e9), "share_of_bound": bound_ms / ms, "ptxas": build,
+        "dynamic_smem_bytes": smem,
     }
     lib = (f"{library_ms:.4f} ms (max_abs_err {library_err:.3e})" if library_ms is not None
            else "none")
     print(f"  flash {label:<26} B={B} H={Hq}/{Hkv} S={Sq}/{Skv} D={D} {dname} {kw} "
-          f"max_abs_err={err:.3e} rms(ref)={ref_rms:.3e} kernel={ms:.4f} ms ({row['tflops']:.2f} TFLOP/s) "
-          f"plain={plain_ms:.4f} ms sdpa={lib} bound={bound_ms:.4f} ms ({bound_by})")
+          f"max_abs_err={err:.3e} rms(ref)={ref_rms:.3e} kernel={ms:.4f} ms ({row['tflops']:.2f} TFLOP/s, "
+          f"{row['share_of_bound']:.1%} of the bound) plain={plain_ms:.4f} ms sdpa={lib} "
+          f"bound={bound_ms:.4f} ms ({bound_by})")
     print(f"    ptxas ({dname}, D={D}): {'; '.join(build)}; {smem} bytes of dynamic "
           f"shared memory a block")
     return row
@@ -965,7 +1052,10 @@ def check_flash(gen, label, B, Hq, Hkv, Sq, Skv, D, dtype, kw, model_layout, rep
 
 def phase_flash(build_log: str) -> list[dict]:
     """Phase 9: the flash-attention kernel against its plain version."""
-    print("phase 9: flash_attention kernel vs plain PyTorch version")
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+
+    print(f"phase 9: flash_attention kernels vs plain PyTorch version; "
+          f"{nvidia_smi('name,power.limit')}")
     gen = torch.Generator(device="cuda").manual_seed(9)
     ptxas = flash_ptxas(build_log)
     rows = []
@@ -984,6 +1074,21 @@ def phase_flash(build_log: str) -> list[dict]:
                                 {"softcap": cap}, False, 20, ptxas, qk_scale=3.0))
     rows.append(check_flash(gen, "non-causal", 1, 2, 2, 48, 48, 16, f32, {"causal": False},
                             False, 20, ptxas))
+    # the same cases in bfloat16, the tensor-core kernel (q / k at 3, so the
+    # outputs are of order 1 against the bfloat16 tolerance), and every head
+    # width it is built for at a served group's odd length with eight query
+    # heads a kv head, in the model's layout
+    for window in (8, 32, 100):
+        rows.append(check_flash(gen, f"window {window}", 1, 2, 2, 64, 64, 16, bf16,
+                                {"window": window}, False, 20, ptxas, qk_scale=3.0))
+    for cap in (10.0, 50.0):
+        rows.append(check_flash(gen, f"softcap {cap:g}", 1, 2, 2, 64, 64, 16, bf16,
+                                {"softcap": cap}, False, 20, ptxas, qk_scale=3.0))
+    rows.append(check_flash(gen, "non-causal", 1, 2, 2, 48, 48, 16, bf16, {"causal": False},
+                            False, 20, ptxas, qk_scale=3.0))
+    for D in HEAD_DIMS:
+        rows.append(check_flash(gen, f"head width {D}", 1, 8, 1, 1895, 1895, D, bf16, {}, True, 5,
+                                ptxas, qk_scale=3.0))
     # the model's layout, and q / k at 3 so the outputs are of order 1 (at 1
     # they would be no larger than the tolerance) and softcap 50 bends the
     # scores at D = 256
@@ -1437,11 +1542,24 @@ def check_ce(gen, label, T, D, V, x_dtype, w_dtype, softcap, tied, reps, bad_lab
     nll, lse = crossentropy_forward(x, w, labels, softcap)
     ref_nll, ref_lse = crossentropy_lse_ref(x, w, labels, softcap)
     torch.cuda.synchronize()
-    torch.testing.assert_close(nll, ref_nll, atol=CE_ATOL, rtol=CE_RTOL, msg=label)
-    torch.testing.assert_close(lse, ref_lse, atol=CE_ATOL, rtol=CE_RTOL, msg=label)
-    err = max(float((nll - ref_nll).abs().max()), float((lse - ref_lse).abs().max()))
+    dist = lambda a, b: max(float((a[0].double() - b[0].double()).abs().max()),  # noqa: E731
+                            float((a[1].double() - b[1].double()).abs().max()))
+    plain_err = None
+    if x_dtype == torch.bfloat16:
+        # the tensor-core kernel sums exact bf16 products in another order
+        # than the float32 plain version: both are held to the truth, the
+        # plain version in float64 on the same bf16-rounded operands
+        want = crossentropy_lse_ref(x, w, labels, softcap, compute_dtype=torch.float64)
+        plain_err = dist((ref_nll, ref_lse), want)
+    else:
+        want = (ref_nll, ref_lse)
+    for got, exp in zip((nll, lse), want):
+        torch.testing.assert_close(got.double(), exp.double(), atol=CE_ATOL, rtol=CE_RTOL,
+                                   msg=label)
+    err = dist((nll, lse), want)
+    err_f32 = dist((nll, lse), (ref_nll, ref_lse))
     ref_rms = float(ref_nll.pow(2).mean().sqrt())
-    del nll, lse, ref_nll, ref_lse
+    del nll, lse, ref_nll, ref_lse, want
     big = T * V >= 1 << 28
     ms = time_ms(lambda: crossentropy_forward(x, w, labels, softcap), reps, 1 if big else 3)
     plain_ms = time_ms(lambda: crossentropy_lse_ref(x, w, labels, softcap), max(1, reps // 2),
@@ -1457,14 +1575,20 @@ def check_ce(gen, label, T, D, V, x_dtype, w_dtype, softcap, tied, reps, bad_lab
     name = lambda d: "bfloat16" if d == torch.bfloat16 else "float32"  # noqa: E731
     row = {"label": label, "T": T, "D": D, "V": V, "x_dtype": name(x_dtype),
            "w_dtype": name(w_dtype), "softcap": softcap, "tied": tied, "max_abs_err": err,
+           "held_to": "float64 plain" if plain_err is not None else "float32 plain",
+           "max_abs_err_vs_float32_plain": err_f32, "float32_plain_max_abs_err": plain_err,
            "ref_rms": ref_rms, "atol": CE_ATOL, "rtol": CE_RTOL, "ms": ms, "plain_ms": plain_ms,
            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
-           "tflops": flops / (ms * 1e9)}
+           "tflops": flops / (ms * 1e9), "share_of_bound": bound_ms / ms}
     lib = f"{library_ms:.4f} ms" if library_ms is not None else "none (softcap)"
+    yard = (f"max_abs_err={err:.3e} vs float64 (float32 plain's own {plain_err:.3e}; "
+            f"kernel vs float32 plain {err_f32:.3e})" if plain_err is not None
+            else f"max_abs_err={err:.3e}")
     print(f"  crossentropy {label:<22} T={T} D={D} V={V} x {name(x_dtype)} W {name(w_dtype)}"
-          f"{' tied' if tied else ''} softcap={softcap:g} max_abs_err={err:.3e} "
-          f"rms(ref)={ref_rms:.3f} kernel={ms:.4f} ms ({row['tflops']:.2f} TFLOP/s) "
-          f"plain={plain_ms:.4f} ms library={lib} bound={bound_ms:.4f} ms ({bound_by})")
+          f"{' tied' if tied else ''} softcap={softcap:g} {yard} "
+          f"rms(ref)={ref_rms:.3f} kernel={ms:.4f} ms ({row['tflops']:.2f} TFLOP/s, "
+          f"{row['share_of_bound']:.1%} of the bound) plain={plain_ms:.4f} ms library={lib} "
+          f"bound={bound_ms:.4f} ms ({bound_by})")
     return row
 
 
@@ -1506,8 +1630,12 @@ def check_ce_grad(gen, label, T, D, V, x_dtype, softcap) -> dict:
 def phase_crossentropy() -> tuple[list[dict], list[dict]]:
     """Phase 12: the cross-entropy kernel against its plain version, and the
     Function's gradients against autograd through the plain version."""
-    print(f"phase 12: crossentropy kernel vs plain PyTorch version; "
+    print(f"phase 12: crossentropy kernels vs plain PyTorch version; "
           f"{nvidia_smi('name,power.limit')}")
+    from repro_torch.kernels import _build
+
+    for key, lines in ce_ptxas(_build.build_log()).items():
+        print(f"  ptxas crossentropy ({key}): {'; '.join(lines)}")
     gen = torch.Generator(device="cuda").manual_seed(12)
     f32, bf16 = torch.float32, torch.bfloat16
     rows = []
@@ -1518,6 +1646,10 @@ def phase_crossentropy() -> tuple[list[dict], list[dict]]:
             rows.append(check_ce(gen, "ragged", 1000, 48, 1000, x_dtype, f32, cap, False, 20,
                                  bad_label=True))
     rows.append(check_ce(gen, "ragged, tied bf16 W", 1000, 48, 1000, bf16, bf16, 30.0, True, 20))
+    rows.append(check_ce(gen, "ragged, tied f32 W", 1000, 48, 1000, bf16, f32, 30.0, True, 20,
+                         bad_label=True))
+    rows.append(check_ce(gen, "ragged, untied bf16 W", 1000, 48, 1000, bf16, bf16, 0.0, False, 20,
+                         bad_label=True))
     rows.append(check_ce(gen, "tinyllama training", 16384, 2048, 32000, bf16, f32, 0.0, False, 5))
     rows.append(check_ce(gen, "gemma2 training", 8192, 3584, 256000, bf16, f32, 30.0, True, 2))
     grads = [check_ce_grad(gen, "ragged", 1000, 48, 1000, f32, 0.0),
@@ -2501,6 +2633,32 @@ def phase_serve_xlstm(slstm_rows) -> dict:
     return result
 
 
+def descent_on_one_batch(cfg, B: int, S: int, steps: int) -> dict:
+    """From the initial weights, ``steps`` train steps (AdamW at the
+    launcher's lr, built as ``launch.train`` builds them) on one batch of
+    B x S tokens; asserts that the batch's loss at the trained weights is
+    below its loss at the initial ones."""
+    from repro_torch.models import init_model_params, loss_fn
+    from repro_torch.train import SyntheticLM, TrainConfig, make_train_step
+    from repro_torch.train.train_loop import make_optimizer_for
+
+    model = init_model_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    batch = SyntheticLM(cfg, B, S, device="cuda").batch_at(0)
+    opt = make_optimizer_for(cfg, TrainConfig(lr=3e-4, warmup_steps=1, total_steps=steps))
+    state = opt.init(dict(model.named_parameters()))
+    step = make_train_step(cfg, opt)
+    losses = [float(step(model, state, i, batch)[2]["loss"]) for i in range(steps)]
+    with torch.no_grad():
+        losses.append(float(loss_fn(model, batch)[0]))
+    del model, state, batch
+    torch.cuda.empty_cache()
+    assert all(math.isfinite(l) for l in losses) and losses[-1] < losses[0], losses
+    print(f"  one batch of {B} x {S} tokens, {steps} AdamW steps on it at lr 3e-4: loss "
+          f"{losses[0]:.6f} -> {losses[-1]:.6f} ({losses[-1] - losses[0]:+.6f}); each step: "
+          + " ".join(f"{l:.4f}" for l in losses))
+    return {"B": B, "S": S, "steps": steps, "losses": losses}
+
+
 def phase_train_xlstm(slstm_rows) -> dict:
     """Phase 23: train xlstm-1.3b at full size through the launcher."""
     from repro_torch import configs
@@ -2516,16 +2674,17 @@ def phase_train_xlstm(slstm_rows) -> dict:
     argv = ["--arch", "xlstm-1.3b", "--steps", str(steps), "--batch", str(B), "--seq", str(S)]
     result, train = run_training("launch.train.main", cfg, lambda: launch_train.main(argv),
                                  B * S, falling=False)
-    # each step's loss is on a new batch: hold the first batch's loss at the
-    # trained weights to its loss at the initial ones (step 0's loss)
+    # each step's loss is on a new batch: the first batch's loss at the
+    # trained weights beside its loss at the initial ones (step 0's loss), a
+    # record only (see XLSTM_DESCENT_SEQ); the descent is checked below
     batch = SyntheticLM(cfg, B, S, device="cuda").batch_at(0)
     with torch.no_grad():
         trained = float(loss_fn(result["model"], batch)[0])
     initial = train["losses"][0]
-    assert math.isfinite(trained) and trained < initial, (initial, trained)
+    assert math.isfinite(trained), (initial, trained)
     train["batch0_loss"] = {"initial": initial, "trained": trained}
     print(f"  the first batch's loss: {initial:.6f} at the initial weights, {trained:.6f} after "
-          f"{steps} steps")
+          f"{steps} steps ({trained - initial:+.6f})")
     del result
     torch.cuda.empty_cache()
     model = init_model_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
@@ -2533,6 +2692,7 @@ def phase_train_xlstm(slstm_rows) -> dict:
     train["trace"] = trace_train_step(cfg, model, batch, "train_trace_xlstm")
     del model, batch
     torch.cuda.empty_cache()
+    train["descent"] = descent_on_one_batch(cfg, B, XLSTM_DESCENT_SEQ, XLSTM_DESCENT_STEPS)
     # the kernels' share: the sLSTM forward at the step's shape x its
     # launches, its written-out backward once per sLSTM block (CUDA events)
     slstm_ms = next(r["ms"] for r in slstm_rows if r["label"] == "xlstm-1.3b prefill / training")
@@ -2578,6 +2738,12 @@ def main() -> int:
     for line in _build.build_log().splitlines():
         if "ptxas" in line:
             print(f"  {line.strip()}")
+    sass = tensor_core_sass()
+    print("  tensor-core instructions (HMMA / HGMMA) in the SASS of the bf16 kernels:")
+    for name, count in sass.items():
+        print(f"    {name}: {count}")
+    if "not available" not in sass:
+        assert sass and all(n > 0 for n in sass.values()), sass
 
     kernel_rows = phase_kernels(sm_clock_hz)
     optimize, optimize_rows = phase_optimize(sm_clock_hz)
@@ -2664,6 +2830,8 @@ def main() -> int:
         "launches_train_zamba2": train_zamba2["launches"]["flash_attention"],
         "launches_tune_hybrid": tune_hybrid["launches"]["flash_attention"],
         "launches_tune_xlstm": tune_xlstm["launches"]["flash_attention"],
+        "tensor_core_sass": {k: n for k, n in sass.items()
+                             if "flash" in k or k == "not available"},
         "shapes": flash_rows,
         "gradient_checks": flash_grads,
     })
@@ -2690,6 +2858,9 @@ def main() -> int:
         "bound_ms": ce_main["bound_ms"],
         "bound_by": ce_main["bound_by"],
         "library_ms": ce_main["library_ms"],
+        "ptxas": ce_ptxas(_build.build_log()),
+        "tensor_core_sass": {k: n for k, n in sass.items()
+                             if "crossentropy" in k or k == "not available"},
         "shapes": ce_rows,
         "gradient_checks": ce_grads,
     })

@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` source is compiled by its own ``nvcc`` for ``sm_90a``,
+Every ``csrc/*.cu`` source is compiled by its own ``nvcc`` for ``sm_90a``
+(the ``csrc/*.cuh`` headers they include are hashed with them),
 all of them at once, and the objects are linked into one shared library with
 a plain C interface, at first use, and loaded with ``ctypes``.  The library
 lands in ``build/repro_torch/`` at the root of the checkout (git-ignored),
@@ -21,7 +22,7 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["load", "build_seconds", "build_log", "NVCC_FLAGS"]
+__all__ = ["load", "build_seconds", "build_log", "library_path", "NVCC_FLAGS"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -46,11 +47,11 @@ _SIGNATURES = {
     "flash_attention_launch": (
         _I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I, _F, _I, _I, _F, _P],
     ),
-    "flash_attention_smem_bytes": (_I, [_I]),
+    "flash_attention_smem_bytes": (_I, [_I, _I]),
     "crossentropy_launch": (
         _I, [_P, _I, _L, _L, _P, _I, _L, _L, _P, _I, _I, _I, _I, _F, _P, _P, _P, _P],
     ),
-    "crossentropy_splits": (_I, [_I, _I]),
+    "crossentropy_splits": (_I, [_I, _I, _I]),
     "ssd_launch": (
         _I, [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
              _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _P],
@@ -115,6 +116,11 @@ def _compile(sources: list[Path], target: Path) -> None:
     os.replace(tmp, target)  # atomic: a concurrent process never loads half a file
 
 
+def library_path() -> Path:
+    """Where the shared library of the current sources is (or will be) built."""
+    return BUILD_DIR / f"libkernels-{_digest()}.so"
+
+
 def load() -> ctypes.CDLL:
     """The kernels' shared library, built on first use."""
     global _lib, _build_seconds
@@ -124,7 +130,7 @@ def load() -> ctypes.CDLL:
         if _lib is None:
             t0 = time.perf_counter()
             sources = _sources()
-            target = BUILD_DIR / f"libkernels-{_digest()}.so"
+            target = library_path()
             if not target.exists():
                 _compile(sources, target)
             lib = ctypes.CDLL(str(target))

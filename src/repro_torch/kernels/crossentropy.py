@@ -1,12 +1,27 @@
 """Fused cross-entropy: per-token ``logsumexp(x W) - (x W)[label]`` without
 writing the ``[T, V]`` logits to device memory.
 
-Wrapper around the hand-written CUDA kernel in ``csrc/crossentropy.cu``,
-which replaces the reference package's Pallas kernel
+Wrapper around the hand-written CUDA kernels in ``csrc/crossentropy.cu``,
+which replace the reference package's Pallas kernel
 (``repro/kernels/crossentropy.py::crossentropy_kernel``): blocks of 128 token
 rows loop over the vocabulary tiles with an online logsumexp, the product
-computed inside the kernel; the source states its design and its bound on
-the card.
+computed inside the kernel; the source states the designs and their bound
+on the card.
+
+``x``'s dtype picks the kernel, a fixed rule and not a fallback:
+
+* **bfloat16** ``x`` (the model's compute type in training and tuning)
+  always launches the tensor-core kernel (``mma.sync`` on bf16 tiles staged
+  by ``cp.async``, float32 accumulators).  Its ``W`` operand is bfloat16 and
+  K-major: the wrapper casts ``W`` once a call, the reference's own
+  ``w_out.astype(x.dtype)`` (:func:`tensor_core_weight`: the tied head's
+  transposed view keeps its strides, an untied ``[D, V]`` head is
+  transposed as it is cast; 125 MiB at tinyllama-1.1b's head, 1.75 GiB at
+  gemma2-9b's).  ``x``'s rows must be 16-byte aligned (row stride a multiple
+  of 8 elements), else the call raises;
+* **float32** ``x`` launches the CUDA-core kernel, which reads a float32 or
+  bfloat16 ``W`` in place through its strides, float32 products throughout,
+  which the float32 parity checks rely on.
 
 :func:`fused_crossentropy` is differentiable in ``x`` and ``W``
 (:class:`CrossEntropyFunction`).  Its forward is the kernel; the reference's
@@ -16,9 +31,9 @@ ops (:func:`crossentropy_backward`), over chunks of rows, with the large
 products through ``torch.matmul``.
 
 CPU tensors take the plain PyTorch version (``kernels/ref.py``); CUDA
-tensors launch the kernel or raise.  Every launch adds one to a thread-safe
-counter (:func:`launches`), so a run can show that its main path went
-through the kernel.
+tensors launch ``x``'s dtype's kernel or raise.  Every launch adds one to a
+thread-safe counter (:func:`launches`), so a run can show that its main path
+went through the kernel.
 """
 
 from __future__ import annotations
@@ -34,6 +49,7 @@ __all__ = [
     "fused_crossentropy",
     "crossentropy_forward",
     "crossentropy_backward",
+    "tensor_core_weight",
     "CrossEntropyFunction",
     "launches",
     "reset_launches",
@@ -90,19 +106,48 @@ def _check(x, w, labels) -> None:
         raise ValueError(f"fused_crossentropy runs on CPU or CUDA tensors, got {x.device}")
 
 
+def tensor_core_weight(w: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """``(wb, ld)``: ``w`` [D, V] as the tensor-core kernel reads it,
+    bfloat16 and K-major (element ``(d, v)`` at ``v * ld + d``).
+
+    The values are ``w.to(torch.bfloat16)``, the reference's
+    ``w_out.astype(x.dtype)``.  The tied head, a transposed view of a
+    ``[V, D]`` embedding, is already K-major: a cast keeps its strides, and a
+    bfloat16 embedding is read in place.  An untied ``[D, V]`` head is
+    transposed as it is cast, into ``[V, D]`` rows (the kernel has one
+    operand layout; its N-major reads ran slower on the H100).  Rows that
+    would not be 16 bytes apart (``ld`` not a multiple of 8) or unaligned
+    storage are copied into rows padded to a multiple of 8 elements."""
+    D, V = w.shape
+    wb = w.to(torch.bfloat16)
+    if (wb.stride(0) == 1 and wb.stride(1) % 8 == 0 and wb.stride(1) >= D
+            and wb.data_ptr() % 16 == 0):
+        return wb, wb.stride(1)
+    buf = torch.empty(V, -(-D // 8) * 8, dtype=torch.bfloat16, device=w.device)
+    buf[:, :D] = wb.T
+    return buf[:, :D].T, buf.stride(0)
+
+
 def crossentropy_forward(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
                          softcap: float = 0.0) -> tuple[torch.Tensor, torch.Tensor]:
-    """``(nll [T], lse [T])`` in float32, no gradient: the kernel on CUDA
-    tensors, the plain version on CPU ones."""
+    """``(nll [T], lse [T])`` in float32, no gradient: ``x``'s dtype's kernel
+    on CUDA tensors, the plain version on CPU ones."""
     _check(x, w, labels)
     if x.device.type == "cpu":
         return crossentropy_lse_ref(x, w, labels, softcap)
     T, D = x.shape
     V = w.shape[1]
+    w_sd, w_sv = w.stride()
+    if x.dtype == torch.bfloat16:
+        if x.stride(1) != 1 or (T > 1 and x.stride(0) % 8) or x.data_ptr() % 16:
+            raise ValueError(f"x's rows must be contiguous, 16-byte aligned and a multiple of "
+                             f"8 elements apart for the bfloat16 kernel, got strides {x.stride()}")
+        w, ld = tensor_core_weight(w)
+        w_sd, w_sv = 1, ld
     from ._build import load
 
     lib = load()
-    nsplit = lib.crossentropy_splits(T, V)
+    nsplit = lib.crossentropy_splits(T, V, _DTYPE_CODES[x.dtype])
     part = torch.empty(3 * nsplit * T, dtype=torch.float32, device=x.device)
     nll = torch.empty(T, dtype=torch.float32, device=x.device)
     lse = torch.empty(T, dtype=torch.float32, device=x.device)
@@ -110,7 +155,7 @@ def crossentropy_forward(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.crossentropy_launch(
             x.data_ptr(), _DTYPE_CODES[x.dtype], x.stride(0), x.stride(1),
-            w.data_ptr(), _DTYPE_CODES[w.dtype], w.stride(0), w.stride(1),
+            w.data_ptr(), _DTYPE_CODES[w.dtype], w_sd, w_sv,
             labels.data_ptr(), int(labels.dtype == torch.int64), T, D, V, float(softcap),
             part.data_ptr(), nll.data_ptr(), lse.data_ptr(), stream,
         )
@@ -194,7 +239,7 @@ def fused_crossentropy(
     ``x`` and ``w``.
 
     ``x`` and ``w`` are float32 or bfloat16 on one device; ``w`` is rounded
-    to ``x``'s dtype as it is read, and the logits ``x . w`` are float32, then
+    to ``x``'s dtype, and the logits ``x . w`` are float32, then
     ``softcap * tanh(z / softcap)`` when ``softcap`` is nonzero.  A label
     outside ``[0, V)`` contributes no label logit."""
     _check(x, w, labels)

@@ -1,13 +1,26 @@
 """Flash attention forward: online-softmax attention with GQA, a causal mask,
 a sliding window and a logit softcap.
 
-Wrapper around the hand-written CUDA kernel in ``csrc/flash_attention.cu``,
-which replaces the reference package's Pallas kernel
+Wrapper around the hand-written CUDA kernels in ``csrc/flash_attention.cu``,
+which replace the reference package's Pallas kernel
 (``repro/kernels/flash_attention.py::flash_attention_kernel``).  One block of
-the kernel owns one (batch, head, query block) and loops over the key/value
+a kernel owns one (batch, head, query block) and loops over the key/value
 tiles itself with the running ``(m, l, acc)`` in registers, so the
-``[Sq, Skv]`` score matrix never exists; the source states its design and its
-bound on the card.
+``[Sq, Skv]`` score matrix never exists; the source states the designs and
+their bound on the card.
+
+The inputs' dtype picks the kernel, a fixed rule and not a fallback:
+
+* **bfloat16** (the model's compute type in training, serving and tuning)
+  always launches the tensor-core kernel: bf16 tiles staged by ``cp.async``,
+  ``mma.sync`` products accumulated in float32, the probabilities split into
+  two bf16 terms for ``P V`` so that they keep float32-grade precision, as
+  the plain version's.
+  Its copies need 16-byte aligned rows: every (batch, position, head) stride
+  a multiple of 8 elements and 16-byte aligned storage, else the call raises
+  (the model's ``[B, S, H, D]`` projections and caches meet it);
+* **float32** launches the CUDA-core kernel, float32 products throughout,
+  which the float32 parity checks rely on.
 
 :class:`FlashAttentionFunction` makes it differentiable for training.  Its
 forward is the kernel; the reference's Pallas kernel has no backward and the
@@ -24,9 +37,9 @@ element strides, so the model passes its ``[B, S, H, D]`` tensors as
 transposed views and no copy is made.
 
 CPU tensors take the plain PyTorch version (``kernels/ref.py``); CUDA
-tensors launch the kernel or raise.  Every launch adds one to a thread-safe
-counter (:func:`launches`), so a run can show that its main path went
-through the kernel.
+tensors launch their dtype's kernel or raise.  Every launch adds one to a
+thread-safe counter (:func:`launches`), so a run can show that its main path
+went through the kernel.
 """
 
 from __future__ import annotations
@@ -104,6 +117,13 @@ def _check(q, k, v, causal, window, q_offset, kv_len) -> int:
         raise ValueError(f"causal query at position {last} has no key below kv_len={kv_len}")
     if window > 0 and not causal and last - window + 1 >= kv_len:
         raise ValueError(f"query at position {last} has no key in its window below kv_len={kv_len}")
+    if q.dtype == torch.bfloat16 and q.device.type == "cuda":
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            strides = [s for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1]
+            if t.data_ptr() % 16 or any(s % 8 for s in strides):
+                raise ValueError(f"{name}'s storage must be 16-byte aligned and its batch, head "
+                                 f"and position strides multiples of 8 for the bfloat16 kernel, "
+                                 f"got strides {t.stride()}")
     return kv_len
 
 
@@ -127,7 +147,9 @@ def flash_attention(
     then ``softcap * tanh(s / softcap)`` when ``softcap`` is nonzero; keys at
     ``>= kv_len`` (default ``Skv``), above the query's position when
     ``causal``, or ``window`` or more positions below it are masked at
-    ``-1e30``.  Every query row must have a key it may attend to."""
+    ``-1e30``.  Every query row must have a key it may attend to.  On the
+    card bfloat16 inputs run on the tensor cores and need 16-byte aligned
+    rows (module docstring); float32 inputs run on the CUDA cores."""
     kv_len = _check(q, k, v, causal, window, q_offset, kv_len)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window, softcap=softcap,

@@ -120,20 +120,23 @@ def crossentropy_lse_ref(
     w: torch.Tensor,  # [D, V]
     labels: torch.Tensor,  # [T] int32 / int64
     softcap: float = 0.0,
+    compute_dtype: torch.dtype = torch.float32,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``(nll [T], lse [T])`` in float32 (oracle for the fused cross-entropy
     kernel): ``W`` rounded to ``x``'s dtype, the float32 product, the softcap,
     ``torch.logsumexp`` over the vocabulary and the label logit; a label
     outside ``[0, V)`` contributes no label logit.  Rows go in chunks so the
     float32 logits stay near ``_CE_LOGIT_ELEMS`` elements; autograd runs
-    through it."""
+    through it.  ``compute_dtype=torch.float64`` computes the same from the
+    same rounded operands in float64 (and returns float64): the truth the
+    kernel and the float32 version are both measured against."""
     T = x.shape[0]
     V = w.shape[1]
-    w32 = w.to(x.dtype).to(torch.float32)
+    wc = w.to(x.dtype).to(compute_dtype)
     chunk = max(1, _CE_LOGIT_ELEMS // max(1, V))
     nll, lse = [], []
     for start in range(0, T, chunk):
-        logits = x[start:start + chunk].to(torch.float32) @ w32
+        logits = x[start:start + chunk].to(compute_dtype) @ wc
         if softcap:
             logits = softcap * torch.tanh(logits / softcap)
         lab = labels[start:start + chunk].long()

@@ -186,10 +186,11 @@ def cross_entropy_chunked(
     ``jax.checkpoint``, so that its peak memory is O(B * chunk * V); the fused
     cross-entropy kernel never writes the logits, so here all B * S rows go
     through it at once and ``chunk`` keeps only the reference's ``S % chunk``
-    contract.  ``w_out`` is read in place (the tied head is a transposed view)
-    and rounded to ``x``'s dtype as the kernel loads it, as the reference's
-    ``w_out.astype(x.dtype)`` rounds it.  ``engine="torch"`` runs autograd
-    through the plain version instead."""
+    contract.  ``w_out`` (the tied head a transposed view) is rounded to
+    ``x``'s dtype, as the reference's ``w_out.astype(x.dtype)`` rounds it: a
+    bfloat16 ``x``'s tensor-core kernel reads one bf16 cast of it a call in
+    the same layout, a float32 ``x``'s kernel reads it in place.
+    ``engine="torch"`` runs autograd through the plain version instead."""
     check_engine(engine, x.device)
     B, S, D = x.shape
     chunk = min(chunk, S)

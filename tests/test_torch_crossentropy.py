@@ -16,7 +16,12 @@ numpy-seeded inputs go through it and through the reference:
   float32, softcap included, through a tied (transposed) head: atol 1e-6,
   rtol 1e-4 (each entry is a float32 sum over at most 64 rows or columns of
   terms below 1, summed in another order);
-* the wrapper refuses what the kernel does not take.
+* the wrapper refuses what the kernel does not take;
+* the bfloat16 W operand the tensor-core kernel reads
+  (``tensor_core_weight``, plain torch, so it runs here): K-major, the cast
+  keeping the tied head's transposed strides and transposing an untied
+  head, rows that are not 16 bytes apart padded, the values those of
+  ``w.to(torch.bfloat16)``.
 """
 
 import jax
@@ -219,3 +224,36 @@ def test_written_out_backwards_run_float32_products_without_tf32(backward, allow
         assert torch.backends.cuda.matmul.allow_tf32 is allow_tf32
     finally:
         torch.backends.cuda.matmul.allow_tf32 = before
+
+
+@pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
+def test_tensor_core_weight_keeps_the_tied_heads_transposed_strides(w_dtype):
+    """The tied head, a transposed view of a [V, D] embedding, stays a
+    K-major view after the cast: strides (1, D), no transposed copy."""
+    emb = torch.from_numpy(np.random.RandomState(0).randn(40, 24).astype(np.float32)).to(w_dtype)
+    wb, ld = ce.tensor_core_weight(emb.T)
+    assert wb.dtype == torch.bfloat16 and wb.shape == (24, 40)
+    assert ld == 24 and wb.stride() == (1, 24)
+    assert torch.equal(wb, emb.T.to(torch.bfloat16))
+    if w_dtype == torch.bfloat16:
+        assert wb.data_ptr() == emb.data_ptr()  # read in place
+
+
+def test_tensor_core_weight_transposes_an_untied_head():
+    """An untied [D, V] head is cast into K-major [V, D] rows."""
+    w = torch.from_numpy(np.random.RandomState(1).randn(24, 64).astype(np.float32))
+    wb, ld = ce.tensor_core_weight(w)
+    assert ld == 24 and wb.stride() == (1, 24)
+    assert torch.equal(wb, w.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("tied", [False, True])
+def test_tensor_core_weight_pads_rows_that_are_not_16_bytes_apart(tied):
+    """D = 20 bf16 elements a row are not a multiple of 16 bytes: the values
+    are copied once into K-major rows padded to 24 elements."""
+    rng = np.random.RandomState(2)
+    w = (torch.from_numpy(rng.randn(50, 20).astype(np.float32)).T if tied
+         else torch.from_numpy(rng.randn(20, 50).astype(np.float32)))
+    wb, ld = ce.tensor_core_weight(w)
+    assert ld == 24 and wb.stride() == (1, 24)
+    assert torch.equal(wb, w.to(torch.bfloat16))

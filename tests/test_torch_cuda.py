@@ -12,11 +12,15 @@ sums its online logsumexp in another order than ``torch.logsumexp``.  The
 Monte-Carlo hypervolume counts are integers and are held exactly.
 Flash attention is held to its plain version within the reference's kernel
 tolerances (``tests/test_kernels.py``): 1e-4 in float32 and 2e-2 in
-bfloat16, where the kernel's float32 sums run in another order and the
-output is rounded once to bfloat16.  The fused cross-entropy is held to its
-plain version within atol 1e-4 / rtol 1e-5 (float32 sums and an online
-logsumexp in another order, on NLLs of order 10), and both written-out
-backwards to autograd through the plain versions.  The SSD scan is held to
+bfloat16, where the kernel's float32 sums run in another order, the
+bfloat16 kernel carries the probabilities as two bfloat16 terms into ``P V``
+and the output is rounded once to bfloat16.  The fused cross-entropy is held
+to its plain version within atol 1e-4 / rtol 1e-5 (float32 sums and an
+online logsumexp in another order, on NLLs of order 10); the bfloat16
+tensor-core kernel also to the plain version run in float64 on the same
+bf16-rounded operands, at the same tolerance.  Both bfloat16 kernels give
+bit-identical outputs on repeated launches.  Both written-out backwards are
+held to autograd through the plain versions.  The SSD scan is held to
 its plain version within the reference's kernel tolerance, atol 2e-3
 (float32 sums in another order and another chunk length: the kernel cuts
 ``min(chunk, S)``-step chunks with a ragged last one, the plain version
@@ -332,6 +336,61 @@ def test_flash_attention_cuda_tensor_of_the_wrong_kind_raises(cuda_device):
     assert fa.launches() == before
 
 
+@pytest.mark.parametrize("D", fa.HEAD_DIMS)
+@pytest.mark.parametrize(
+    "Sq,Skv,kw",
+    [
+        (200, 200, {}),                                       # causal, ragged tiles
+        (200, 200, {"window": 48}),
+        (200, 200, {"softcap": 10.0}),
+        (200, 200, {"softcap": 50.0, "window": 100}),
+        (130, 130, {"causal": False}),
+        (40, 100, {"q_offset": 30, "kv_len": 70}),           # kv_len ends mid-tile
+        (33, 90, {"q_offset": 50, "kv_len": 83, "window": 40, "softcap": 50.0}),
+    ],
+)
+def test_flash_attention_bf16_tensor_core_kernel_at_every_head_width(cuda_device, D, Sq, Skv, kw):
+    """The bfloat16 (tensor-core) kernel at every head width it is built for,
+    read through the model's [B, S, H, D] strides, against its plain version."""
+    q, k, v = _qkv(cuda_device, torch.bfloat16, 2, 4, 2, Sq, Skv, D, Sq + D, scale=2.0)
+    q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v))
+    before = fa.launches()
+    out = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.launches() == before + 1
+    assert out.stride() == q.stride()
+    torch.testing.assert_close(out.float(), flash_attention_ref(q, k, v, **kw).float(),
+                               atol=FA_TOL[torch.bfloat16], rtol=FA_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("D", [64, 256])
+def test_flash_attention_bf16_gqa8_odd_length_is_deterministic(cuda_device, D):
+    """A served group's odd length (1895) with eight query heads a kv head,
+    in the model's layout: the plain version's result, and the same bits on
+    a second launch."""
+    q, k, v = _qkv(cuda_device, torch.bfloat16, 1, 8, 1, 1895, 1895, D, D, scale=2.0)
+    q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v))
+    kw = {"window": 1024, "softcap": 50.0} if D == 256 else {}
+    out = fa.flash_attention(q, k, v, **kw)
+    again = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    torch.testing.assert_close(out.float(), flash_attention_ref(q, k, v, **kw).float(),
+                               atol=FA_TOL[torch.bfloat16], rtol=FA_TOL[torch.bfloat16])
+
+
+def test_flash_attention_bf16_misaligned_strides_raise(cuda_device):
+    """The tensor-core kernel's 16-byte copies need rows a multiple of 8
+    elements apart: a slice of width 8 out of 28-wide rows does not give
+    them, and the call raises without launching."""
+    base = torch.zeros(1, 16, 2, 8 * 3 + 4, device=cuda_device, dtype=torch.bfloat16)
+    q = base[..., 4:12].transpose(1, 2)  # head stride 28, an 8-byte aligned start
+    before = fa.launches()
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, q, q)
+    assert fa.launches() == before
+
+
 def _smoke_engine(arch, engine, device):
     # float32 compute: the two engines then differ by float32 rounding alone,
     # far below any gap between the top two logits (chip_smoke.py holds the
@@ -387,14 +446,26 @@ def _ce_inputs(device, T, D, V, x_dtype, w_dtype, tied, seed, label_dtype=torch.
      (100, 48, 1000, torch.float32, torch.float32, True, 0.0),
      (512, 64, 256, torch.bfloat16, torch.float32, False, 0.0),
      (300, 96, 5000, torch.bfloat16, torch.bfloat16, True, 30.0),
-     (7, 16, 50, torch.float32, torch.bfloat16, False, 0.0)],
+     (7, 16, 50, torch.float32, torch.bfloat16, False, 0.0),
+     (1000, 48, 1000, torch.bfloat16, torch.float32, True, 30.0),   # tied: a transposed view
+     (130, 136, 300, torch.bfloat16, torch.bfloat16, False, 0.0),   # untied bf16 W
+     (257, 2048, 4099, torch.bfloat16, torch.float32, False, 0.0),  # tinyllama's depth
+     (1, 64, 50, torch.bfloat16, torch.float32, True, 30.0)],
 )
 def test_crossentropy_kernel_matches_plain_version(cuda_device, T, D, V, x_dtype, w_dtype, tied,
                                                    softcap):
+    """Labels outside [0, V) pick no logit.  A bfloat16 x takes the
+    tensor-core kernel, which is also held to the plain version run in
+    float64 on the same bf16-rounded operands at the same tolerance (its
+    K-loop sums exact bf16 products in float32 in another order, and float64
+    is the truth both are measured against); a second launch gives the same
+    bits."""
     from repro_torch.kernels import crossentropy as ce
     from repro_torch.kernels.ref import crossentropy_lse_ref
 
     x, w, labels = _ce_inputs(cuda_device, T, D, V, x_dtype, w_dtype, tied, T + V)
+    if T > 1:
+        labels[1] = V
     before = ce.launches()
     nll, lse = ce.crossentropy_forward(x, w, labels, softcap)
     torch.cuda.synchronize()
@@ -402,8 +473,28 @@ def test_crossentropy_kernel_matches_plain_version(cuda_device, T, D, V, x_dtype
     want_nll, want_lse = crossentropy_lse_ref(x, w, labels, softcap)
     torch.testing.assert_close(nll, want_nll, atol=CE_ATOL, rtol=CE_RTOL)
     torch.testing.assert_close(lse, want_lse, atol=CE_ATOL, rtol=CE_RTOL)
-    got64 = ce.crossentropy_forward(x, w, labels.long(), softcap)[0]
-    torch.testing.assert_close(got64, nll, atol=0, rtol=0)
+    got64 = ce.crossentropy_forward(x, w, labels.long(), softcap)
+    torch.testing.assert_close(got64[0], nll, atol=0, rtol=0)
+    if T > 1:
+        assert nll[0] == lse[0] and nll[1] == lse[1]
+    if x_dtype == torch.bfloat16:
+        assert torch.equal(lse, got64[1])
+        want_nll, want_lse = crossentropy_lse_ref(x, w, labels, softcap,
+                                                  compute_dtype=torch.float64)
+        torch.testing.assert_close(nll.double(), want_nll, atol=CE_ATOL, rtol=CE_RTOL)
+        torch.testing.assert_close(lse.double(), want_lse, atol=CE_ATOL, rtol=CE_RTOL)
+
+
+def test_crossentropy_bf16_misaligned_x_raises(cuda_device):
+    """A bfloat16 x whose rows are not a multiple of 8 elements apart cannot
+    feed the tensor-core kernel's 16-byte copies: the call raises."""
+    from repro_torch.kernels import crossentropy as ce
+
+    x, w, labels = _ce_inputs(cuda_device, 16, 20, 50, torch.bfloat16, torch.float32, False, 0)
+    before = ce.launches()
+    with pytest.raises(ValueError):
+        ce.crossentropy_forward(x, w, labels)
+    assert ce.launches() == before
 
 
 @pytest.mark.parametrize("x_dtype,softcap", [(torch.float32, 0.0), (torch.float32, 30.0),

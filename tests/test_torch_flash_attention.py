@@ -65,30 +65,65 @@ def test_matches_pallas_kernel_and_oracle(dtype, B, Hq, Hkv, S, D, bq, bk):
     _check(out, ref.attention_ref(qj, kj, vj, causal=True), tol)
 
 
-@pytest.mark.parametrize("window", [8, 32, 100])
-def test_sliding_window(window):
+def _in_each_dtype(name, values):
+    """``parametrize`` over ``values`` in float32 and bfloat16; the float32
+    cases keep the ids they had before bfloat16 joined them."""
+    cases = [(x, d) for d in DTYPES for x in values]
+    ids = [str(x) if d == "float32" else f"{x}-{d}" for x, d in cases]
+    return pytest.mark.parametrize(f"{name},dtype", cases, ids=ids)
+
+
+@_in_each_dtype("window", [8, 32, 100])
+def test_sliding_window(window, dtype):
     arrays = _inputs(window, [(1, 2, 64, 16)] * 3)
-    (qj, kj, vj), (qt, kt, vt) = _pair(arrays, "float32")
+    (qj, kj, vj), (qt, kt, vt) = _pair(arrays, dtype)
+    tol = DTYPES[dtype][2]
     out = fa.flash_attention(qt, kt, vt, causal=True, window=window)
-    _check(out, flash_attention_op(qj, kj, vj, causal=True, window=window, block_q=16, block_k=16), 1e-4)
-    _check(out, ref.attention_ref(qj, kj, vj, causal=True, window=window), 1e-4)
+    _check(out, flash_attention_op(qj, kj, vj, causal=True, window=window, block_q=16, block_k=16), tol)
+    _check(out, ref.attention_ref(qj, kj, vj, causal=True, window=window), tol)
 
 
-@pytest.mark.parametrize("softcap", [10.0, 50.0])
-def test_softcap(softcap):
+@_in_each_dtype("softcap", [10.0, 50.0])
+def test_softcap(softcap, dtype):
     arrays = _inputs(int(softcap), [(1, 2, 64, 16)] * 3, scale=3.0)
-    (qj, kj, vj), (qt, kt, vt) = _pair(arrays, "float32")
+    (qj, kj, vj), (qt, kt, vt) = _pair(arrays, dtype)
+    tol = DTYPES[dtype][2]
     out = fa.flash_attention(qt, kt, vt, causal=True, softcap=softcap)
-    _check(out, flash_attention_op(qj, kj, vj, causal=True, softcap=softcap, block_q=32, block_k=32), 1e-4)
-    _check(out, ref.attention_ref(qj, kj, vj, causal=True, softcap=softcap), 1e-4)
+    _check(out, flash_attention_op(qj, kj, vj, causal=True, softcap=softcap, block_q=32, block_k=32), tol)
+    _check(out, ref.attention_ref(qj, kj, vj, causal=True, softcap=softcap), tol)
+
+
+def _non_causal(dtype):
+    arrays = _inputs(48, [(1, 2, 48, 16)] * 3)
+    (qj, kj, vj), (qt, kt, vt) = _pair(arrays, dtype)
+    tol = DTYPES[dtype][2]
+    out = fa.flash_attention(qt, kt, vt, causal=False)
+    _check(out, flash_attention_op(qj, kj, vj, causal=False, block_q=16, block_k=16), tol)
+    _check(out, ref.attention_ref(qj, kj, vj, causal=False), tol)
 
 
 def test_non_causal():
-    arrays = _inputs(48, [(1, 2, 48, 16)] * 3)
-    (qj, kj, vj), (qt, kt, vt) = _pair(arrays, "float32")
-    out = fa.flash_attention(qt, kt, vt, causal=False)
-    _check(out, flash_attention_op(qj, kj, vj, causal=False, block_q=16, block_k=16), 1e-4)
-    _check(out, ref.attention_ref(qj, kj, vj, causal=False), 1e-4)
+    _non_causal("float32")
+
+
+def test_non_causal_bfloat16():
+    _non_causal("bfloat16")
+
+
+@pytest.mark.parametrize("D", [8, 256])
+@pytest.mark.parametrize("kw", [{}, {"causal": False}, {"window": 24, "softcap": 30.0}],
+                         ids=["causal", "non-causal", "window-softcap"])
+def test_bfloat16_at_the_narrowest_and_widest_heads(D, kw):
+    """bfloat16 at head widths 8 (below the tensor-core kernel's MMA depth of
+    16, which it zero-pads) and 256 (gemma2's), GQA 2x and a ragged length,
+    against the Pallas kernel in interpret mode and its oracle."""
+    arrays = _inputs(D, [(1, 4, 72, D), (1, 2, 72, D), (1, 2, 72, D)], scale=2.0)
+    (qj, kj, vj), (qt, kt, vt) = _pair(arrays, "bfloat16")
+    causal = kw.get("causal", True)
+    opts = dict(causal=causal, window=kw.get("window", -1), softcap=kw.get("softcap", 0.0))
+    out = fa.flash_attention(qt, kt, vt, **opts)
+    _check(out, flash_attention_op(qj, kj, vj, block_q=16, block_k=16, **opts), 2e-2)
+    _check(out, ref.attention_ref(qj, kj, vj, **opts), 2e-2)
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
