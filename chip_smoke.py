@@ -8,11 +8,17 @@ builds the kernels from ``src/repro_torch/kernels/csrc`` at first use.
 Phases, each of which fails the run by raising:
 
 1. device: the card's name and power limit, the kernels' build time and
-   ``ptxas`` lines, and the count of tensor-core instructions (``HMMA`` /
-   ``HGMMA``) in the SASS of the two bfloat16 tensor-core kernels (from
-   ``cuobjdump -sass`` of the built library; "not available" without it);
-2. every kernel against its plain PyTorch version on numpy-seeded inputs,
-   with times from CUDA events;
+   ``ptxas`` lines (the bfloat16 SSD kernel's registers and spills printed
+   again), and the count of tensor-core instructions (``HMMA`` / ``HGMMA``)
+   in the SASS of the three bfloat16 tensor-core kernels, flash attention,
+   cross-entropy and SSD (from ``cuobjdump -sass`` of the built library;
+   "not available" without it); a kernel without one fails the phase;
+2. the Parzen kernel against its plain PyTorch version on numpy-seeded
+   inputs, first at the main path's own shape (24 candidates against the
+   estimators of phase 3's and phase 4's final histories, unpadded), then
+   at the reference's shapes; a second call on the same inputs must give
+   the same bits; times from CUDA events around eager calls, and around a
+   CUDA graph of the calls (the card's time, without the host's);
 3. the main path as a user calls it: ``create_study(engine="cuda",
    pruner=MedianPruner())`` and ``study.optimize(objective, n_trials=4096,
    ask_batch=32)`` with Optuna's default sampler settings.  With those
@@ -95,15 +101,18 @@ Phases, each of which fails the run by raising:
     ``SuccessiveHalvingPruner(min_resource=10, reduction_factor=2)``, 16
     trials: the Parzen, cross-entropy and flash-attention launch counts all
     above 0, the best trial deployed through ``FixedTrial``;
-17. the SSD chunk-scan kernel against its plain PyTorch version (y and the
-    final state within atol 2e-3 and a tenth of the plain output's rms) at
-    the reference's test sweep, 4 groups with an initial state, an odd and
-    a prime S, the smoke and tune widths and zamba2's prefill (with the
-    cache's initial state) and training shapes (B 8, S 2048, 64 heads, P =
-    N = 64, L 128, bf16 x / B / C read as strided slices of the conv
-    output), each with its time, the plain version's and the bound; the
-    kernel's ``ptxas`` registers and spills; the Function's gradients
-    against autograd through the plain version at two shapes;
+17. the SSD chunk-scan kernels against their plain PyTorch version run in
+    float64 (y and the final state within atol 2e-3 and a tenth of the
+    exact output's rms) at the reference's test sweep, 4 groups with an
+    initial state, an odd and a prime S, the smoke and tune widths and
+    zamba2's prefill (with the cache's initial state) and training shapes
+    (B 8, S 2048, 64 heads, P = N = 64, L 128, bf16 x / B / C read as
+    strided slices of the conv output): bf16 rows run the tensor-core
+    kernel, float32 rows (zamba2's prefill among them) the CUDA-core one;
+    each with its time (eager, and the card's in a CUDA graph), the plain version's and
+    the bound (and the bytes' bound alone); the kernels' ``ptxas``
+    registers and spills; the Function's gradients against autograd
+    through the plain version at two shapes;
 18. the serving main path at zamba2-1.2b's full size (38 mamba2 blocks and
     6 applications of the shared attention / SwiGLU block, random weights
     from a seeded generator): (a) ``launch.serve.main`` on the arch, (b)
@@ -288,6 +297,31 @@ def time_ms(fn, reps: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, calls: int, reps: int) -> float:
+    """Device milliseconds per call of ``fn``: ``calls`` calls captured in one
+    CUDA graph, replayed ``reps`` times between CUDA events, after a warm-up
+    call.  The host's time per call (the wrapper's checks, allocation and
+    launch) is left out, which events around eager calls count whenever the
+    host is slower than the card."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (reps * calls)
+
+
 def parzen_bound_ms(n_cands: int, n_l: int, n_g: int, sm_clock_hz: float) -> tuple[float, str]:
     """Least time the card could take for one Parzen score: the larger of
     the exps over the SFU rate, the other FP32 operations over the FP32
@@ -317,13 +351,19 @@ def synthetic_mixture(rng: np.random.RandomState, k: int, n_pad: int):
 
 
 def check_parzen(args, label: str, reps: int, sm_clock_hz: float) -> dict:
+    """The kernel against its plain version (ATOL / RTOL), and a second call
+    on the same inputs equal to the first bit for bit; ``ms`` is CUDA events
+    around eager calls, which the host bounds at small shapes, ``card_ms``
+    the card's time a call (a CUDA graph of the calls)."""
     from repro_torch.kernels.parzen import parzen_score
     from repro_torch.kernels.ref import parzen_score_ref
 
     out = parzen_score(*args)
+    again = parzen_score(*args)
     ref = parzen_score_ref(*args)
     torch.cuda.synchronize()
     torch.testing.assert_close(out, ref, atol=ATOL, rtol=RTOL)
+    assert torch.equal(out, again), (label, "two calls on the same inputs differ")
     err = float((out - ref).abs().max())
     n_cands, n_l, n_g = len(args[0]), len(args[1]), len(args[4])
     # the bound counts the components the data holds; padding (log_norm =
@@ -331,26 +371,42 @@ def check_parzen(args, label: str, reps: int, sm_clock_hz: float) -> dict:
     real_l = int(torch.isfinite(args[3]).sum())
     real_g = int(torch.isfinite(args[6]).sum())
     ms = time_ms(lambda: parzen_score(*args), reps)
+    card_ms = graph_ms(lambda: parzen_score(*args), 20, max(1, reps // 10))
     plain_ms = time_ms(lambda: parzen_score_ref(*args), reps)
     bound_ms, bound_by = parzen_bound_ms(n_cands, real_l, real_g, sm_clock_hz)
     row = {
         "label": label, "C": n_cands, "Kl": n_l, "Kg": n_g,
-        "Kl_real": real_l, "Kg_real": real_g, "max_abs_err": err,
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "Kl_real": real_l, "Kg_real": real_g, "max_abs_err": err, "bitwise_repeat": True,
+        "ms": ms, "card_ms": card_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by,
     }
     print(
         f"  parzen {label:<22} C={n_cands:<5} Kl={n_l:<5} ({real_l:<5} real) "
-        f"Kg={n_g:<5} ({real_g:<5} real) max_abs_err={err:.3e} kernel={ms:.4f} ms "
-        f"plain={plain_ms:.4f} ms bound={bound_ms:.6f} ms ({bound_by})"
+        f"Kg={n_g:<5} ({real_g:<5} real) max_abs_err={err:.3e} repeat bit-equal; "
+        f"kernel={ms:.4f} ms (card {card_ms:.5f}) plain={plain_ms:.4f} ms "
+        f"bound={bound_ms:.6f} ms ({bound_by})"
     )
     return row
 
 
+#: the estimators' component counts (observations + the prior) at phase 3's
+#: and phase 4's final histories (x0: 1 below + 9 above, 25 + 4071, the same
+#: in every run: the studies are seeded), which the main path scores its 24
+#: EI candidates against
+MAIN_PATH_COMPONENTS = ((2, 10), (26, 4072))
+
+
 def phase_kernels(sm_clock_hz: float) -> list[dict]:
     """Phase 2: the Parzen kernel against its plain version."""
-    print("phase 2: parzen_score kernel vs plain PyTorch version")
+    print("phase 2: parzen_score kernel vs plain PyTorch version; "
+          f"{nvidia_smi('name,power.limit')}")
     rng = np.random.RandomState(0)
     rows = []
+    for n_l, n_g in MAIN_PATH_COMPONENTS:  # the main path's own shape: C = 24, unpadded
+        args = [torch.from_numpy(np.asarray(a, np.float32)).cuda()
+                for a in (rng.uniform(-3.5, 3.5, 24), *synthetic_mixture(rng, n_l, 0),
+                          *synthetic_mixture(rng, n_g, 0))]
+        rows.append(check_parzen(args, "main path C=24", 100, sm_clock_hz))
     for n_l, n_g in ((32, 4096), (26, 2023), (8, 8)):
         for padded in (False, True):
             l_side = synthetic_mixture(rng, n_l, n_l // 4 if padded else 0)
@@ -422,7 +478,6 @@ def drive_main_path(label: str, study, run) -> dict:
     0 just before and read just after, under telemetry; check its result
     and print where the time went."""
     from repro_torch.core import telemetry
-    from repro_torch.core.samplers.tpe import _pad_est
     from repro_torch.kernels import parzen
 
     telemetry.reset()
@@ -451,7 +506,7 @@ def drive_main_path(label: str, study, run) -> dict:
         states[t.state.name] = states.get(t.state.name, 0) + 1
     pruned_share = states.get("PRUNED", 0) / n_trials
     l_est, g_est, n_below, n_above = final_estimators(study)
-    kl, kg = len(_pad_est(l_est)[0]), len(_pad_est(g_est)[0])
+    kl, kg = len(l_est.mus), len(g_est.mus)
     spans = {
         name: {"count": hists[name]["count"], "total_s": hists[name]["sum"],
                "mean_ms": 1e3 * hists[name]["mean"], "p99_ms": 1e3 * hists[name]["p99"]}
@@ -471,7 +526,7 @@ def drive_main_path(label: str, study, run) -> dict:
           f"states {states} (pruned share {pruned_share:.4f}); "
           f"best value {study.best_value:.6f}")
     print(f"  final TPE history of x0: {n_below} below + {n_above} above; "
-          f"kernel components Kl={kl} Kg={kg} (pow2-padded)")
+          f"kernel components Kl={kl} Kg={kg} (unpadded)")
     print(f"  parzen_score launches {launches} == tpe.score spans {n_score}")
     for name, s in spans.items():
         print(f"  span {name:<26} count={s['count']:<7} total={s['total_s']:.4f} s "
@@ -483,7 +538,7 @@ def kernel_at_history(study, tables: bool, sm_clock_hz: float) -> list[dict]:
     """The kernel at the shapes the study's final history gives it: direct
     scoring of the 24 EI candidates and, where the traffic builds it, the
     score table."""
-    from repro_torch.core.samplers.tpe import _pad_est, _to_device
+    from repro_torch.core.samplers.tpe import _to_device, _triple
     from repro_torch.kernels import ops
 
     l_est, g_est, _, _ = final_estimators(study)
@@ -494,7 +549,7 @@ def kernel_at_history(study, tables: bool, sm_clock_hz: float) -> list[dict]:
     rows = []
     for cands, label in runs:
         args = [_to_device(a, torch.device("cuda"))
-                for a in (cands, *_pad_est(l_est), *_pad_est(g_est))]
+                for a in (cands, *_triple(l_est), *_triple(g_est))]
         rows.append(check_parzen(args, label, 100, sm_clock_hz))
     return rows
 
@@ -921,7 +976,8 @@ def cuobjdump() -> "str | None":
     return next((c for c in cands if c and os.path.exists(c)), None)
 
 
-def tensor_core_sass(kernels=("flash_attention_tc_kernel", "crossentropy_tc_kernel")) -> dict:
+def tensor_core_sass(kernels=("flash_attention_tc_kernel", "crossentropy_tc_kernel",
+                              "ssd_tc_kernel")) -> dict:
     """Tensor-core instructions (``HMMA``, ``HGMMA``) in the SASS of each
     instance of ``kernels`` in the built library, by mangled name, from
     ``cuobjdump -sass``; ``{"not available": reason}`` without the tool."""
@@ -1210,7 +1266,7 @@ def kernel_seconds_of_prefills(cfg, shapes: list[tuple], capacity: int) -> tuple
         if n_ssd:
             args = ssd_model_inputs(gen, cfg, B, S)
             ms = time_ms(lambda: ssd_forward(*args[:5], cfg.ssm_chunk, args[5]), 3)
-            bound, by, _ = ssd_bound_ms(*ssd_dims(args), cfg.ssm_chunk, args[0].dtype, True)
+            bound, by, _, _ = ssd_bound_ms(*ssd_dims(args), cfg.ssm_chunk, args[0].dtype, True)
             rows.append({"kernel": "ssd", "B": B, "S": S, "L": kernel_chunk_len(S, cfg.ssm_chunk),
                          "launches": n_ssd, "ms": ms, "bound_ms": bound, "bound_by": by})
             total += n_ssd * ms / 1e3
@@ -1837,7 +1893,7 @@ def trace_train_step(cfg, model, batch, name: str) -> dict:
         low = kname.lower()
         kind = ("crossentropy kernel" if "crossentropy" in low else
                 "flash_attention kernel" if "flash_attention" in low else
-                "ssd kernel" if "ssd_kernel" in low else
+                "ssd kernel" if "ssd_kernel" in low or "ssd_tc_kernel" in low else
                 "slstm kernel" if "slstm_kernel" in low else
                 "GEMM (cuBLAS)" if any(t in low for t in ("gemm", "xmma", "cutlass", "cublas"))
                 else "other kernels, copies")
@@ -2057,11 +2113,12 @@ def ssd_dims(args) -> tuple:
     return B, S, H, P, args[3].shape[2], args[3].shape[3]
 
 
-def ssd_bound_ms(B, S, H, P, G, N, chunk, dtype, init) -> tuple[float, str, int]:
+def ssd_bound_ms(B, S, H, P, G, N, chunk, dtype, init) -> tuple[float, str, int, float]:
     """Least time for one SSD scan: the larger of the chunk contractions'
     FLOPs this data needs over the float32 rate (the reference scans in
     float32) and the bytes (x, dt, A, B, C and the initial state read once,
-    y and the final state written once) over the memory rate.  Per chunk of
+    y and the final state written once) over the memory rate; also the
+    bytes' time alone, which a tensor-core kernel is read against.  Per chunk of
     l steps (the kernel's chunks) and per batch and head, the l (l + 1) / 2
     pairs s <= t take 2 N for C_t . B_s and 2 P for M u, as flash_bound_ms
     counts only the pairs a query sees; the state's read into y and its
@@ -2075,25 +2132,18 @@ def ssd_bound_ms(B, S, H, P, G, N, chunk, dtype, init) -> tuple[float, str, int]
     nbytes = (elem * (B * S * H * P + 2 * B * S * G * N) + 4 * (B * S * H + H)
               + 4 * B * S * H * P + 4 * B * H * P * N * (2 if init else 1))
     ops_s, bytes_s = flops / FP32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
-    return 1e3 * max(ops_s, bytes_s), ("operations" if ops_s >= bytes_s else "bytes"), flops
+    return (1e3 * max(ops_s, bytes_s), ("operations" if ops_s >= bytes_s else "bytes"), flops,
+            1e3 * bytes_s)
 
 
 def ssd_ptxas(build_log: str) -> dict:
-    """``ptxas`` lines of each SSD kernel instance, keyed by 'dtype, MT'."""
-    out: dict = {}
-    key = None
-    for line in build_log.splitlines():
-        m = re.search(r"entry function '(\S*ssd_kernel\S*)'", line)
-        if m:
-            name = m.group(1)
-            tiles = re.search(r"Li(\d+)EE", name)
-            key = f"{'bfloat16' if 'bfloat16' in name else 'float32'}, MT={tiles.group(1)}"
-            out[key] = []
-            continue
-        if "entry function" in line:
-            key = None
-        elif key and ("Used" in line or "spill" in line):
-            out[key].append(line.strip().removeprefix("ptxas info    : "))
+    """``ptxas`` lines of each SSD kernel instance: the bfloat16 tensor-core
+    kernel, and the float32 CUDA-core kernel keyed by its register tiles."""
+    out = {"bfloat16 (tensor cores)": lines
+           for lines in kernel_ptxas(build_log, "ssd_tc_kernel").values()}
+    for name, lines in kernel_ptxas(build_log, "ssd_kernel").items():
+        tiles = re.search(r"Li(\d+)E", name).group(1)
+        out[f"float32, MT={tiles}"] = lines
     return out
 
 
@@ -2132,22 +2182,25 @@ def check_ssd(gen, label, B, S, H, P, G, N, chunk, dtype, init, model_layout, re
         assert errs[name] <= min(SSD_TOL, rms[name] / 10), (label, name, errs[name], rms[name])
     del y, f, ry, rf, ey, ef
     ms = time_ms(lambda: ssd_forward(*args[:5], chunk, args[5]), reps)
+    card_ms = graph_ms(lambda: ssd_forward(*args[:5], chunk, args[5]), 5, max(1, reps // 3))
     plain_ms = time_ms(lambda: ssd_chunked_ref(*args[:5], chunk, args[5]), max(1, reps // 3), 1)
-    bound_ms, bound_by, flops = ssd_bound_ms(B, S, H, P, G, N, chunk, dtype, init)
+    bound_ms, bound_by, flops, bytes_ms = ssd_bound_ms(B, S, H, P, G, N, chunk, dtype, init)
     dname = "bfloat16" if dtype == torch.bfloat16 else "float32"
     row = {"label": label, "B": B, "S": S, "H": H, "P": P, "G": G, "N": N, "chunk": chunk,
            "kernel_L": kernel_chunk_len(S, chunk), "plain_L": ssd_chunk_len(S, chunk),
            "dtype": dname, "init": init, "layout": "model" if model_layout else "contiguous",
            "max_abs_err": max(errs.values()), "errs": errs, "plain_f32_errs": plain_errs,
            "ref_rms": rms, "tol": SSD_TOL,
-           "ms": ms, "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
+           "ms": ms, "card_ms": card_ms, "plain_ms": plain_ms, "library_ms": None,
+           "bound_ms": bound_ms, "bytes_bound_ms": bytes_ms,
            "bound_by": bound_by, "flops": flops, "tflops": flops / (ms * 1e9)}
     print(f"  ssd {label:<24} B={B} S={S} H={H} P={P} G={G} N={N} L={row['kernel_L']} "
           f"(plain {row['plain_L']}) {dname}{' init' if init else ''}: from float64, max_abs_err y "
           f"{errs['y']:.3e} (rms {rms['y']:.3f}; float32 plain {plain_errs['y']:.3e}) final "
           f"{errs['final']:.3e} (rms {rms['final']:.3f}; float32 plain "
-          f"{plain_errs['final']:.3e}); kernel={ms:.4f} ms ({row['tflops']:.2f} TFLOP/s) "
-          f"plain={plain_ms:.4f} ms bound={bound_ms:.4g} ms ({bound_by})")
+          f"{plain_errs['final']:.3e}); kernel={ms:.4f} ms (card {card_ms:.4f}; "
+          f"{row['tflops']:.2f} TFLOP/s) plain={plain_ms:.4f} ms bound={bound_ms:.4g} ms "
+          f"({bound_by}; bytes {bytes_ms:.4g} ms)")
     return row
 
 
@@ -2195,7 +2248,7 @@ def phase_ssd(build_log: str) -> tuple[list[dict], list[dict], dict]:
     gen = torch.Generator(device="cuda").manual_seed(17)
     ptxas = ssd_ptxas(build_log)
     for key, lines in ptxas.items():
-        print(f"  ptxas ssd_kernel ({key}): {'; '.join(lines)}")
+        print(f"  ptxas ssd ({key}): {'; '.join(lines)}")
     f32, bf16 = torch.float32, torch.bfloat16
     rows = []
     # the reference's own sweep (tests/test_kernels.py): 3 folded (batch, head) rows
@@ -2213,6 +2266,10 @@ def phase_ssd(build_log: str) -> tuple[list[dict], list[dict], dict]:
                           10))
     rows.append(check_ssd(gen, "zamba2 training", 8, 2048, 64, 64, 1, 64, 128, bf16, False,
                           True, 10))
+    rows.append(check_ssd(gen, "zamba2 prefill float32", 8, 2048, 64, 64, 1, 64, 128, f32, True,
+                          True, 10))  # the CUDA-core kernel at the main path's shape
+    rows.append(check_ssd(gen, "zamba2 heads, L=64", 2, 2048, 64, 64, 1, 64, 64, bf16, True,
+                          True, 10))  # chunks of 4 strips: each strip taken by one warp pair
     for B, S in zamba2_groups():  # phase 18(b)'s prefills: ragged last chunks, the cache's state
         rows.append(check_ssd(gen, "zamba2 serve group", B, S, 64, 64, 1, 64, 128, bf16, True,
                               True, 10))
@@ -2744,6 +2801,10 @@ def main() -> int:
         print(f"    {name}: {count}")
     if "not available" not in sass:
         assert sass and all(n > 0 for n in sass.values()), sass
+        assert any("ssd_tc_kernel" in name for name in sass), sass
+    for key, lines in ssd_ptxas(_build.build_log()).items():
+        if key.startswith("bfloat16"):
+            print(f"  ptxas ssd ({key}): {'; '.join(lines)}")
 
     kernel_rows = phase_kernels(sm_clock_hz)
     optimize, optimize_rows = phase_optimize(sm_clock_hz)
@@ -2782,6 +2843,7 @@ def main() -> int:
         "launches_waves": waves["parzen_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in kernel_rows + shape_rows),
         "ms": table["ms"],
+        "card_ms": table["card_ms"],
         "plain_ms": table["plain_ms"],
         "bound_ms": table["bound_ms"],
         "bound_by": table["bound_by"],
@@ -2878,11 +2940,15 @@ def main() -> int:
         "launches_tune_xlstm": tune_xlstm["launches"]["ssd"],
         "max_abs_err": max(r["max_abs_err"] for r in ssd_rows),
         "ms": ssd_main["ms"],
+        "card_ms": ssd_main["card_ms"],
         "plain_ms": ssd_main["plain_ms"],
         "bound_ms": ssd_main["bound_ms"],
         "bound_by": ssd_main["bound_by"],
+        "bytes_bound_ms": ssd_main["bytes_bound_ms"],
         "library_ms": None,
         "ptxas": ssd_ptx,
+        "tensor_core_sass": {k: n for k, n in sass.items()
+                             if "ssd" in k or k == "not available"},
         "shapes": ssd_rows,
         "gradient_checks": ssd_grads,
     })

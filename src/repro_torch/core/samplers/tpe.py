@@ -205,6 +205,11 @@ def _score_numpy(
     )
 
 
+def _triple(est: "_ParzenEstimator"):
+    """One estimator's component triple, unpadded."""
+    return est.mus, est.sigmas, est._log_norm
+
+
 def _pad_est(est: "_ParzenEstimator"):
     """One estimator's component triple, pow2-padded for the device paths."""
     return (
@@ -970,13 +975,15 @@ class TPESampler(BaseSampler):
                 l_est.mus, l_est.sigmas, l_est._log_norm,
                 g_est.mus, g_est.sigmas, g_est._log_norm,
             )
-        # the pow2-padded component triples, in float32 on the device; the
-        # scores come back to the host for the argmax
-        args = [
-            _to_device(a, self._device)
-            for a in (cands, *_pad_est(l_est), *_pad_est(g_est))
-        ]
-        score = parzen_score if eng == "cuda" else parzen_score_ref
+        # the component triples in float32 on the device: each estimator's
+        # own length for the CUDA kernel, which splits any length across the
+        # card; pow2-padded for the plain version, as the reference pads for
+        # its Pallas kernel.  The scores come back to the host for the argmax
+        if eng == "cuda":
+            score, sides = parzen_score, (_triple(l_est), _triple(g_est))
+        else:
+            score, sides = parzen_score_ref, (_pad_est(l_est), _pad_est(g_est))
+        args = [_to_device(a, self._device) for a in (cands, *sides[0], *sides[1])]
         return score(*args).cpu().numpy()
 
     def _sample_numeric(

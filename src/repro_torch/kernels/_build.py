@@ -42,7 +42,10 @@ _F = ctypes.c_float
 _L = ctypes.c_longlong
 #: C signatures of the entry points (every pointer and the stream as void*)
 _SIGNATURES = {
-    "parzen_score_launch": (_I, [_P, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P]),
+    "parzen_score_workspace": (None, [_I, _I, _I, _I, _P]),
+    "parzen_score_launch": (
+        _I, [_P, _I, _P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _L, _P, _L, _P, _P],
+    ),
     "mc_hv_counts_launch": (_I, [_P, _I, _P, _I, _I, _P, _P, _P]),
     "flash_attention_launch": (
         _I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I, _F, _I, _I, _F, _P],
@@ -56,7 +59,7 @@ _SIGNATURES = {
         _I, [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
              _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _P],
     ),
-    "ssd_smem_bytes": (_I, [_I, _I, _I]),
+    "ssd_smem_bytes": (_I, [_I, _I, _I, _I]),
     "slstm_plan": (_I, [_I, _I, _I, _I, _P]),
     "slstm_launch": (
         _I, [_P, _I, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

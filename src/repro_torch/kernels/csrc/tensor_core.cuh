@@ -1,5 +1,5 @@
 // Tensor-core building blocks shared by the bfloat16 kernels
-// (flash_attention.cu, crossentropy.cu) for Hopper (sm_90a).
+// (flash_attention.cu, crossentropy.cu, ssd.cu) for Hopper (sm_90a).
 //
 // Both kernels run the same machinery: bfloat16 operand tiles staged in
 // shared memory by asynchronous 16-byte copies (cp.async) into a ring of
@@ -110,6 +110,16 @@ __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// Two 8 x 8 bf16 matrices, each transposed: lanes 0 .. 7 give the row
+// addresses of matrix 0 and lanes 8 .. 15 those of matrix 1 (the other lanes'
+// addresses are not read); r[i] holds (rows 2 (lane % 4) .. +1, column
+// lane / 4) of matrix i.
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
+}
+
 // Lane offsets (in elements, for a tile of row stride LDS) of the ldmatrix
 // addresses that give:
 //  - an A fragment of the 16 x 16 block at the tile's origin (rows of A are
@@ -144,6 +154,17 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uin
   const float2 hf = __bfloat1622float2(h);
   hi = *reinterpret_cast<const uint32_t*>(&h);
   lo = pack_bf16(x0 - hf.x, x1 - hf.y);
+}
+
+// Two floats as three registers of bf16 pairs, hi = round(x), mid =
+// round(x - hi), lo = round(x - hi - mid): hi + mid + lo carries x to about
+// 2^-24 of its size, float32's own grade (two terms keep about 2^-16).
+__device__ __forceinline__ void split3_bf16(float x0, float x1, uint32_t& hi, uint32_t& mid,
+                                            uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  split_bf16(x0 - hf.x, x1 - hf.y, mid, lo);
 }
 
 // 2^x on the special-function unit (ex2.approx: 2 ulp, denormal results

@@ -2,10 +2,16 @@
 
 Wrapper around the hand-written CUDA kernel in ``csrc/parzen.cu``, which
 replaces the reference package's Pallas kernel
-(``repro/kernels/parzen.py::parzen_score_kernel``).  The kernel streams both
-mixtures' components through shared memory with an online ``(m, l)``
-logsumexp per side, so the ``(C, K)`` exponent matrix never exists; the
-source states its design and its bound on the card.
+(``repro/kernels/parzen.py::parzen_score_kernel``).  The kernel splits both
+mixtures' components across blocks and warps, each folding its share with
+an online ``(m, l)`` logsumexp per side, so the ``(C, K)`` exponent matrix
+never exists, and merges the partial states in the same launch in a fixed
+order (bitwise repeatable scores); the source states its design and its
+bound on the card.  The kernel's host code sizes the two workspaces, the
+merge's tickets and the partials; the wrapper keeps one pair of buffers per
+(device, stream), the tickets zeroed (every launch leaves them zero), grown
+when a call needs more, so an eager call allocates nothing.  Under
+CUDA-graph capture a call takes buffers of its own from the graph's pool.
 
 CPU tensors take the plain PyTorch version (``kernels/ref.py``); CUDA
 tensors launch the kernel or raise.  Every launch adds one to a
@@ -15,6 +21,7 @@ went through the kernel.
 
 from __future__ import annotations
 
+import ctypes
 import threading
 
 import torch
@@ -25,6 +32,11 @@ __all__ = ["parzen_score", "launches", "reset_launches"]
 
 _count_lock = threading.Lock()
 _launches = 0
+#: device index -> its SM count
+_sms: dict = {}
+#: (device index, stream) -> (tickets, partials): the kernel's workspaces, the
+#: tickets zero between launches
+_workspaces: dict = {}
 
 
 def launches() -> int:
@@ -43,6 +55,13 @@ def _count_launch() -> None:
     global _launches
     with _count_lock:
         _launches += 1
+
+
+def _sm_count(index: int) -> int:
+    sms = _sms.get(index)
+    if sms is None:
+        sms = _sms[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return sms
 
 
 def _check(cands: torch.Tensor, *comps: torch.Tensor) -> None:
@@ -84,18 +103,51 @@ def parzen_score(
     out = torch.empty_like(cands)
     if len(cands) == 0:
         return out
+    if torch.cuda.current_device() == cands.device.index:
+        _launch(cands, comps, out)
+    else:
+        with torch.cuda.device(cands.device):
+            _launch(cands, comps, out)
+    _count_launch()
+    return out
+
+
+def _launch(cands: torch.Tensor, comps: tuple, out: torch.Tensor) -> None:
+    """The kernel on the current device's current stream."""
     from ._build import load
 
     lib = load()
-    with torch.cuda.device(cands.device):
-        stream = torch.cuda.current_stream(cands.device).cuda_stream
-        err = lib.parzen_score_launch(
-            cands.data_ptr(), len(cands),
-            l_mus.data_ptr(), l_sigmas.data_ptr(), l_log_norm.data_ptr(), len(l_mus),
-            g_mus.data_ptr(), g_sigmas.data_ptr(), g_log_norm.data_ptr(), len(g_mus),
+    l_mus, l_sigmas, l_ln, g_mus, g_sigmas, g_ln = comps
+    C, Kl, Kg = len(cands), len(l_mus), len(g_mus)
+    index = cands.device.index
+    sms = _sm_count(index)
+    stream = torch._C._cuda_getCurrentRawStream(index)  # no Stream object: host time a call
+    capturing = torch.cuda.is_current_stream_capturing()
+    key = (index, stream)
+
+    def launch(ws):
+        tickets, partial = ws
+        return lib.parzen_score_launch(
+            cands.data_ptr(), C, l_mus.data_ptr(), l_sigmas.data_ptr(), l_ln.data_ptr(), Kl,
+            g_mus.data_ptr(), g_sigmas.data_ptr(), g_ln.data_ptr(), Kg, sms,
+            tickets.data_ptr() if tickets is not None else None,
+            tickets.numel() if tickets is not None else 0,
+            partial.data_ptr() if partial is not None else None,
+            partial.numel() if partial is not None else 0,
             out.data_ptr(), stream,
         )
+
+    ws = (None, None) if capturing else _workspaces.get(key, (None, None))
+    err = launch(ws)
+    if err == -1:  # a workspace is missing or too small: grow both
+        sizes = (ctypes.c_longlong * 2)()
+        lib.parzen_score_workspace(C, Kl, Kg, sms, sizes)
+        have = [0 if buf is None else buf.numel() for buf in ws]
+        ws = (torch.zeros(max(sizes[0], have[0]), dtype=torch.uint8, device=cands.device),
+              torch.empty(max(sizes[1], have[1]), dtype=torch.uint8, device=cands.device))
+        if not capturing:  # a graph's tickets are zeroed only when the graph replays
+            with _count_lock:
+                _workspaces[key] = ws
+        err = launch(ws)
     if err != 0:
         raise RuntimeError(f"parzen_score kernel launch failed: cudaError {err}")
-    _count_launch()
-    return out

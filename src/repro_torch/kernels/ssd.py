@@ -1,11 +1,15 @@
 """Mamba2's chunked SSD scan (state-space duality): per (batch, head), the
 intra-chunk ``L x L`` contraction and the inter-chunk ``[P, N]`` state carry.
 
-Wrapper around the hand-written CUDA kernel in ``csrc/ssd.cu``, which
-replaces the reference package's Pallas kernel
+Wrapper around the hand-written CUDA kernels in ``csrc/ssd.cu``, which
+replace the reference package's Pallas kernel
 (``repro/kernels/ssd.py::ssd_kernel``): one block per (batch, head) loops
-over the chunks in order with the state in shared memory; the source states
-its design and its bound on the card.
+over the chunks in order with the state in shared memory.  The inputs' dtype
+picks the kernel (a fixed rule, no fallback): bfloat16 ``x``, ``B``, ``C``
+(the models' compute type) run on the tensor cores, with every float32
+operand of a product split into two bfloat16 terms; float32 inputs run on
+the CUDA cores.  The source states both designs and their bounds on the
+card.
 
 The kernel computes what the reference's model computes
 (``repro/models/mamba2.py::ssd_chunked``), which is more than the TPU kernel
@@ -21,7 +25,10 @@ takes:
   plain version (``kernels/ref.py::ssd_chunked_ref``) keeps the halving rule;
 * the model's layouts, read through their strides: ``x`` ``[B, S, H, P]``,
   ``dt`` ``[B, S, H]``, B / C ``[B, S, G, N]`` (slices of the conv output),
-  so no transposed copy is made.
+  so no transposed copy is made.  The bfloat16 kernel copies rows of 16
+  bytes: ``x``, ``B`` and ``C`` need 16-byte aligned storage and strides
+  that are multiples of 8 elements, and ``P``, ``N`` of at most 64, else the
+  call raises (the model's slices, of row stride ``H P + 2 G N``, meet it).
 
 :class:`SSDFunction` makes it differentiable for training.  Its forward is
 the kernel; the reference's Pallas kernel has no backward and the reference
@@ -130,14 +137,21 @@ def _launch(xh, dt, A, Bm, Cm, chunk, initial_state):
     for name, t in (("xh", xh), ("Bm", Bm), ("Cm", Cm)):
         if t.stride(-1) != 1:
             raise ValueError(f"{name}'s last dimension must be contiguous (stride 1)")
+        strides = [st for st, n in zip(t.stride()[:3], t.shape) if n > 1]
+        if xh.dtype == torch.bfloat16 and (t.data_ptr() % 16 or any(st % 8 for st in strides)):
+            raise ValueError(f"the bfloat16 SSD kernel copies 16-byte rows: {name}'s storage must "
+                             f"be 16-byte aligned and its batch, step and head / group strides "
+                             f"multiples of 8; got strides {t.stride()}")
     A = A.contiguous()
     init = initial_state.contiguous() if initial_state is not None else None
     from ._build import load
 
     lib = load()
-    if lib.ssd_smem_bytes(L, P, N) < 0:
-        raise ValueError(f"the SSD kernel takes chunks of at most 128 steps and P, N of at most "
-                         f"128 whose tiles fit a block's shared memory; got L={L}, P={P}, N={N}")
+    if lib.ssd_smem_bytes(L, P, N, _DTYPE_CODES[xh.dtype]) < 0:
+        widest = 64 if xh.dtype == torch.bfloat16 else 128
+        raise ValueError(f"the {xh.dtype} SSD kernel takes chunks of at most 128 steps and P, N "
+                         f"of at most {widest} whose tiles fit a block's shared memory; got "
+                         f"L={L}, P={P}, N={N}")
     y = torch.empty((b, S, H, P), dtype=torch.float32, device=xh.device)
     final = torch.empty((b, H, P, N), dtype=torch.float32, device=xh.device)
     with torch.cuda.device(xh.device):

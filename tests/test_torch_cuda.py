@@ -24,8 +24,11 @@ held to autograd through the plain versions.  The SSD scan is held to
 its plain version within the reference's kernel tolerance, atol 2e-3
 (float32 sums in another order and another chunk length: the kernel cuts
 ``min(chunk, S)``-step chunks with a ragged last one, the plain version
-halves the chunk until it divides S), and its written-out backward to
-autograd through the plain version.  The sLSTM recurrence is held to its
+halves the chunk until it divides S), the bfloat16 tensor-core kernel also
+to the plain version run in float64 at the same tolerance, and its
+written-out backward to autograd through the plain version.  The Parzen
+kernel splits the components across blocks and merges in a fixed order, so
+two calls give equal bits.  The sLSTM recurrence is held to its
 plain version run in float64 within the reference's kernel tolerance, atol
 1e-4, with rtol 1e-4 for the state's n and m, which grow with the steps
 (float32 sums in another order over at most 40 steps), and its
@@ -107,6 +110,72 @@ def test_cuda_tensor_of_the_wrong_type_raises(cuda_device):
         parzen.parzen_score(args[0].double(), *args[1:])
     with pytest.raises(ValueError):
         parzen.parzen_score(args[0].cpu(), *args[1:])
+
+
+def _mixture(rng, n):
+    """``n`` components, a quarter of them ``-inf`` padding once there are 8."""
+    mus, sigmas, ln = rng.uniform(-3, 3, n), rng.uniform(0.2, 1.5, n), rng.uniform(-6, -1, n)
+    if n >= 8:
+        ln[rng.choice(n, n // 4, replace=False)] = -np.inf
+    return mus, sigmas, ln
+
+
+@pytest.mark.parametrize("k", [1, 8, 2023, 4096, 65536])
+@pytest.mark.parametrize("n_cands", [1, 24, 1000, 4096])
+def test_split_kernel_at_every_shape_is_repeatable(cuda_device, n_cands, k):
+    """The component axis split across blocks: one candidate to a table,
+    one component to 65536, sides of unequal length (k and k // 3 + 5) with
+    ``-inf`` padding; one launch counted a call, and two calls give equal
+    bits (the partials merge in a fixed order)."""
+    rng = np.random.RandomState(7 * n_cands + k)
+    args = _args(cuda_device, rng.uniform(-3.5, 3.5, n_cands), _mixture(rng, k),
+                 _mixture(rng, k // 3 + 5))
+    before = parzen.launches()
+    out = parzen.parzen_score(*args)
+    again = parzen.parzen_score(*args)
+    torch.cuda.synchronize()
+    assert parzen.launches() == before + 2
+    assert torch.equal(out, again)
+    torch.testing.assert_close(out, parzen_score_ref(*args), atol=ATOL, rtol=RTOL)
+
+
+def test_nan_propagates_as_in_the_plain_version(cuda_device):
+    """A NaN candidate scores NaN and leaves the others as they were; a NaN
+    component makes every score NaN, as ``torch.logsumexp`` does."""
+    rng = np.random.RandomState(9)
+    args = _args(cuda_device, rng.uniform(-3, 3, 1000), _mixture(rng, 2023), _mixture(rng, 4096))
+    clean = parzen.parzen_score(*args)
+    args[0][5] = float("nan")
+    out = parzen.parzen_score(*args)
+    assert torch.isnan(out[5]) and int(torch.isnan(out).sum()) == 1
+    assert torch.equal(out[:5], clean[:5]) and torch.equal(out[6:], clean[6:])
+    args[0][5] = 0.5
+    args[4][100] = float("nan")
+    out = parzen.parzen_score(*args)
+    assert bool(torch.isnan(out).all())
+    torch.testing.assert_close(out, parzen_score_ref(*args), atol=ATOL, rtol=RTOL, equal_nan=True)
+
+
+def test_graph_capture_keeps_eager_calls_on_its_stream_right(cuda_device):
+    """A call captured in a CUDA graph takes a zeroed workspace of its own
+    from the graph's pool (zeroed only when the graph replays): an eager
+    call on the capture's stream before any replay still scores right, and
+    the replay gives the same bits."""
+    rng = np.random.RandomState(11)
+    args = _args(cuda_device, rng.uniform(-3.5, 3.5, 24), _mixture(rng, 2023),
+                 _mixture(rng, 4096))
+    want = parzen_score_ref(*args)
+    stream = torch.cuda.Stream(cuda_device)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        captured = parzen.parzen_score(*args)
+    with torch.cuda.stream(stream):
+        eager = parzen.parzen_score(*args)
+    stream.synchronize()
+    torch.testing.assert_close(eager, want, atol=ATOL, rtol=RTOL)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
 
 
 def test_cuda_engine_agrees_with_numpy(cuda_device):
@@ -670,6 +739,63 @@ def test_ssd_gradient_matches_autograd_of_plain_version(cuda_device, dtype):
         scale = float(want.float().abs().max())
         tol = 1e-5 if dtype == torch.float32 else 2.0**-7  # one bf16 rounding of dx, dB, dC
         assert float((got.float() - want.float()).abs().max()) <= tol * scale
+
+
+@pytest.mark.parametrize(
+    "B,S,H,P,G,N,chunk,init,model_layout",
+    [(8, 64, 16, 16, 1, 8, 16, False, True),  # the tune study's N = 8 and 16, P = 16
+     (8, 64, 16, 16, 1, 16, 16, False, True),
+     (2, 37, 4, 16, 1, 16, 16, True, True),  # odd S: a ragged last chunk
+     (1, 131, 8, 16, 1, 8, 32, False, True),  # prime S
+     (2, 1001, 8, 16, 1, 16, 128, True, True),  # phase 17's odd S
+     (2, 300, 6, 32, 3, 16, 64, True, False),  # groups, contiguous layouts
+     (2, 300, 16, 64, 1, 64, 128, True, True),  # zamba2's widths, ragged
+     (1, 2048, 4, 64, 1, 64, 128, True, True)],  # zamba2's widths at full length
+)
+def test_ssd_bf16_tensor_core_kernel_matches_float64(cuda_device, B, S, H, P, G, N, chunk, init,
+                                                     model_layout):
+    """bf16 x, B, C run the tensor-core kernel: y and the final state within
+    SSD_TOL (and a tenth of the rms) of the plain version run in float64 on
+    the same bf16 inputs; one launch a call; two calls give equal bits."""
+    from repro_torch.kernels import ssd
+    from repro_torch.kernels.ref import ssd_chunked_ref
+
+    args = _ssd_inputs(cuda_device, B, S, H, P, G, N, torch.bfloat16, init, S + N, model_layout)
+    ssd.reset_launches()
+    y, f = ssd.ssd_forward(*args[:5], chunk, args[5])
+    y2, f2 = ssd.ssd_forward(*args[:5], chunk, args[5])
+    torch.cuda.synchronize()
+    assert ssd.launches() == 2
+    assert torch.equal(y, y2) and torch.equal(f, f2)
+    want = ssd_chunked_ref(*args[:5], chunk, args[5], compute_dtype=torch.float64)
+    for got, ref in zip((y, f), want):
+        assert got.dtype == torch.float32 and got.shape == ref.shape
+        err = float((got.double() - ref).abs().max())
+        assert err <= SSD_TOL and err <= 0.1 * float(ref.pow(2).mean().sqrt()), err
+
+
+def test_ssd_bf16_layouts_the_kernel_does_not_take_raise(cuda_device):
+    """The tensor-core kernel copies 16-byte rows: a row stride that is not a
+    multiple of 8 elements, storage that is not 16-byte aligned and P wider
+    than 64 raise, and nothing is launched."""
+    from repro_torch.kernels import ssd
+    from repro_torch.kernels.ssd import ssd_forward
+
+    x, dt, A, Bm, Cm, _ = _ssd_inputs(cuda_device, 2, 64, 4, 16, 1, 16, torch.bfloat16, False, 3,
+                                      True)
+    ssd.reset_launches()
+    conv = torch.randn(2, 64, 4 * 16 + 2 * 16 + 4, device=cuda_device).bfloat16()
+    odd = (conv[..., :64].reshape(2, 64, 4, 16), conv[..., 64:80].reshape(2, 64, 1, 16),
+           conv[..., 80:96].reshape(2, 64, 1, 16))
+    with pytest.raises(ValueError, match="16-byte"):
+        ssd_forward(odd[0], dt, A, odd[1], odd[2], 16)
+    shifted = torch.randn(2 * 64 * 4 * 16 + 4, device=cuda_device).bfloat16()[4:]
+    with pytest.raises(ValueError, match="16-byte"):
+        ssd_forward(shifted.view(2, 64, 4, 16), dt, A, Bm, Cm, 16)
+    wide = torch.randn(2, 64, 4, 80, device=cuda_device).bfloat16()
+    with pytest.raises(ValueError, match="at most 64"):
+        ssd_forward(wide, dt, A, Bm, Cm, 16)
+    assert ssd.launches() == 0
 
 
 def test_ssd_cuda_tensors_of_the_wrong_kind_raise(cuda_device):

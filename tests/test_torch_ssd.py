@@ -16,7 +16,12 @@ The same numpy-seeded inputs go through both packages:
   reference's ``ssd_chunked``: float32, atol 1e-5 / rtol 1e-4.  The backward
   cuts the steps into chunks of ``min(chunk, S)`` with a ragged last chunk
   (the kernel's rule), the reference halves the chunk until it divides S: the
-  same function, summed in another order.
+  same function, summed in another order;
+* the bfloat16 tensor-core kernel's roundings, emulated in torch ops for one
+  zamba2-width head (its operands split into bf16 terms as the kernel splits
+  them, bf16 x bf16 products summed in float32), against the plain version
+  in float64 within the on-card tolerance 2e-3; one bf16 rounding of the
+  same operands misses it.
 
 The kernel itself runs only on the card (``tests/test_torch_cuda.py``).
 """
@@ -227,3 +232,84 @@ def test_cuda_engine_refuses_cpu_tensors():
                            for a in make_inputs(1, 8, 2, 8, 1, 8, False, seed=2))
     with pytest.raises(RuntimeError, match="cannot run"):
         ssd_chunked(x, dt, A, Bm, Cm, 8, engine="cuda")
+
+
+# -- the bfloat16 tensor-core kernel's arithmetic ----------------------------------------
+
+#: the SSD kernels' tolerance from float64 on the card (chip_smoke.py's SSD_TOL)
+SSD_TOL = 2e-3
+
+
+def _bf16_terms(t: torch.Tensor, n: int) -> list:
+    """``t`` as ``n`` bfloat16 terms (held in float32): the rounding and the
+    rounded remainders, as the kernel splits a float32 operand."""
+    terms = []
+    for _ in range(n):
+        terms.append(t.to(torch.bfloat16).to(torch.float32))
+        t = t - terms[-1]
+    return terms
+
+
+def tensor_core_emulation(x, dt, A, Bm, Cm, L, h0, m_terms, h_terms, b_terms):
+    """One head's chunked scan as ``csrc/ssd.cu``'s ``ssd_tc_kernel`` computes
+    it, in float32 torch ops: ``x``, ``Bm``, ``Cm`` ([S, P] / [S, N], bf16
+    values), ``dt`` [S], the scalar ``A``, the state ``h0`` [P, N].  Per chunk
+    M' = exp(cum_t - cum_s) dt_s (C_t . B_s) below the diagonal, y = exp(cum_t)
+    (C h_in^T) + M' X and h_out = exp(cum_last) h_in + X^T (w dt B), with M',
+    h_in and w dt B each taken as ``m_terms``, ``h_terms``, ``b_terms`` bf16
+    terms against the exact bf16 x, B and C."""
+    S = x.shape[0]
+    h, ys = h0.clone(), []
+    for t0 in range(0, S, L):
+        xs, bs, cs, d = x[t0:t0 + L], Bm[t0:t0 + L], Cm[t0:t0 + L], dt[t0:t0 + L]
+        cum = torch.cumsum(d * A, 0)
+        wdt = torch.exp(cum[-1] - cum) * d
+        below = torch.ones(len(d), len(d), dtype=torch.bool).tril()
+        seg = (cum[:, None] - cum[None, :]).masked_fill(~below, 0.0)
+        M = torch.where(below, torch.exp(seg) * d[None, :] * (cs @ bs.T), 0.0)
+        y = sum(cs @ term.T for term in _bf16_terms(h, h_terms)) * torch.exp(cum)[:, None]
+        ys.append(y + sum(term @ xs for term in _bf16_terms(M, m_terms)))
+        bw = wdt[:, None] * bs
+        h = torch.exp(cum[-1]) * h + sum(xs.T @ term for term in _bf16_terms(bw, b_terms))
+    return torch.cat(ys), h
+
+
+@pytest.mark.parametrize("terms", [(2, 3, 3), (2, 2, 2), (1, 1, 1)],
+                         ids=["kernel-split", "two-terms", "one-rounding"])
+def test_tensor_core_roundings_hold_the_kernel_tolerance(terms):
+    """zamba2's head width (P = N = 64, L = 128, S = 2048), the phase-17 input
+    distributions in bf16 and an initial state, at the slowest decay those
+    rows hold (A = -0.001: the state sums the whole sequence, |y| reaches
+    about 600).  The kernel's split (M' as two bf16 terms, h_in and w dt B as
+    three) lands within SSD_TOL of float64 (7.7e-4); two terms for all three
+    operands land 2.8x as far (2.1e-3, too near SSD_TOL for float32 sums in
+    another order to decide which side it falls: held only to 1.5x the
+    kernel's split); one bf16 rounding lands two orders of magnitude past
+    SSD_TOL (1.2)."""
+    rng = np.random.RandomState(0)
+    S, P, N, L = 2048, 64, 64, 128
+
+    def bf16(a):
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16).to(torch.float32)
+
+    x, Bm, Cm = bf16(rng.randn(S, P)), bf16(rng.randn(S, N)), bf16(rng.randn(S, N))
+    dt = torch.from_numpy((np.abs(rng.randn(S)) * 0.5).astype(np.float32))
+    A = torch.tensor([-0.001])
+    h0 = torch.from_numpy(rng.randn(P, N).astype(np.float32))
+    want_y, want_f = ssd_chunked_ref(x[None, :, None], dt[None, :, None], A, Bm[None, :, None],
+                                     Cm[None, :, None], L, h0[None, None],
+                                     compute_dtype=torch.float64)
+    assert float(want_y.abs().max()) > 400
+
+    def err_of(split):
+        y, f = tensor_core_emulation(x, dt, A[0], Bm, Cm, L, h0, *split)
+        return max(float((y.double() - want_y[0, :, 0]).abs().max()),
+                   float((f.double() - want_f[0, 0]).abs().max()))
+
+    err = err_of(terms)
+    if terms == (2, 3, 3):
+        assert err <= SSD_TOL, err
+    elif terms == (2, 2, 2):
+        assert err >= 1.5 * err_of((2, 3, 3)), err
+    else:
+        assert err > 100 * SSD_TOL, err

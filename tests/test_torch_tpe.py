@@ -85,6 +85,35 @@ def test_score_inner_torch_matches_reference_engines(n_below, n_above):
     assert np.array_equal(numpy_port, numpy_ref)
 
 
+@pytest.mark.parametrize("n_below,n_above", [(1, 9), (25, 300), (25, 4071)])
+def test_cuda_engine_passes_each_estimator_its_own_length(monkeypatch, n_below, n_above):
+    """The ``"cuda"`` engine hands the scorer unpadded component triples (the
+    kernel splits any length across the card); its scores equal the
+    pow2-padded call's.  ``engine="cuda"`` refuses a CPU device when the
+    sampler is built, so a ``device="cpu"`` sampler is switched to it after:
+    its scorer then gets CPU tensors and runs the plain version here."""
+    l_port, g_port = _estimators(port_tpe, n_below + n_above, n_below, n_above)
+    cands = np.random.RandomState(n_above).uniform(-3, 3, 24)
+    lengths = []
+    score = port_tpe.parzen_score
+
+    def recorder(c, *comps):
+        lengths.append(tuple(len(t) for t in comps))
+        return score(c, *comps)
+
+    monkeypatch.setattr(port_tpe, "parzen_score", recorder)
+    sampler = _port_sampler("torch")
+    sampler._engine = "cuda"
+    got = sampler._score_inner(l_port, g_port, cands)
+    k_l, k_g = len(l_port.mus), len(g_port.mus)
+    assert lengths == [(k_l, k_l, k_l, k_g, k_g, k_g)]
+    assert (k_l, k_g) != (ops.pad_pow2_len(k_l), ops.pad_pow2_len(k_g))
+    padded = [torch.from_numpy(np.asarray(a, np.float32))
+              for a in (cands, *port_tpe._pad_est(l_port), *port_tpe._pad_est(g_port))]
+    want = port_tpe.parzen_score_ref(*padded).numpy()
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
+
+
 def test_auto_engine_moves_to_the_device_past_the_threshold():
     l_port, g_port = _estimators(port_tpe, 5, 25, 1000)
     s = port_tpe.TPESampler(seed=0, engine="auto", device="cpu")
