@@ -38,14 +38,24 @@ Phases, each of which fails the run by raising:
 6. the Monte-Carlo hypervolume counting kernel against its plain PyTorch
    version, exactly (integer counts), at the reference's test shapes, NaN
    point rows, exact ties, one point, the estimator's 25 x 8192 x 5 and a
-   4096 x 65536 x 8 shape that needs several staged point tiles;
+   4096 x 65536 x 8 shape that needs several staged point tiles; then (6b)
+   the batched kernel, one launch a greedy step of ``solve_hssp``, at
+   MOTPE's boundary-rank shape (60 points of DTLZ2's front, 25 picks): the
+   samples its threads make equal the host's float32 draw bit for bit for
+   every set, its picks equal the ``"torch"`` engine's, and its counts the
+   plain version's at the singletons, a middle step and the last step;
 7. the multi-objective main path: MOTPE (``TPESampler(multi_objective=True,
    engine="cuda")``) on 5-objective DTLZ2 with 14 variables, 512 trials as
    waves of 32 (half of a 1024-trial study, which ran 303 s on an H100).
-   Both kernels' launch counts are set to 0 just before the study and read
-   just after; the final split is held identical between the ``"cuda"``
-   and ``"torch"`` engines on the card, and the counting kernel is checked
-   at the below-set and front-0 shapes the final history gives it;
+   The kernels' launch counts are set to 0 just before the study and read
+   just after: the per-call counting kernel's must equal the estimator's
+   per-call counts, the batched kernel's the batches made and at most k a
+   ``solve_hssp`` call (the singletons, then one a greedy step); the trials'
+   SHA-256 is printed (``scripts/kernel_baseline.py --only motpe`` compares
+   it with another commit's); the final split is held identical between the
+   ``"cuda"`` and ``"torch"`` engines on the card, and both counting kernels
+   are checked at the shapes the study gave them (the below set and front 0
+   for the per-call one, the largest greedy step for the batched one);
 8. NSGA-II (``engine="cuda"``) on the same DTLZ2, 1024 trials as waves of
    24, and ``study.best_trials`` on the card against the pairwise loop;
 9. the flash-attention kernels against their plain PyTorch version (atol /
@@ -131,7 +141,7 @@ Phases, each of which fails the run by raising:
 20. phase 16's study over ``families=("dense", "mamba2")``: trials of both
     families complete or are pruned, none raises, every kernel of the path
     launched;
-21. the sLSTM recurrence kernel against its plain PyTorch version run in
+21. the sLSTM recurrence kernels against their plain PyTorch version run in
     float64 (every step's h, c, n, m within 1e-5 + 1e-5 |x| of one float64
     step from the kernel's own entering state; the whole run's h_seq and
     final state within a tenth of the exact output's rms, the float32
@@ -139,10 +149,12 @@ Phases, each of which fails the run by raising:
     sweep, an initial state, S = 1, an odd S, the smoke width and
     xlstm-1.3b's prefill / training shape (B 8, S 2048, 4 heads of 512,
     bf16 pre-activations read as a slice of a wider tensor), its decode
-    shape (B 8, S 1) and phase 22(b)'s prefill groups, each with its time,
-    the plain version's, the bound, the kernel's ``ptxas`` registers and
-    spills and the blocks launched; the Function's gradients against
-    autograd through the plain version at two shapes;
+    shapes (B 8 and 4, S 1: the decode kernel, its card time from a CUDA
+    graph beside the eager one) and phase 22(b)'s prefill groups, each with
+    its time, the plain version's, the bound, the kernels' ``ptxas``
+    registers and spills and the blocks launched; two calls at the
+    prefill / training shape must give equal bits; the Function's
+    gradients against autograd through the plain version at two shapes;
 22. the serving main path at xlstm-1.3b's full size (42 mLSTM and 6 sLSTM
     blocks, random weights from a seeded generator): (a) ``launch.serve.
     main`` on the arch, (b) the ``Engine`` with phase 10(b)'s traffic, (c)
@@ -154,8 +166,11 @@ Phases, each of which fails the run by raising:
     runs the block's full form on one token;
 23. training xlstm-1.3b at full size through ``launch.train.main``: 3 steps
     of 8 x 2048 tokens, bf16, AdamW, remat; 1 cross-entropy and 2 x 6 sLSTM
-    launches a step, finite losses, the ``cuda`` and ``torch`` engine losses
-    within 3e-3, a traced step, the loss of one batch of 8 x 256 tokens
+    launches a step, finite losses, the ``cuda`` engine's loss within 3e-3
+    of the ``torch`` engine's on one batch of 8 x 256 tokens and of the
+    plain version summing in the kernel's order on one of 8 x 2048 (the
+    ``torch`` engine, the plain version in float64 and in a second float32
+    order recorded beside it), a traced step, the loss of one batch of 8 x 256 tokens
     falling over 8 AdamW steps on that batch (XLSTM_DESCENT_SEQ), and the
     sLSTM kernel's and its written-out backward's share of the step;
 24. phase 16's study over ``families=("dense", "mlstm", "mamba2")``.
@@ -168,7 +183,9 @@ exits with status 1 and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import hashlib
 import json
 import math
 import re
@@ -190,6 +207,8 @@ ATOL, RTOL = 2e-4, 1e-4
 #: 16 results per clock per SM (CUDA programming guide, compute 9.0)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+#: FP64 FLOP/s outside the tensor cores (the same data sheet)
+FP64_OPS_PER_S = 34e12
 EXP_PER_CLOCK_PER_SM = 16
 #: FP32 operations per (candidate, component) besides the exp
 PARZEN_OPS_PER_PAIR = 8
@@ -257,9 +276,16 @@ XLSTM_F32_LOGITS_TOL = 2.5e-2
 #: 4.0 and the kernels' engine to HYBRID_BF16_RATIO x the plain engine's
 #: distance from float32 (it was 1.11x)
 XLSTM_BF16_LOGITS_TOL = 4.0
-#: one batch's training loss on the two engines: xlstm's sLSTM runs drift
-#: apart in float32 over 2048 steps as above; on the H100 the losses lay
-#: 7.4e-4 apart (near 11.33), so 3e-3
+#: one batch's training loss on the ``cuda`` engine against the plain
+#: version: the ``torch`` engine at XLSTM_DESCENT_SEQ tokens, and the plain
+#: version summing h @ R in the kernel's order (slstm_kernel_order) at the
+#: training length, 8 x 2048.  There the float32 runs of the recurrence lie
+#: above the float64 plain version by amounts that follow the summation
+#: order: on the H100, at the same weights (losses near 11.32), the plain
+#: version with the dims reversed +1.6e-4, in its einsum order +2.9e-3, in
+#: the kernel's order +5.7e-3, the kernel +6.9e-3.  The kernel lies 1.2e-3
+#: from the plain version in its own order and 3.9e-3 from the einsum order
+#: (7.4e-4 with its earlier grid-barrier design, which summed otherwise)
 XLSTM_TRAIN_LOSS_TOL = 3e-3
 #: phase 23's descent check: AdamW at the launcher's lr (3e-4) on one batch
 #: of 8 x 256 tokens, 8 steps, at full width and depth in bfloat16.  At 2048
@@ -748,25 +774,132 @@ def phase_mc_kernel() -> list[dict]:
     return rows
 
 
+def dtlz2_front(rng: np.random.RandomState, n: int) -> np.ndarray:
+    """``n`` objective vectors of DTLZ2 near its front (g in [0, 0.05]): the
+    shape of MOTPE's boundary rank on phase 7's study."""
+    return np.array([dtlz2(np.concatenate([rng.uniform(size=DTLZ2_M - 1),
+                                           0.5 + rng.uniform(-0.05, 0.05, DTLZ2_K)]))
+                     for _ in range(n)])
+
+
+def _work(args: tuple) -> int:
+    """Point-sample pairs of one ``mc_hv_counts_sets`` call."""
+    return args[0].shape[0] * args[4].shape[0]
+
+
+def mc_sets_compares(P, off, lo, span, u) -> tuple[int, int]:
+    """(compares this data needs, float64 operations of the samples): each
+    set's samples made by the plain version, then :func:`mc_compares`."""
+    from repro_torch.kernels.ref import mc_hv_samples_ref
+
+    bounds = off.tolist()
+    compares = 0
+    for g, (a, b) in enumerate(zip(bounds[:-1], bounds[1:])):
+        if b > a:
+            compares += mc_compares(P[a:b], mc_hv_samples_ref(lo[g:g + 1], span[g:g + 1], u)[0])
+    return compares, 2 * lo.shape[0] * u.numel()
+
+
+def check_mc_sets(args: tuple, label: str, reps: int) -> dict:
+    """The batched counting kernel against its plain version, exactly, with
+    times from CUDA events around eager calls (``ms``) and around a CUDA
+    graph of the calls (``card_ms``), and the bound from this data."""
+    from repro_torch.kernels.hypervolume import mc_hv_counts_sets
+    from repro_torch.kernels.ref import mc_hv_counts_sets_ref
+
+    P, off, lo, span, u = args
+    excl, total = mc_hv_counts_sets(*args)
+    excl_r, total_r = mc_hv_counts_sets_ref(*args)
+    torch.cuda.synchronize()
+    mismatches = int((excl != excl_r).sum()) + int((total != total_r).sum())
+    err = max(float((excl - excl_r).abs().max()) if len(excl) else 0.0,
+              float((total - total_r).abs().max()))
+    assert mismatches == 0, (label, mismatches, err)
+    G, m = lo.shape
+    N, s = P.shape[0], u.shape[0]
+    ms = time_ms(lambda: mc_hv_counts_sets(*args), reps)
+    card_ms = graph_ms(lambda: mc_hv_counts_sets(*args), 10, max(1, reps // 10))
+    plain_ms = time_ms(lambda: mc_hv_counts_sets_ref(*args), 3, 1)
+    compares, f64_ops = mc_sets_compares(*args)
+    ops_s = compares / FP32_OPS_PER_S + f64_ops / FP64_OPS_PER_S
+    nbytes = 4 * N * m + 4 * (G + 1) + 2 * 8 * G * m + 8 * s * m + 4 * (N + G)
+    bytes_s = nbytes / HBM_BYTES_PER_S
+    bound_ms = 1e3 * max(ops_s, bytes_s)
+    bound_by = "bytes" if bytes_s >= ops_s else "operations"
+    row = {"label": label, "sets": G, "points": N, "s": s, "m": m, "mismatches": mismatches,
+           "max_abs_err": err, "compares": compares, "ms": ms, "card_ms": card_ms,
+           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+    print(f"  mc_hv_sets {label:<26} G={G:<3} points={N:<5} s={s} m={m} mismatches={mismatches} "
+          f"eager={ms:.4f} ms card={card_ms:.4f} ms plain={plain_ms:.4f} ms "
+          f"bound={bound_ms:.6f} ms ({bound_by}; {compares} compares)")
+    return row
+
+
+def phase_mc_sets() -> list[dict]:
+    """Phase 6 (batched): ``solve_hssp`` at MOTPE's boundary-rank shape (60
+    points of DTLZ2's front, 25 picks) on the ``"cuda"`` engine, each
+    launch's samples held to the host's draw bit for bit, its picks to the
+    ``"torch"`` engine's on the card, and the batched kernel to its plain
+    version at the singletons, a middle step and the last step."""
+    from repro_torch.core import moo
+    from repro_torch.kernels import hypervolume
+
+    print("phase 6b: mc_hv_counts_sets kernel (one launch a greedy step) vs plain version")
+    pts = dtlz2_front(np.random.RandomState(6), 60)
+    ref = moo.default_reference_point(pts)
+    hypervolume.reset_launches()
+    with StageTimer([(moo, "mc_hv_counts_sets", "sets", positional)]) as rec:
+        sel = moo.solve_hssp(pts, 25, ref, estimator=moo.HypervolumeEstimator(engine="cuda"))
+    torch.cuda.synchronize()
+    launched, calls = hypervolume.set_launches(), rec.args["sets"]
+    assert launched == len(calls) == 25 and hypervolume.launches() == 0, (launched, len(calls))
+    sel_t = moo.solve_hssp(pts, 25, ref, estimator=moo.HypervolumeEstimator(engine="torch"))
+    assert np.array_equal(sel, sel_t), (sel, sel_t)
+    print(f"  solve_hssp(60 points, k=25): {launched} batched launches, picks equal the "
+          f"'torch' engine's on the card")
+    # the samples each set's threads build against the host's per-call draw,
+    # numpy's uniform in [lo, ref] rounded to float32
+    bad = 0
+    for args in calls:
+        _, _, lo, span, u = args
+        smp = hypervolume.mc_hv_samples(lo, span, u).cpu().numpy()
+        for g, l in enumerate(lo.cpu().numpy()):
+            host = np.random.RandomState(0).uniform(l, ref, size=u.shape).astype(np.float32)
+            bad += int(not np.array_equal(host.view(np.uint32), smp[g].view(np.uint32)))
+    n_sets = sum(a[2].shape[0] for a in calls)
+    assert bad == 0, f"{bad} of {n_sets} sets' card samples differ from the host's"
+    print(f"  samples of all {n_sets} sets built on the card == the host's float32 draw, "
+          f"bit for bit")
+    return [check_mc_sets(calls[0], "singletons", 100),
+            check_mc_sets(calls[len(calls) // 2], f"greedy step {len(calls) // 2}", 100),
+            check_mc_sets(calls[-1], f"greedy step {len(calls) - 1}", 100)]
+
+
 class StageTimer:
     """Wall seconds and calls of a few functions of the multi-objective
-    engine, wrapped for one phase and put back after it."""
+    engine, wrapped for one phase and put back after it.  A target
+    ``(owner, attribute name, label[, record])`` with ``record`` keeps
+    ``record(args, kwargs)`` of every call in ``args[label]`` (tensors by
+    reference: nothing is copied while the phase runs)."""
 
     def __init__(self, targets):
-        self.targets = targets  # (owner, attribute name, label)
-        self.seconds = {label: 0.0 for _, _, label in targets}
-        self.calls = {label: 0 for _, _, label in targets}
+        self.targets = [tuple(t) + (None,) * (4 - len(t)) for t in targets]
+        self.seconds = {t[2]: 0.0 for t in self.targets}
+        self.calls = {t[2]: 0 for t in self.targets}
+        self.args = {t[2]: [] for t in self.targets}
         self._saved = []
 
     def __enter__(self):
-        for owner, name, label in self.targets:
+        for owner, name, label, record in self.targets:
             fn = getattr(owner, name)
             self._saved.append((owner, name, fn))
-            setattr(owner, name, self._wrap(fn, label))
+            setattr(owner, name, self._wrap(fn, label, record))
         return self
 
-    def _wrap(self, fn, label):
+    def _wrap(self, fn, label, record):
         def timed(*args, **kwargs):
+            if record is not None:
+                self.args[label].append(record(args, kwargs))
             t0 = time.perf_counter()
             try:
                 return fn(*args, **kwargs)
@@ -776,11 +909,43 @@ class StageTimer:
         return timed
 
     def __exit__(self, *exc):
-        for owner, name, fn in self._saved:
+        for owner, name, fn in reversed(self._saved):
             setattr(owner, name, fn)
+        self._saved = []
 
 
-def phase_motpe() -> tuple[dict, list[dict]]:
+def positional(args, kwargs):
+    """A ``record`` for :class:`StageTimer`: the call's positional arguments."""
+    return args
+
+
+def trials_hash(study) -> str:
+    """SHA-256 over every trial's number, parameters (name and float64 bits)
+    and objective values: two studies that made the same trials agree."""
+    h = hashlib.sha256()
+    for t in study.trials:
+        h.update(str(t.number).encode())
+        for name, value in sorted(t.params.items()):
+            h.update(name.encode())
+            h.update(np.float64(value).tobytes())
+        h.update(np.asarray(t.values, dtype=np.float64).tobytes())
+    return h.hexdigest()
+
+
+def motpe_study(hpo, n_trials: int, wave: int):
+    """The MOTPE study of phase 7 on ``hpo`` (a ``repro_torch.core``, this
+    checkout's or another's): ``(sampler, study, seconds)`` after
+    ``n_trials`` DTLZ2 trials as waves of ``wave``, synchronized."""
+    sampler = hpo.TPESampler(seed=0, multi_objective=True, engine="cuda")
+    study = hpo.create_study(directions=["minimize"] * DTLZ2_M, sampler=sampler)
+    t0 = time.perf_counter()
+    for _ in range(n_trials // wave):
+        run_dtlz2_wave(study, wave)
+    torch.cuda.synchronize()
+    return sampler, study, time.perf_counter() - t0
+
+
+def phase_motpe() -> tuple[dict, list[dict], dict]:
     """Phase 7: MOTPE on 5-objective DTLZ2 as waves of 32 on the card."""
     import repro_torch.core as hpo
     from repro_torch.core import moo, telemetry
@@ -790,32 +955,38 @@ def phase_motpe() -> tuple[dict, list[dict]]:
     n_trials, wave = 512, 32
     print(f"phase 7: MOTPE on DTLZ2 ({DTLZ2_M} objectives, {DTLZ2_M - 1 + DTLZ2_K} "
           f"variables), {n_trials} trials in waves of {wave}, engine='cuda'")
-    sampler = hpo.TPESampler(seed=0, multi_objective=True, engine="cuda")
-    study = hpo.create_study(directions=["minimize"] * DTLZ2_M, sampler=sampler)
     est = moo.HypervolumeEstimator
     stages = StageTimer([
         (est, "_mc_stats", "mc_call"), (est, "_counts", "mc_counts"),
-        (moo, "solve_hssp", "hssp"), (moo, "nondomination_ranks", "ranks"),
+        (est, "_hypervolumes", "mc_batches"),
+        (moo, "solve_hssp", "hssp", lambda a, kw: (len(a[0]), int(a[1]))),  # (points, k)
+        (moo, "mc_hv_counts_sets", "sets", positional),
+        (moo, "nondomination_ranks", "ranks"),
     ])
     telemetry.reset()
     telemetry.enable()
     with stages:
         parzen.reset_launches()
         hypervolume.reset_launches()
-        t0 = time.perf_counter()
-        for _ in range(n_trials // wave):
-            run_dtlz2_wave(study, wave)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
+        sampler, study, seconds = motpe_study(hpo, n_trials, wave)
         mc_launches = hypervolume.launches()
+        set_launches = hypervolume.set_launches()
         parzen_launches = parzen.launches()
     telemetry.disable()
     hists = telemetry.snapshot()["histograms"]
     assert mc_launches > 0, "the MOTPE study never launched the counting kernel"
+    assert set_launches > 0, "the MOTPE study never launched the batched counting kernel"
     assert parzen_launches > 0, "the MOTPE study never launched the Parzen kernel"
     assert parzen_launches == hists["tpe.score"]["count"], (parzen_launches, hists["tpe.score"])
+    # every per-call count (the below set's contributions) is one launch, and
+    # every batch of subset evaluations one batched launch
     assert stages.calls["mc_counts"] == mc_launches, (stages.calls, mc_launches)
-
+    assert stages.calls["sets"] == set_launches, (stages.calls["sets"], set_launches)
+    # at most one batched launch for the singletons and one a greedy step
+    # after the first pick: k a call
+    greedy_bound = sum(min(k, n) for n, k in stages.args["hssp"])
+    assert set_launches <= greedy_bound, (set_launches, greedy_bound)
+    digest = trials_hash(study)
     trials = study.trials
     assert len(trials) == n_trials
     V = np.array([t.values for t in trials])
@@ -848,6 +1019,8 @@ def phase_motpe() -> tuple[dict, list[dict]]:
         "mc_call_s": stages.seconds["mc_call"],
         "mc_host_draw_s": stages.seconds["mc_call"] - stages.seconds["mc_counts"],
         "mc_counts_s": stages.seconds["mc_counts"],
+        "mc_batches": stages.calls["mc_batches"],
+        "mc_batches_s": stages.seconds["mc_batches"],
         "hssp_s": stages.seconds["hssp"],
         "hssp_calls": stages.calls["hssp"],
         "ranks_s": stages.seconds["ranks"],
@@ -857,6 +1030,8 @@ def phase_motpe() -> tuple[dict, list[dict]]:
     result = {
         "n_trials": n_trials, "wave": wave, "seconds": seconds,
         "trials_per_s": n_trials / seconds, "mc_hv_launches": mc_launches,
+        "mc_hv_set_launches": set_launches, "greedy_bound": greedy_bound,
+        "trials_sha256": digest,
         "parzen_launches": parzen_launches, "front0": int(front0.sum()),
         "n_below": int(len(b_c)), "min_front_norm": g_min,
         "spans": spans, "breakdown": breakdown,
@@ -864,8 +1039,11 @@ def phase_motpe() -> tuple[dict, list[dict]]:
     print(f"  {n_trials} trials in {seconds:.3f} s = {n_trials / seconds:.2f} trials/s; "
           f"front 0 holds {int(front0.sum())} trials (closest to the unit sphere: "
           f"norm {g_min:.4f}); below set {len(b_c)}")
-    print(f"  launches: mc_hv_counts {mc_launches}, parzen_score {parzen_launches} "
+    print(f"  launches: mc_hv_counts {mc_launches} (the below sets' contributions), "
+          f"mc_hv_counts_sets {set_launches} (<= {greedy_bound}: one a greedy step of "
+          f"{stages.calls['hssp']} solve_hssp calls), parzen_score {parzen_launches} "
           f"(== tpe.score spans)")
+    print(f"  trials sha256 {digest}")
     print(f"  final split identical on 'cuda' and 'torch' (max |dw| "
           f"{float(np.max(np.abs(w_c - w_t))):.3e})")
     for name, sp in spans.items():
@@ -881,7 +1059,9 @@ def phase_motpe() -> tuple[dict, list[dict]]:
         P = torch.from_numpy(np.ascontiguousarray(pts, np.float32)).to(dev)
         S = torch.from_numpy(estimator_samples(pts, ref)).to(dev)
         rows.append(check_mc(P, S, label, 100))
-    return result, rows
+    largest = max(stages.args["sets"], key=_work)  # one of the largest greedy steps
+    set_row = check_mc_sets(largest, "MOTPE largest greedy step", 100)
+    return result, rows, set_row
 
 
 def phase_nsga2() -> dict:
@@ -1852,6 +2032,109 @@ def engines_loss(cfg, model, batch, tol: float = TRAIN_LOSS_TOL) -> dict:
     return {**losses, "abs_diff": gap, "tol": tol}
 
 
+@contextlib.contextmanager
+def plain_slstm_as(scan):
+    """The ``torch`` engine's sLSTM scan (the plain version) replaced by
+    ``scan(plain, *args, **kwargs)`` inside the block."""
+    from repro_torch.models import ssm_xlstm
+
+    plain = ssm_xlstm.slstm_scan_ref
+    ssm_xlstm.slstm_scan_ref = lambda *args, **kwargs: scan(plain, *args, **kwargs)
+    try:
+        yield
+    finally:
+        ssm_xlstm.slstm_scan_ref = plain
+
+
+def slstm_float64(plain, *args, **kwargs):
+    """The plain scan in float64, its outputs rounded to float32: a yardstick
+    of float32's rounding through the recurrence."""
+    hs, final = plain(*args, compute_dtype=torch.float64, **kwargs)
+    return hs.float(), tuple(t.float() for t in final)
+
+
+def slstm_dims_reversed(plain, u, R, c0, n0, h0, m0, **kwargs):
+    """The plain float32 scan with each head's dims relabelled in reverse: the
+    same recurrence, its h @ R summed over k in the other order (another
+    float32 rounding of the same function)."""
+    B, S, d4 = u.shape
+    H, D = R.shape[1], R.shape[2]
+    u = u.reshape(B, S, 4, H, D).flip(-1).reshape(B, S, d4)
+    hs, final = plain(u, R.flip(2, 3), *(t.flip(-1) for t in (c0, n0, h0, m0)), **kwargs)
+    return (hs.reshape(B, S, H, D).flip(-1).reshape(B, S, H * D),
+            tuple(t.flip(-1) for t in final))
+
+
+def slstm_kernel_order(plain, u, R, c0, n0, h0, m0):
+    """The plain float32 scan with ``h @ R`` summed as the sLSTM kernel
+    (``csrc/slstm.cu``) sums it: per column the plan's ``parts`` ranges of
+    consecutive k, each a chain of FMAs from zero (a float64 product, exact
+    for float32 operands, plus the running sum, rounded to float32), the
+    parts added in order from zero, u added last; the gates as the plain
+    version computes them (``plain`` is not called)."""
+    from repro_torch.kernels import slstm
+
+    B, S, d4 = u.shape
+    H, D = R.shape[1], R.shape[2]
+    parts = slstm.slstm_plan(B, H, D, u.dtype)["parts"]
+    kp = D // parts
+    assert kp * parts == D, (D, parts)
+    f32 = torch.float32
+    Rk = R.double().reshape(4, H, parts, kp, D).permute(3, 0, 1, 2, 4)[:, :, None]
+    c, n, h, m = (t.to(f32) for t in (c0, n0, h0, m0))
+    hs = []
+    for t in range(S):
+        hk = h.double().reshape(B, H, parts, kp).permute(3, 0, 1, 2)[..., None]
+        acc = torch.zeros((4, B, H, parts, D), dtype=f32, device=u.device)
+        for i in range(kp):
+            acc = torch.addcmul(acc, hk[i], Rk[i]).to(f32)
+        rec = torch.zeros((4, B, H, D), dtype=f32, device=u.device)
+        for q in range(parts):
+            rec = rec + acc[:, :, :, q]
+        a = u[:, t].to(f32).reshape(B, 4, H, D).transpose(0, 1) + rec
+        z, i_, f, o = torch.tanh(a[0]), a[1], a[2], torch.sigmoid(a[3])
+        m_new = torch.maximum(f + m, i_)
+        ig, fg = torch.exp(i_ - m_new), torch.exp(f + m - m_new)
+        c = fg * c + ig * z
+        n = torch.maximum(fg * n + ig, torch.exp(-m_new))
+        h = o * c / n
+        m = m_new
+        hs.append(h.reshape(B, d4 // 4))
+    return torch.stack(hs, dim=1), (c, n, h, m)
+
+
+def xlstm_engines_loss(cfg, model, batch, short_batch) -> dict:
+    """xlstm's loss on the ``cuda`` engine at the same weights, held within
+    XLSTM_TRAIN_LOSS_TOL of the plain version: the ``torch`` engine at
+    ``short_batch``'s length, and at ``batch``'s (the training length) the
+    plain version summing ``h @ R`` in the kernel's order
+    (:func:`slstm_kernel_order`).  Recorded beside them: the ``torch``
+    engine, the plain version with the dims in reverse order and in float64
+    (see XLSTM_TRAIN_LOSS_TOL)."""
+    from repro_torch.models import loss_fn
+
+    short = engines_loss(cfg, model, short_batch, tol=XLSTM_TRAIN_LOSS_TOL)
+    B = batch["tokens"].shape[0]
+    with torch.no_grad():
+        losses = {e: float(loss_fn(model, batch, engine=e)[0]) for e in ("cuda", "torch")}
+        for name, scan in (("kernel_order", slstm_kernel_order),
+                           ("torch_dims_reversed", slstm_dims_reversed),
+                           ("float64", slstm_float64)):
+            with plain_slstm_as(scan):
+                losses[name] = float(loss_fn(model, batch, engine="torch")[0])
+    gap = abs(losses["cuda"] - losses["kernel_order"])
+    from_f64 = {k: v - losses["float64"] for k, v in losses.items() if k != "float64"}
+    print(f"  at {B} x {batch['tokens'].shape[1]} tokens: loss cuda {losses['cuda']:.6f} vs the "
+          f"plain version in the kernel's order {losses['kernel_order']:.6f}, "
+          f"|d| {gap:.3e} (<= {XLSTM_TRAIN_LOSS_TOL}); recorded: torch "
+          f"{losses['torch']:.6f}, torch with the dims reversed "
+          f"{losses['torch_dims_reversed']:.6f}, float64 sLSTM {losses['float64']:.6f}; from "
+          f"float64: " + ", ".join(f"{k} {v:+.3e}" for k, v in from_f64.items()))
+    assert gap <= XLSTM_TRAIN_LOSS_TOL, (losses, gap)
+    return {"short": short, "long": {**losses, "from_float64": from_f64, "abs_diff": gap,
+                                      "tol": XLSTM_TRAIN_LOSS_TOL}}
+
+
 def trace_train_step(cfg, model, batch, name: str) -> dict:
     """One synchronized train step (after a warm one) under
     ``torch.profiler``: the card's busy time and idle share, and its kernel
@@ -2473,13 +2756,15 @@ def slstm_bound_ms(B, S, H, D, dtype) -> tuple[float, str, int]:
 
 
 def slstm_ptxas(build_log: str) -> dict:
-    """``ptxas`` lines of each sLSTM kernel instance, keyed by dtype."""
+    """``ptxas`` lines of each sLSTM kernel instance, keyed by dtype and kind
+    (the scan, ``...Lb1E``, and the decode kernel, ``...Lb0E``)."""
     out: dict = {}
     key = None
     for line in build_log.splitlines():
         m = re.search(r"entry function '(\S*slstm_kernel\S*)'", line)
         if m:
-            key = "bfloat16" if "bfloat16" in m.group(1) else "float32"
+            key = ("bfloat16" if "bfloat16" in m.group(1) else "float32") + (
+                " scan" if "Lb1E" in m.group(1) else " decode")
             out[key] = []
             continue
         if "entry function" in line:
@@ -2546,6 +2831,8 @@ def check_slstm(gen, label, B, S, H, D, dtype, init, model_layout, reps, **dist)
     assert rms["h_seq"] >= 10 * SLSTM_TOL, (label, rms)
     del hs, fin, phs, pfin, ehs, efin
     ms = time_ms(lambda: slstm_forward(*args), reps)
+    # the decode kernel's time on the card alone (a CUDA graph of the calls)
+    card_ms = graph_ms(lambda: slstm_forward(*args), 20, 10) if S == 1 else None
     plain_ms = time_ms(lambda: slstm_scan_ref(*args), max(1, reps // 5), 1)
     bound_ms, bound_by, flops = slstm_bound_ms(B, S, H, D, dtype)
     plan = slstm_plan(B, H, D, dtype)
@@ -2554,7 +2841,8 @@ def check_slstm(gen, label, B, S, H, D, dtype, init, model_layout, reps, **dist)
            "layout": "model" if model_layout else "contiguous", "plan": plan,
            "max_abs_err": max(errs.values()), "errs": errs, "plain_f32_errs": plain_errs,
            "ref_rms": rms, "step_errs": step_errs, "step_tol": SLSTM_STEP_TOL, "ms": ms,
-           "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+           "card_ms": card_ms, "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
+           "bound_by": bound_by,
            "flops": flops, "tflops": flops / (ms * 1e9)}
     print(f"  slstm {label:<28} B={B} S={S} H={H} D={D} {dname}{' init' if init else ''}: "
           f"each step from float64 "
@@ -2564,9 +2852,30 @@ def check_slstm(gen, label, B, S, H, D, dtype, init, model_layout, reps, **dist)
           + ", ".join(f"{n} {errs[n]:.3e} (float32 plain {plain_errs[n]:.3e}, rms {rms[n]:.3g})"
                       for n in errs)
           + f"; {plan['blocks']} blocks of E={plan['E']} dims, {plan['smem_bytes']} B smem; "
-          f"kernel={ms:.4f} ms ({row['tflops']:.2f} TFLOP/s) plain={plain_ms:.4f} ms "
+          f"kernel={ms:.4f} ms ({row['tflops']:.2f} TFLOP/s"
+          + (f"; card {card_ms:.5f} ms" if card_ms is not None else "")
+          + f") plain={plain_ms:.4f} ms "
           f"bound={bound_ms:.4g} ms ({bound_by})")
     return row
+
+
+def check_slstm_repeat(gen, label, B, S, H, D, dtype) -> dict:
+    """Two calls of the kernel on the same inputs (from the empty cache,
+    with the per-step states) give equal bits in every output: the partial
+    sums go together in a fixed order."""
+    from repro_torch.kernels.slstm import slstm_forward
+
+    args = slstm_inputs(gen, B, S, H, D, dtype, False, True)
+    runs = []
+    for _ in range(2):
+        hs, fin, seqs = slstm_forward(*args, save_states=True)
+        runs.append((hs, *fin, *seqs))
+    torch.cuda.synchronize()
+    equal = all(torch.equal(a, b) for a, b in zip(*runs))
+    assert equal, f"slstm {label}: two calls on the same inputs differ"
+    print(f"  slstm {label:<28} B={B} S={S} H={H} D={D}: two calls, equal bits in h_seq, the "
+          f"final state and every step's c, n, m")
+    return {"label": label, "B": B, "S": S, "H": H, "D": D, "equal_bits": equal}
 
 
 def check_slstm_grad(gen, label, B, S, H, D, dtype) -> dict:
@@ -2607,7 +2916,7 @@ def check_slstm_grad(gen, label, B, S, H, D, dtype) -> dict:
     return row
 
 
-def phase_slstm(build_log: str) -> tuple[list[dict], list[dict], dict]:
+def phase_slstm(build_log: str) -> tuple[list[dict], list[dict], dict, dict]:
     """Phase 21: the sLSTM kernel against its plain version, and the
     Function's gradients against autograd through the plain version."""
     print(f"phase 21: slstm kernel vs plain PyTorch version; {nvidia_smi('name,power.limit')}")
@@ -2631,9 +2940,15 @@ def phase_slstm(build_log: str) -> tuple[list[dict], list[dict], dict]:
     for B, S in zamba2_groups():  # phase 22(b)'s prefills, from the empty cache
         rows.append(check_slstm(gen, "xlstm-1.3b serve group", B, S, 4, 512, bf16, False,
                                 True, 5))
+    # decode (the kernel of its own at S = 1) at phase 22(c)'s slots and the
+    # entry point's groups of 4
+    rows.append(check_slstm(gen, "xlstm-1.3b decode B=4", 4, 1, 4, 512, bf16, True, True, 20))
+    rows.append(check_slstm(gen, "xlstm-1.3b decode, empty", 8, 1, 4, 512, bf16, False, True,
+                            20))
+    repeat = check_slstm_repeat(gen, "xlstm-1.3b prefill / training", 8, 2048, 4, 512, bf16)
     grads = [check_slstm_grad(gen, "smoke", 2, 64, 2, 32, f32),
              check_slstm_grad(gen, "xlstm heads", 2, 256, 4, 512, bf16)]
-    return rows, grads, ptxas
+    return rows, grads, ptxas, repeat
 
 
 def phase_serve_xlstm(slstm_rows) -> dict:
@@ -2745,7 +3060,9 @@ def phase_train_xlstm(slstm_rows) -> dict:
     del result
     torch.cuda.empty_cache()
     model = init_model_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
-    train["engines"] = engines_loss(cfg, model, batch, tol=XLSTM_TRAIN_LOSS_TOL)
+    short_batch = SyntheticLM(cfg, B, XLSTM_DESCENT_SEQ, device="cuda").batch_at(0)
+    train["engines"] = xlstm_engines_loss(cfg, model, batch, short_batch)
+    del short_batch
     train["trace"] = trace_train_step(cfg, model, batch, "train_trace_xlstm")
     del model, batch
     torch.cuda.empty_cache()
@@ -2811,7 +3128,8 @@ def main() -> int:
     waves, wave_rows = phase_waves(sm_clock_hz)
     phase_agreement()
     mc_rows = phase_mc_kernel()
-    motpe, motpe_rows = phase_motpe()
+    mc_set_rows = phase_mc_sets()
+    motpe, motpe_rows, motpe_set_row = phase_motpe()
     nsga2 = phase_nsga2()
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full precision
     torch.backends.cudnn.allow_tf32 = False
@@ -2827,7 +3145,7 @@ def main() -> int:
     serve_zamba2 = phase_serve_zamba2(ssd_rows)
     train_zamba2 = phase_train_zamba2(ssd_rows)
     tune_hybrid = phase_tune(20, ("dense", "mamba2"))
-    slstm_rows, slstm_grads, slstm_ptx = phase_slstm(_build.build_log())
+    slstm_rows, slstm_grads, slstm_ptx, slstm_repeat = phase_slstm(_build.build_log())
     serve_xlstm = phase_serve_xlstm(slstm_rows)
     train_xlstm = phase_train_xlstm(slstm_rows)
     tune_xlstm = phase_tune(24, ("dense", "mlstm", "mamba2"))
@@ -2866,6 +3184,23 @@ def main() -> int:
         "bound_by": mc_main["bound_by"],
         "library_ms": None,
         "shapes": mc_rows + motpe_rows,
+    })
+    # the batched counts at phase 7's largest greedy step
+    kernels.append({
+        "name": "mc_hv_counts_sets",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/hypervolume.cu",
+        "replaces": "src/repro/kernels/hypervolume.py:38",
+        "launches": motpe["mc_hv_set_launches"],
+        "mismatches": sum(r["mismatches"] for r in mc_set_rows + [motpe_set_row]),
+        "max_abs_err": max(r["max_abs_err"] for r in mc_set_rows + [motpe_set_row]),
+        "ms": motpe_set_row["ms"],
+        "card_ms": motpe_set_row["card_ms"],
+        "plain_ms": motpe_set_row["plain_ms"],
+        "bound_ms": motpe_set_row["bound_ms"],
+        "bound_by": motpe_set_row["bound_by"],
+        "library_ms": None,
+        "shapes": mc_set_rows + [motpe_set_row],
     })
     kernels[0]["launches_motpe"] = motpe["parzen_launches"]
     # the main path's own shape: tinyllama-1.1b's prefill at B = 8, S = 2048
@@ -2954,6 +3289,7 @@ def main() -> int:
     })
     # the serving main path's own shape: xlstm-1.3b's prefill (and training) at B = 8, S = 2048
     slstm_main = next(r for r in slstm_rows if r["label"] == "xlstm-1.3b prefill / training")
+    slstm_decode = next(r for r in slstm_rows if r["label"] == "xlstm-1.3b decode")
     kernels.append({
         "name": "slstm",
         "route": "cuda",
@@ -2968,6 +3304,10 @@ def main() -> int:
         "bound_ms": slstm_main["bound_ms"],
         "bound_by": slstm_main["bound_by"],
         "library_ms": None,
+        "decode_ms": slstm_decode["ms"],
+        "decode_card_ms": slstm_decode["card_ms"],
+        "decode_bound_ms": slstm_decode["bound_ms"],
+        "repeatable": slstm_repeat["equal_bits"],
         "ptxas": slstm_ptx,
         "shapes": slstm_rows,
         "gradient_checks": slstm_grads,

@@ -32,14 +32,15 @@ the non-dominated rows, drop their domination edges, repeat.
 
 from __future__ import annotations
 
+import threading
 from typing import TYPE_CHECKING, Sequence
 
 import numpy as np
 import torch
 
 from ..kernels import ops as kops
-from ..kernels.hypervolume import mc_hv_counts
-from ..kernels.ref import mc_hv_counts_ref
+from ..kernels.hypervolume import mc_hv_counts, mc_hv_counts_sets
+from ..kernels.ref import mc_hv_counts_ref, mc_hv_counts_sets_ref
 
 if TYPE_CHECKING:
     from .frozen import StudyDirection
@@ -398,6 +399,25 @@ def _mc_counts_numpy(
     return excl, total
 
 
+_DRAW_LOCK = threading.Lock()
+#: (seed, n_samples, m, device) -> the estimator's uniform draw on that device
+_DRAWS: "dict[tuple, torch.Tensor]" = {}
+
+
+def _uniform_draw(seed: int, n_samples: int, m: int, device: torch.device) -> torch.Tensor:
+    """``RandomState(seed).random_sample((n_samples, m))`` as a float64
+    tensor on ``device``, drawn once per key and kept.  ``uniform(lo, ref)``
+    of the same state is ``lo + (ref - lo) * u`` element by element, so
+    every box's samples follow from this one draw."""
+    key = (seed, n_samples, m, str(device))
+    with _DRAW_LOCK:
+        u = _DRAWS.get(key)
+        if u is None:
+            u = torch.from_numpy(np.random.RandomState(seed).random_sample((n_samples, m)))
+            u = _DRAWS[key] = u.to(device)
+    return u
+
+
 class HypervolumeEstimator:
     """Hypervolume / per-point contribution estimator with a method policy.
 
@@ -420,7 +440,14 @@ class HypervolumeEstimator:
     (points x samples) and above it takes ``"cuda"`` on a CUDA device and
     ``"torch"`` on a CPU one.  The sample draw is seeded and happens on the
     host, so repeated calls on one front are deterministic, and the device
-    engines see the samples rounded once to float32 there."""
+    engines see the samples rounded once to float32 there.
+
+    :func:`solve_hssp` evaluates many point sets at once
+    (:meth:`_hypervolumes`): the device engines then count all of them in
+    one batched call, with the samples made on the device from one cached
+    draw (:func:`_uniform_draw`) by the same float64 arithmetic and the same
+    float32 rounding, so each set's hypervolume is the float
+    :meth:`hypervolume` returns for it."""
 
     def __init__(
         self,
@@ -502,6 +529,44 @@ class HypervolumeEstimator:
         excl, total = counts(P, S)
         return excl.cpu().numpy(), float(total)
 
+    def _hypervolumes(self, sets: np.ndarray, reference: np.ndarray) -> np.ndarray:
+        """:meth:`hypervolume` of each set of a ``[G, r, m]`` stack, as
+        float64 ``[G]``, bit for bit.  On the device engines the sets with
+        points inside a non-empty finite box are counted together, in one
+        call a device (the engine still resolved set by set from the set's
+        own work); the rest go through :meth:`hypervolume` one by one."""
+        sets = np.asarray(sets, dtype=float)
+        reference = np.asarray(reference, dtype=float)
+        G, _, m = sets.shape
+        if self._use_exact(m) or self._engine == "numpy":
+            return np.asarray([self.hypervolume(P, reference) for P in sets], dtype=float)
+        out = np.zeros(G)
+        keep = (sets <= reference).all(axis=2)  # [G, r]: the rows in the reference box
+        n = keep.sum(axis=1)
+        with np.errstate(invalid="ignore", over="ignore"):
+            lo = np.where(keep[..., None], sets, np.inf).min(axis=1)  # [G, m]
+            span = reference - lo
+            box = np.prod(span, axis=1)
+            live = (n > 0) & np.isfinite(box) & (box > 0.0)
+        by_device: dict = {}
+        for g in np.flatnonzero(live):
+            eng, dev = _resolve(self._engine, int(n[g]) * self._n_samples, self._device)
+            if eng == "numpy":
+                out[g] = self._mc_stats(sets[g][keep[g]], reference)[0]
+            else:
+                by_device.setdefault((eng, dev), []).append(g)
+        for (eng, dev), idx in by_device.items():
+            idx = np.asarray(idx)
+            pts = sets[idx][keep[idx]]  # the sets' kept rows, set after set
+            offsets = np.concatenate([[0], np.cumsum(n[idx])]).astype(np.int32)
+            to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+            counts = mc_hv_counts_sets if eng == "cuda" else mc_hv_counts_sets_ref
+            _, total = counts(to(pts.astype(np.float32)), to(offsets), to(lo[idx]),
+                              to(span[idx]), _uniform_draw(self._seed, self._n_samples, m, dev))
+            scale = box[idx] / self._n_samples
+            out[idx] = total.cpu().numpy().astype(float) * scale
+        return out
+
 
 def solve_hssp(
     points: np.ndarray,
@@ -514,20 +579,25 @@ def solve_hssp(
     Guerreiro et al.).  Returns the selected row indices in pick order.
     MOTPE uses it to break ties on the boundary nondomination rank.  With an
     ``estimator`` every subset evaluation routes through its method policy,
-    keeping the greedy tractable for many objectives."""
+    keeping the greedy tractable for many objectives.
+
+    The evaluations come in batches: the singletons, then at each greedy
+    step every remaining candidate's set together with the grown selection
+    (:meth:`HypervolumeEstimator._hypervolumes`, one counting launch a step
+    on the card), each set's hypervolume the float a call of its own
+    gives."""
     points = np.asarray(points, dtype=float)
     n = len(points)
     k = min(int(k), n)
     if k <= 0:
         return np.zeros(0, dtype=np.int64)
-    hv = (
-        (lambda P: estimator.hypervolume(P, reference))
-        if estimator is not None
-        else (lambda P: hypervolume(P, reference))
-    )
-    contrib = np.asarray([hv(points[i:i + 1]) for i in range(n)])
+    if estimator is not None:
+        hv_sets = lambda sets: estimator._hypervolumes(sets, reference)  # noqa: E731
+    else:
+        hv_sets = lambda sets: np.asarray(  # noqa: E731
+            [hypervolume(P, reference) for P in sets], dtype=float)
+    contrib = hv_sets(points[:, None, :])
     selected: list[int] = []
-    selected_rows: list[np.ndarray] = []
     hv_selected = 0.0
     picked = np.zeros(n, dtype=bool)
     while len(selected) < k:
@@ -537,14 +607,16 @@ def solve_hssp(
         if len(selected) == k:
             break
         # discount every remaining candidate by the volume it shares with the
-        # newly picked point, relative to the set selected *before* the pick
-        for j in range(n):
-            if picked[j]:
-                continue
-            joined = np.maximum(points[j], points[i])
-            contrib[j] -= hv(np.asarray(selected_rows + [joined])) - hv_selected
-        selected_rows.append(points[i])
-        hv_selected = hv(np.asarray(selected_rows))
+        # newly picked point, relative to the set selected *before* the pick;
+        # the last set is the selection with the pick, the next step's base
+        rest = np.flatnonzero(~picked)
+        sets = np.empty((len(rest) + 1, len(selected), points.shape[1]))
+        sets[:, :-1] = points[selected[:-1]]
+        sets[:-1, -1] = np.maximum(points[rest], points[i])
+        sets[-1, -1] = points[i]
+        hvs = hv_sets(sets)
+        contrib[rest] -= hvs[:-1] - hv_selected
+        hv_selected = float(hvs[-1])
     return np.asarray(selected, dtype=np.int64)
 
 

@@ -47,6 +47,8 @@ _SIGNATURES = {
         _I, [_P, _I, _P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _L, _P, _L, _P, _P],
     ),
     "mc_hv_counts_launch": (_I, [_P, _I, _P, _I, _I, _P, _P, _P]),
+    "mc_hv_counts_sets_launch": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P]),
+    "mc_hv_samples_launch": (_I, [_P, _P, _P, _I, _I, _I, _P, _P]),
     "flash_attention_launch": (
         _I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I, _F, _I, _I, _F, _P],
     ),
@@ -62,7 +64,7 @@ _SIGNATURES = {
     "ssd_smem_bytes": (_I, [_I, _I, _I, _I]),
     "slstm_plan": (_I, [_I, _I, _I, _I, _P]),
     "slstm_launch": (
-        _I, [_P, _I, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _I, [_P, _I, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
              _I, _I, _I, _I, _I, _P],
     ),
 }

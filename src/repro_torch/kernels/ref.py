@@ -11,7 +11,8 @@ import math
 
 import torch
 
-__all__ = ["parzen_score_ref", "mc_hv_counts_ref", "flash_attention_ref", "crossentropy_ref",
+__all__ = ["parzen_score_ref", "mc_hv_counts_ref", "mc_hv_samples_ref", "mc_hv_counts_sets_ref",
+           "flash_attention_ref", "crossentropy_ref",
            "crossentropy_lse_ref", "ssd_ref", "ssd_chunked_ref", "ssd_chunk_len", "slstm_scan_ref"]
 
 #: elements of the boolean (samples, points, objectives) cube per chunk
@@ -66,6 +67,40 @@ def mc_hv_counts_ref(
         total += (cnt > 0).sum()
         excl += (dom & (cnt == 1)[:, None]).sum(dim=0)
     return excl.to(torch.float32), total.to(torch.float32)
+
+
+def mc_hv_samples_ref(
+    lo: torch.Tensor,  # [G, m] float64
+    span: torch.Tensor,  # [G, m] float64
+    u: torch.Tensor,  # [s, m] float64
+) -> torch.Tensor:
+    """``[G, s, m]`` float32 samples ``float32(lo + span * u)``: a float64
+    product, then a float64 sum, then one rounding to float32, the bits of
+    numpy's ``RandomState.uniform(lo, lo + span)`` rounded to float32 when
+    ``u`` is the same state's ``random_sample`` (oracle for the sample rule
+    of the batched counting kernel)."""
+    prod = torch.mul(span[:, None, :], u[None, :, :])
+    return torch.add(lo[:, None, :], prod).to(torch.float32)
+
+
+def mc_hv_counts_sets_ref(
+    points: torch.Tensor,  # [N, m] float32
+    offsets: torch.Tensor,  # [G + 1] int32
+    lo: torch.Tensor,  # [G, m] float64
+    span: torch.Tensor,
+    u: torch.Tensor,  # [s, m] float64
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(excl [N] float32, total [G] float32)``: :func:`mc_hv_counts_ref`
+    for each set's rows ``offsets[g] .. offsets[g + 1]`` against its samples
+    from :func:`mc_hv_samples_ref` (oracle for the batched kernel)."""
+    bounds = offsets.tolist()
+    excl = torch.zeros(points.shape[0], dtype=torch.float32, device=points.device)
+    total = torch.zeros(len(bounds) - 1, dtype=torch.float32, device=points.device)
+    for g, (a, b) in enumerate(zip(bounds[:-1], bounds[1:])):
+        if b > a:
+            smp = mc_hv_samples_ref(lo[g:g + 1], span[g:g + 1], u)[0]
+            excl[a:b], total[g] = mc_hv_counts_ref(points[a:b], smp)
+    return excl, total
 
 
 def flash_attention_ref(

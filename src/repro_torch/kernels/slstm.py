@@ -1,11 +1,14 @@
 """The sLSTM time recurrence (xLSTM's scalar-memory block).
 
-Wrapper around the hand-written CUDA kernel in ``csrc/slstm.cu``, which
-replaces the reference package's Pallas kernel
+Wrapper around the hand-written CUDA kernels in ``csrc/slstm.cu``, which
+replace the reference package's Pallas kernel
 (``repro/kernels/slstm.py::slstm_kernel``): one cooperative launch runs the
 whole time loop, R [4, H, D, D] split by output dims across the blocks of
-the grid and resident in their shared memory, one grid-wide barrier a step;
-the source states its design and its bound on the card.
+the grid and resident in their registers, each block exchanging h with the
+blocks of its own head through step-tagged words; S = 1 (a decode step)
+runs the same step as a kernel of its own, a plain launch.  The launch plan
+is kept per shape and card.  The source states the design and the bound on
+the card.
 
 The kernel computes what the reference's model computes
 (``repro/models/ssm_xlstm.py::_slstm_scan``), which is more than the TPU
@@ -38,10 +41,12 @@ its main path went through the kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 
 import torch
 
+from ._build import load
 from .ops import full_float32_matmul
 from .ref import slstm_scan_ref
 
@@ -72,86 +77,126 @@ def _count_launch() -> None:
         _launches += 1
 
 
+_NAMES = ("u", "R", "c0", "n0", "h0", "m0")
+
+
 def _check(u, R, state) -> None:
-    named = (("u", u), ("R", R)) + tuple(zip(("c0", "n0", "h0", "m0"), state))
-    for name, t in named:
-        if not isinstance(t, torch.Tensor):
-            raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
-        if t.device != u.device:
-            raise ValueError(f"{name} is on {t.device}, u on {u.device}")
-    if u.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"the sLSTM scan runs on CPU or CUDA tensors, got {u.device}")
-    if u.dim() != 3 or R.dim() != 4 or R.shape[0] != 4 or R.shape[2] != R.shape[3]:
-        raise ValueError(f"u must be [B, S, 4 d] and R [4, H, D, D]; got {tuple(u.shape)}, "
-                         f"{tuple(R.shape)}")
-    B, S, d4 = u.shape
-    H, D = R.shape[1], R.shape[2]
+    """Raises on what the kernel does not take.  Past the type checks, the
+    checks read only each input's shape, dtype and device, so they run once
+    per such signature (:func:`_validate`); a decode step, which calls this
+    once a token, then pays a lookup."""
+    c0, n0, h0, m0 = state
+    T = torch.Tensor
+    if not (isinstance(u, T) and isinstance(R, T) and isinstance(c0, T) and isinstance(n0, T)
+            and isinstance(h0, T) and isinstance(m0, T)):
+        for name, t in zip(_NAMES, (u, R, *state)):
+            if not isinstance(t, T):
+                raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
+    _validate(((u.shape, u.dtype, u.device), (R.shape, R.dtype, R.device),
+               (c0.shape, c0.dtype, c0.device), (n0.shape, n0.dtype, n0.device),
+               (h0.shape, h0.dtype, h0.device), (m0.shape, m0.dtype, m0.device)))
+
+
+@functools.lru_cache(maxsize=256)
+def _validate(sig: tuple) -> None:
+    """Raises on the first check that fails for ``(shape, dtype, device)``
+    of u, R, c0, n0, h0 and m0, naming it; a signature that passes is kept
+    (an exception is not)."""
+    (u_shape, u_dtype, dev), (R_shape, R_dtype, _), *state = sig
+    for name, (_, _, d) in zip(_NAMES[1:], sig[1:]):
+        if d != dev:
+            raise ValueError(f"{name} is on {d}, u on {dev}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"the sLSTM scan runs on CPU or CUDA tensors, got {dev}")
+    if len(u_shape) != 3 or len(R_shape) != 4 or R_shape[0] != 4 or R_shape[2] != R_shape[3]:
+        raise ValueError(f"u must be [B, S, 4 d] and R [4, H, D, D]; got {tuple(u_shape)}, "
+                         f"{tuple(R_shape)}")
+    B, S, d4 = u_shape
+    H, D = R_shape[1], R_shape[2]
     if d4 != 4 * H * D:
         raise ValueError(f"u's last dimension {d4} is not 4 x {H} heads x {D} dims")
     if min(B, S, H, D) == 0:
-        raise ValueError(f"empty input: u {tuple(u.shape)}, R {tuple(R.shape)}")
-    for name, t in zip(("c0", "n0", "h0", "m0"), state):
-        if tuple(t.shape) != (B, H, D):
-            raise ValueError(f"{name} must be {(B, H, D)}, got {tuple(t.shape)}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
-    if R.dtype != torch.float32:
-        raise TypeError(f"R must be float32 (the reference reads it in float32), got {R.dtype}")
-    if u.dtype not in _DTYPE_CODES:
-        raise TypeError(f"u must be float32 or bfloat16, got {u.dtype}")
+        raise ValueError(f"empty input: u {tuple(u_shape)}, R {tuple(R_shape)}")
+    for name, (shape, dtype, _) in zip(_NAMES[2:], state):
+        if tuple(shape) != (B, H, D):
+            raise ValueError(f"{name} must be {(B, H, D)}, got {tuple(shape)}")
+        if dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {dtype}")
+    if R_dtype != torch.float32:
+        raise TypeError(f"R must be float32 (the reference reads it in float32), got {R_dtype}")
+    if u_dtype not in _DTYPE_CODES:
+        raise TypeError(f"u must be float32 or bfloat16, got {u_dtype}")
+
+
+#: (B, H, D, dtype, device index) -> the launch plan on that card
+_plans: dict = {}
 
 
 def slstm_plan(B: int, H: int, D: int, dtype: torch.dtype) -> dict:
     """The kernel's launch plan on the current card: ``E`` output dims a
-    block, ``blocks`` (``H D / E``, one an SM), ``smem_bytes`` a block and
-    the card's ``sms``.  Raises ``ValueError`` where no plan keeps R's
-    slices resident."""
-    from ._build import load
+    block, ``blocks`` (``H D / E``, one an SM), ``smem_bytes`` a block, the
+    card's ``sms`` and the ``parts`` of the k sum.  Kept per shape, dtype
+    and card after the first call.  Raises ``ValueError`` where no plan
+    keeps R's slices resident."""
+    return _plan(B, H, D, dtype, torch.cuda.current_device())
 
-    out = (ctypes.c_int * 4)()
+
+def _plan(B: int, H: int, D: int, dtype: torch.dtype, index: int) -> dict:
+    key = (B, H, D, dtype, index)
+    plan = _plans.get(key)
+    if plan is not None:
+        return plan
+    out = (ctypes.c_int * 5)()
     rc = load().slstm_plan(B, H, D, _DTYPE_CODES[dtype], out)
     if rc == -1:
         raise ValueError(
-            f"the sLSTM kernel keeps R [4, {H}, {D}, {D}] resident in the shared memory of one "
+            f"the sLSTM kernel keeps R [4, {H}, {D}, {D}] resident in the registers of one "
             f"block an SM; no split of the {D} output dims of {H} heads fits this card "
             f"(B = {B} rows of state)")
     if rc != 0:
         raise RuntimeError(f"slstm_plan failed: cudaError {rc}")
-    return {"E": out[0], "blocks": out[1], "smem_bytes": out[2], "sms": out[3]}
+    plan = _plans[key] = {"E": out[0], "blocks": out[1], "smem_bytes": out[2], "sms": out[3],
+                          "parts": out[4]}
+    return plan
 
 
 def _launch(u, R, state, save_states: bool):
-    """The kernel on CUDA tensors."""
+    """The kernel on CUDA tensors, on the current device: the decode kernel
+    at S = 1, else the cooperative scan.  Lean: a decode step calls it once
+    a token and sLSTM block."""
     B, S, d4 = u.shape
     H, D = R.shape[1], R.shape[2]
-    if u.stride(-1) != 1:
+    u_sb, u_ss, u_sd = u.stride()
+    if u_sd != 1:
         raise ValueError("u's last dimension must be contiguous (stride 1)")
-    plan = slstm_plan(B, H, D, u.dtype)
-    from ._build import load
-
-    lib = load()
+    dev = u.device
+    E = _plan(B, H, D, u.dtype, dev.index)["E"]
     R = R.contiguous()
     c0, n0, h0, m0 = (t.contiguous() for t in state)
-    dev = u.device
     f32 = torch.float32
-    h_seq = torch.empty((B, S, H * D), dtype=f32, device=dev)
-    seqs = tuple(torch.empty_like(h_seq) for _ in range(3)) if save_states else None
-    final = tuple(torch.empty((B, H, D), dtype=f32, device=dev) for _ in range(4))
-    hbuf = torch.empty((2, B, H, D), dtype=f32, device=dev)
-    counter = torch.zeros(1, dtype=torch.int32, device=dev)
-    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.slstm_launch(
-            u.data_ptr(), _DTYPE_CODES[u.dtype], u.stride(0), u.stride(1), R.data_ptr(),
-            c0.data_ptr(), n0.data_ptr(), h0.data_ptr(), m0.data_ptr(), h_seq.data_ptr(),
-            *(ptr(t) for t in (seqs or (None, None, None))), *(t.data_ptr() for t in final),
-            hbuf.data_ptr(), counter.data_ptr(), B, S, H, D, plan["E"], stream,
-        )
+    n_seq = 4 if save_states else 1
+    if S == 1:  # one allocation for everything
+        out = torch.empty((n_seq + 4, B, H, D), dtype=f32, device=dev).unbind(0)
+        seqs = [t.view(B, 1, H * D) for t in out[:n_seq]]
+        final = out[n_seq:]
+        hx = None
+    else:  # the final state apart: a cache holding it does not hold the sequences
+        seqs = torch.empty((n_seq, B, S, H * D), dtype=f32, device=dev).unbind(0)
+        final = torch.empty((4, B, H, D), dtype=f32, device=dev).unbind(0)
+        hx = torch.zeros((2, B, H, D), dtype=torch.int64, device=dev)
+    c_ptr, n_ptr, m_ptr = ((t.data_ptr() for t in seqs[1:]) if save_states
+                           else (None, None, None))
+    err = load().slstm_launch(
+        u.data_ptr(), _DTYPE_CODES[u.dtype], u_sb, u_ss, R.data_ptr(),
+        c0.data_ptr(), n0.data_ptr(), h0.data_ptr(), m0.data_ptr(), seqs[0].data_ptr(),
+        c_ptr, n_ptr, m_ptr, final[0].data_ptr(), final[1].data_ptr(), final[2].data_ptr(),
+        final[3].data_ptr(), hx.data_ptr() if hx is not None else None, B, S, H, D, E,
+        torch._C._cuda_getCurrentRawStream(dev.index),
+    )
     if err != 0:
         raise RuntimeError(f"slstm kernel launch failed: cudaError {err}")
     _count_launch()
-    return (h_seq, final, seqs) if save_states else (h_seq, final)
+    return (seqs[0], tuple(final), tuple(seqs[1:])) if save_states else (seqs[0], tuple(final))
 
 
 def slstm_forward(
@@ -168,10 +213,14 @@ def slstm_forward(
     S, d]``): the kernel on CUDA tensors, the plain version on CPU ones."""
     state = (c0, n0, h0, m0)
     _check(u, R, state)
-    if u.device.type == "cpu":
+    dev = u.device
+    if dev.type == "cpu":
         with torch.no_grad():
             return slstm_scan_ref(u, R, *state, states=save_states)
-    return _launch(u, R, state, save_states)
+    if torch.cuda.current_device() == dev.index:
+        return _launch(u, R, state, save_states)
+    with torch.cuda.device(dev):
+        return _launch(u, R, state, save_states)
 
 
 def _by_head(t: torch.Tensor, B: int, S: int, H: int, D: int) -> torch.Tensor:

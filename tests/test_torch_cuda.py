@@ -28,11 +28,15 @@ halves the chunk until it divides S), the bfloat16 tensor-core kernel also
 to the plain version run in float64 at the same tolerance, and its
 written-out backward to autograd through the plain version.  The Parzen
 kernel splits the components across blocks and merges in a fixed order, so
-two calls give equal bits.  The sLSTM recurrence is held to its
+two calls give equal bits.  The batched hypervolume counts make each set's
+samples on the card: the samples equal the host's float32 draw bit for bit
+and the counts the plain version's exactly.  The sLSTM recurrence is held to its
 plain version run in float64 within the reference's kernel tolerance, atol
 1e-4, with rtol 1e-4 for the state's n and m, which grow with the steps
 (float32 sums in another order over at most 40 steps), and its
-written-out backward to autograd through the float32 plain version.
+written-out backward to autograd through the float32 plain version; the
+scan and the decode kernel sum in one fixed order, so two calls give equal
+bits, and the decode kernel equals the scan's first step.
 """
 
 import dataclasses
@@ -286,6 +290,80 @@ def test_mc_hv_cuda_tensor_of_the_wrong_type_or_shape_raises(cuda_device):
         hypervolume.mc_hv_counts(pts[0], smp)
     with pytest.raises(ValueError):
         hypervolume.mc_hv_counts(pts.cpu(), smp)
+
+
+def _set_inputs(device, m, s, seed):
+    """Ragged point sets (7, 0, 1, 12 and 5 rows; NaN rows, a zero-width box
+    side whose samples tie the lowest point, duplicated rows) with their
+    boxes up to 1.1 and a shared draw, as ``mc_hv_counts_sets`` takes them."""
+    rng = np.random.RandomState(seed)
+    sets = [rng.uniform(0, 1, (n, m)) for n in (7, 0, 1, 12, 5)]
+    sets[0][2, 1] = np.nan
+    sets[0][5] = np.nan
+    sets[3][:, 0] = 0.25
+    sets[4][3] = sets[4][1]
+    lo = np.stack([np.nanmin(p, axis=0) if len(p) else np.zeros(m) for p in sets])
+    span = 1.1 - lo
+    span[3, 0] = 0.0
+    off = np.concatenate([[0], np.cumsum([len(p) for p in sets])]).astype(np.int32)
+    u = np.random.RandomState(seed + 1).random_sample((s, m))
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+            for a in (np.concatenate(sets).astype(np.float32), off, lo, span, u)]
+
+
+@pytest.mark.parametrize("m,s", [(3, 2048), (5, 8192), (8, 1000), (20, 700)])
+def test_mc_hv_sets_kernel_equals_plain_version(cuda_device, m, s):
+    from repro_torch.kernels.ref import mc_hv_counts_sets_ref
+
+    args = _set_inputs(cuda_device, m, s, seed=m + s)
+    before = hypervolume.set_launches()
+    excl, total = hypervolume.mc_hv_counts_sets(*args)
+    torch.cuda.synchronize()
+    assert hypervolume.set_launches() == before + 1
+    excl_r, total_r = mc_hv_counts_sets_ref(*args)
+    assert excl.dtype == total.dtype == torch.float32 and total.shape == (5,)
+    assert torch.equal(excl, excl_r) and torch.equal(total, total_r)
+    assert float(total[1]) == 0.0  # the set of no points
+    if m <= 5:  # the zero-width side's ties dominate (in 20 dims 12 points rarely do)
+        assert float(total[3]) > 0.0
+
+
+@pytest.mark.parametrize("m", [2, 5, 8])
+def test_mc_hv_samples_on_the_card_equal_the_host_draw_bits(cuda_device, m):
+    rng = np.random.RandomState(m)
+    lo = rng.uniform(-2.0, 1.0, (3, m))
+    ref = lo + rng.uniform(0.0, 3.0, (3, m))
+    u = torch.from_numpy(np.random.RandomState(0).random_sample((8192, m))).to(cuda_device)
+    got = hypervolume.mc_hv_samples(torch.from_numpy(lo).to(cuda_device),
+                                    torch.from_numpy(ref - lo).to(cuda_device), u).cpu().numpy()
+    for g in range(3):
+        host = np.random.RandomState(0).uniform(lo[g], ref[g], (8192, m)).astype(np.float32)
+        assert np.array_equal(got[g].view(np.uint32), host.view(np.uint32)), g
+
+
+def test_hssp_on_the_card_batches_each_greedy_step(cuda_device):
+    """60 points, 25 picks: one batched launch for the singletons and one a
+    greedy step; the picks equal the plain version's on the card, and every
+    batch's hypervolumes the per-call estimator's, bit for bit."""
+    rng = np.random.RandomState(7)
+    pts = rng.uniform(0.1, 1.0, (60, 5))
+    pts /= np.linalg.norm(pts, axis=1, keepdims=True)  # a front: none dominates another
+    ref = moo.default_reference_point(pts)
+
+    class Checked(moo.HypervolumeEstimator):
+        def _hypervolumes(self, sets, reference):
+            got = super()._hypervolumes(sets, reference)
+            want = np.asarray([self.hypervolume(P, reference) for P in sets])
+            assert np.array_equal(got.view(np.uint64), want.view(np.uint64))
+            return got
+
+    hypervolume.reset_launches()
+    sel = moo.solve_hssp(pts, 25, ref, estimator=moo.HypervolumeEstimator(engine="cuda"))
+    assert hypervolume.set_launches() == 25
+    assert np.array_equal(sel, moo.solve_hssp(pts, 25, ref,
+                                              estimator=Checked(engine="cuda")))
+    assert np.array_equal(sel, moo.solve_hssp(pts, 25, ref,
+                                              estimator=moo.HypervolumeEstimator(engine="torch")))
 
 
 def _dtlz2_wave_study(engine, n_trials=48, wave=16):
@@ -921,6 +999,36 @@ def test_slstm_kernel_matches_plain_version(cuda_device, B, S, H, D, dtype, init
     for got, want in ((hs, want_hs), *zip(fin, want_fin)):
         assert got.dtype == torch.float32 and got.shape == want.shape
         torch.testing.assert_close(got.double(), want, atol=SLSTM_TOL, rtol=SLSTM_TOL)
+
+
+def test_slstm_plans_of_two_batch_sizes_take_turns(cuda_device):
+    """A plan for a small batch (less shared memory) must not cap a larger
+    batch's launch that follows it, in either kernel."""
+    from repro_torch.kernels import slstm
+    from repro_torch.kernels.ref import slstm_scan_ref
+
+    for B, S in ((8, 3), (2, 3), (8, 3), (8, 1), (2, 1), (8, 1)):
+        u, R, state = _slstm_inputs(cuda_device, B, S, 4, 512, torch.bfloat16, True, B + S, True)
+        hs, _ = slstm.slstm_forward(u, R, *state)
+        want, _ = slstm_scan_ref(u, R, *state, compute_dtype=torch.float64)
+        torch.testing.assert_close(hs.double(), want, atol=SLSTM_TOL, rtol=SLSTM_TOL)
+
+
+def test_slstm_two_calls_give_equal_bits_and_decode_equals_the_first_step(cuda_device):
+    from repro_torch.kernels import slstm
+
+    u, R, state = _slstm_inputs(cuda_device, 8, 64, 4, 512, torch.bfloat16, True, 3, True)
+    runs = [slstm.slstm_forward(u, R, *state, save_states=True) for _ in range(2)]
+    flat = [(hs, *fin, *seqs) for hs, fin, seqs in runs]
+    assert all(torch.equal(a, b) for a, b in zip(*flat))
+    slstm.reset_launches()
+    hs1, fin1 = slstm.slstm_forward(u[:, :1], R, *state)  # S = 1: the decode kernel
+    assert slstm.launches() == 1
+    hs, _, (c_seq, n_seq, m_seq) = runs[0]
+    assert torch.equal(hs1, hs[:, :1])
+    d = (8, 4, 512)
+    for got, want in zip(fin1, (c_seq[:, 0], n_seq[:, 0], hs[:, 0], m_seq[:, 0])):
+        assert torch.equal(got, want.reshape(d))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

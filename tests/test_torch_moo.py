@@ -445,6 +445,39 @@ class TestHSSP:
         ))
 
 
+    def test_batched_selection_at_motpe_shape_matches_reference_and_per_call_path(self):
+        """MOTPE's boundary rank as phase 7 of chip_smoke.py meets it: 60
+        points of a 5-objective DTLZ2 front, 25 to pick, 8192 samples.  The
+        port's batched greedy on the ``"torch"`` engine picks what the
+        reference's greedy picks with its device estimator, and every batch
+        of hypervolumes it evaluates equals the per-call estimator's, bit
+        for bit."""
+        rng = np.random.RandomState(19)
+        x = rng.uniform(size=(60, 4))
+        g = 1.0 + rng.uniform(0, 0.05, (60, 1))
+        cos, sin = np.cos(x * np.pi / 2), np.sin(x * np.pi / 2)
+        pts = g * np.stack([np.prod(cos[:, :4 - i], axis=1) * (sin[:, 4 - i] if i else 1.0)
+                            for i in range(5)], axis=1)
+        ref = moo.default_reference_point(pts)
+        batches = []
+
+        class Checked(moo.HypervolumeEstimator):
+            def _hypervolumes(self, sets, reference):
+                got = super()._hypervolumes(sets, reference)
+                want = np.asarray([self.hypervolume(P, reference) for P in sets])
+                assert np.array_equal(got.view(np.uint64), want.view(np.uint64))
+                batches.append(len(sets))
+                return got
+
+        sel = moo.solve_hssp(pts, 25, ref, estimator=Checked(**CPU))
+        assert len(batches) == 25  # the singletons, then one batch a greedy step
+        assert sum(batches) == 60 + sum(60 - t + 1 for t in range(1, 25))
+        want = ref_moo.solve_hssp(pts, 25, ref,
+                                  estimator=ref_moo.HypervolumeEstimator(engine="jax"))
+        assert np.array_equal(sel, want)
+        assert len(set(sel.tolist())) == 25
+
+
 # -- study integration --------------------------------------------------------------
 
 

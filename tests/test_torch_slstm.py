@@ -21,6 +21,12 @@ The same numpy-seeded inputs go through both packages:
   the reference's step-by-step replay, from an empty and from a non-empty
   state: atol 1e-5 / rtol 1e-4 in float32 (the same sums in another order).
 
+* the CUDA kernel's summation order, emulated in float32 at xlstm-1.3b's
+  head width (D = 512): each column's k sum in Q = 8 parts of 64
+  consecutive k, each a chain of FMAs from zero, the parts added in order;
+  every step within 1e-5 + 1e-5 |x| of one float64 step from the same
+  entering state (what phase 21 of ``chip_smoke.py`` holds the kernel to).
+
 The kernel itself runs only on the card (``tests/test_torch_cuda.py``).
 """
 
@@ -118,6 +124,44 @@ def test_plain_version_takes_what_the_model_hands_it(case):
     _close(hs.numpy(), hs_ref, atol=1e-4)
     for key, got in zip(STATE_KEYS, fin):
         _close(got.numpy(), fin_ref[key], atol=1e-4)
+
+
+@pytest.mark.parametrize("case, error, match", [
+    ("float16 u", TypeError, "u must be float32 or bfloat16"),
+    ("bfloat16 R", TypeError, "R must be float32"),
+    ("float64 state", TypeError, "c0 must be float32"),
+    ("state of the wrong shape", ValueError, r"h0 must be \(3, 2, 16\)"),
+    ("u of the wrong width", ValueError, "is not 4 x 2 heads x 16 dims"),
+    ("empty sequence", ValueError, "empty input"),
+    ("R not square", ValueError, r"R \[4, H, D, D\]"),
+    ("not a tensor", TypeError, "n0 must be a torch.Tensor"),
+])
+def test_wrapper_names_what_it_does_not_take(case, error, match):
+    """The wrapper's one list of checks, on CPU tensors (the card's run the
+    same list), raises on the first that fails and names it, also after a
+    call of the same shapes passed."""
+    u, R, state = _inputs(3, 4, 2, 16, seed=9, init=True)
+    t = torch.from_numpy
+    u, R, st = t(u), t(R), [t(state[k]) for k in STATE_KEYS]
+    slstm_forward(u, R, *st)  # passes, and is kept
+    if case == "float16 u":
+        u = u.half()
+    elif case == "bfloat16 R":
+        R = R.bfloat16()
+    elif case == "float64 state":
+        st[0] = st[0].double()
+    elif case == "state of the wrong shape":
+        st[2] = st[2][:, :1]
+    elif case == "u of the wrong width":
+        u = u[..., :-4]
+    elif case == "empty sequence":
+        u = u[:, :0]
+    elif case == "R not square":
+        R = R[..., :8]
+    elif case == "not a tensor":
+        st[1] = st[1].numpy()
+    with pytest.raises(error, match=match):
+        slstm_forward(u, R, *st)
 
 
 def _grad_inputs(B, S, H, D, seed, tie):
@@ -227,3 +271,50 @@ def test_mlstm_fold_matches_the_reference_replay(init):
     for key in ("C", "n", "m"):
         assert got[key].dtype == torch.float32
         _close(got[key].numpy(), want[key], atol=1e-5, rtol=1e-4, err_msg=key)
+
+
+def _kernel_order_step(u_t, R, c, n, h, m, parts):
+    """One step of the recurrence with ``h @ R`` summed as the CUDA kernel
+    sums it: per column, ``parts`` ranges of consecutive k, each a chain of
+    FMAs from zero (a float64 product, exact for float32 operands, plus the
+    running sum, rounded to float32), then the parts added in order from
+    zero; the gates in float32 ops."""
+    B, H, D = h.shape
+    kp = D // parts
+    hq = h.reshape(B, H, parts, kp).double()
+    Rq = R.reshape(4, H, parts, kp, D).double()
+    acc = torch.zeros((4, B, H, parts, D), dtype=torch.float32)
+    for i in range(kp):
+        prod = hq[None, :, :, :, i, None] * Rq[:, None, :, :, i, :]
+        acc = (prod + acc.double()).float()
+    rec = torch.zeros((4, B, H, D), dtype=torch.float32)
+    for q in range(parts):
+        rec = rec + acc[:, :, :, q]
+    a = u_t.reshape(B, 4, H, D).transpose(0, 1) + rec
+    z, i_, f, o = torch.tanh(a[0]), a[1], a[2], torch.sigmoid(a[3])
+    m_new = torch.maximum(f + m, i_)
+    ig, fg = torch.exp(i_ - m_new), torch.exp(f + m - m_new)
+    c_new = fg * c + ig * z
+    n_new = torch.maximum(fg * n + ig, torch.exp(-m_new))
+    return c_new, n_new, o * c_new / n_new, m_new
+
+
+def test_kernel_summation_order_stays_within_float32_of_each_float64_step():
+    B, S, H, D, parts, tol = 2, 6, 2, 512, 8, 1e-5
+    rng = np.random.RandomState(21)
+    t = lambda a: torch.from_numpy(np.asarray(a, dtype=np.float32))  # noqa: E731
+    u = t(rng.randn(B, S, 4 * H * D))
+    R = t(rng.randn(4, H, D, D) / np.sqrt(D))  # the model's init scale
+    state = (t(rng.randn(B, H, D)), t(1.0 + np.abs(rng.randn(B, H, D))),
+             t(rng.randn(B, H, D) * 0.1), t(rng.randn(B, H, D)))
+    worst = 0.0
+    for step in range(S):
+        got = _kernel_order_step(u[:, step], R, *state, parts)
+        _, (c, n, h, m) = slstm_scan_ref(u[:, step:step + 1], R, *state,
+                                         compute_dtype=torch.float64)
+        for g, w in zip(got, (c, n, h, m)):
+            err = (g.double() - w).abs()
+            assert float((err - tol * w.abs()).max()) <= tol, step
+            worst = max(worst, float(err.max()))
+        state = got
+    assert worst > 0.0  # float32 rounding shows: the emulation is not float64
