@@ -173,7 +173,41 @@ Phases, each of which fails the run by raising:
     order recorded beside it), a traced step, the loss of one batch of 8 x 256 tokens
     falling over 8 AdamW steps on that batch (XLSTM_DESCENT_SEQ), and the
     sLSTM kernel's and its written-out backward's share of the step;
-24. phase 16's study over ``families=("dense", "mlstm", "mamba2")``.
+24. phase 16's study over ``families=("dense", "mlstm", "mamba2")``;
+25. the serving main path at deepseek-v2-lite-16b's full width (MLA with
+    kv_lora 512 and one shared rope key head of 64; 64 routed experts top-6
+    of 1408 and 2 shared, the einsum dispatch; vocab 102400) cut in depth to
+    the dense head layer and 7 MLA/MoE layers (DEEPSEEK_SERVE_SUPERBLOCKS),
+    random weights from a seeded generator: (a) ``launch.serve.main`` on
+    the smoke config, (b) the ``Engine`` with phase 10(b)'s traffic (no
+    kernel runs there: MLA and MoE are plain products, so every launch
+    count must stay 0), a ``torch.profiler`` trace of 16 decode steps (idle
+    share) and of one prefill group, its device time split by the span that
+    launched it (MoE one-hot dispatch / combine, MoE expert GEMMs, the MLA
+    chunk loop, other GEMMs and kernels), (c) the first group's prompts cut
+    to 512 tokens in float32 compute at ``moe_capacity`` 8 through the
+    einsum and the sort dispatch, every position's logits within 1e-4, each
+    dispatch's two calls equal bit for bit;
+26. training deepseek-v2-lite-16b at full width cut to 1 + 3 layers
+    through ``Trainer``: 3 steps of 8 x 2048 tokens, bf16, AdamW, remat; 1
+    cross-entropy launch a step, finite losses, the ``cuda`` and ``torch``
+    engine losses within 3e-3, a traced step (device time also by span),
+    and phase 23's descent check on one batch of 8 x 256 tokens;
+27. qwen3-moe-235b-a22b at full width (64 / 4 heads of 128: GQA 16x; 128
+    experts top-8 of 1536; vocab 151936): the flash kernel held to its
+    plain version at the two served groups' prefill shapes (phase 9's
+    bounds), ``launch.serve.main`` on the smoke config, the ``Engine``
+    with phase 10(b)'s traffic at 2 of 94 layers (the flash launches must
+    equal 2 x the prefill groups) and a traced prefill group, then 3
+    ``Trainer`` steps of 8 x 2048 tokens at 1 layer with the config's
+    Adafactor and 8 microbatches (8 cross-entropy and 8 x 2 flash launches
+    a step);
+28. phase 16's study over the default families, ``("dense", "mlstm",
+    "mamba2", "moe")``: at least one ``moe`` trial completes or is pruned,
+    none fails.
+
+Each phase's wall seconds are printed after it and in a line before the
+total.
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -1368,8 +1402,9 @@ def model_blocks(cfg) -> list[tuple[str, object]]:
     return blocks + [("tail", b) for b in cfg.tail_blocks]
 
 
-#: the kernel each block kind launches once per prefill (an mLSTM block none)
-BLOCK_KERNELS = {"mamba2": "ssd", "slstm": "slstm", "mlstm": None}
+#: the kernel each block kind launches once per prefill (an mLSTM or MLA block
+#: none: plain products)
+BLOCK_KERNELS = {"mamba2": "ssd", "slstm": "slstm", "mlstm": None, "mla": None}
 
 
 def launches_per_call(cfg, train: bool = False) -> dict:
@@ -1828,10 +1863,11 @@ def check_ce(gen, label, T, D, V, x_dtype, w_dtype, softcap, tied, reps, bad_lab
     return row
 
 
-def check_ce_grad(gen, label, T, D, V, x_dtype, softcap) -> dict:
+def check_ce_grad(gen, label, T, D, V, x_dtype, softcap, tied=True) -> dict:
     """dx / dW of ``fused_crossentropy`` (the kernel forward, the written-out
     backward) against autograd through the plain version, per-token weights
-    g ~ N(0, 1), W the transposed view of a float32 embedding.  Held to
+    g ~ N(0, 1), W a float32 [D, V] head or, ``tied``, the transposed view
+    of a float32 embedding.  Held to
     CE_GRAD_TOL x max |reference| per tensor: float32 sums in another order,
     and with bfloat16 x one bfloat16 rounding of dx (both) and of dW (the
     plain version's gradient crosses W's cast to bfloat16; the Function
@@ -1839,14 +1875,15 @@ def check_ce_grad(gen, label, T, D, V, x_dtype, softcap) -> dict:
     from repro_torch.kernels.crossentropy import fused_crossentropy
     from repro_torch.kernels.ref import crossentropy_ref
 
-    x, w, labels = ce_inputs(gen, T, D, V, x_dtype, torch.float32, True)
+    x, w, labels = ce_inputs(gen, T, D, V, x_dtype, torch.float32, tied)
     g = torch.randn(T, generator=gen, device="cuda")
     grads = []
     for fn in (lambda a, b: fused_crossentropy(a, b, labels, softcap=softcap),
                lambda a, b: crossentropy_ref(a, b, labels, softcap)):
         xr = x.detach().requires_grad_()
-        emb = w.T.detach().requires_grad_()
-        grads.append(torch.autograd.grad((fn(xr, emb.T) * g).sum(), (xr, emb)))
+        leaf = (w.T if tied else w).detach().requires_grad_()
+        grads.append(torch.autograd.grad((fn(xr, leaf.T if tied else leaf) * g).sum(),
+                                         (xr, leaf)))
     torch.cuda.synchronize()
     tol = CE_GRAD_TOL[x_dtype]
     out = {"label": label, "T": T, "D": D, "V": V, "softcap": softcap,
@@ -1969,14 +2006,16 @@ class TrainStepTimer:
         return make_timed
 
 
-def run_training(label: str, cfg, run, tokens_per_step: int, falling: bool = True) -> dict:
+def run_training(label: str, cfg, run, tokens_per_step: int, falling: bool = True,
+                 microbatch: int = 1) -> dict:
     """Runs ``run()`` (a launcher or a Trainer) with every train step timed
     and the kernels' launch counts set to 0 just before and read just
     after; asserts one cross-entropy launch a step and the flash-attention,
     SSD and sLSTM launches of ``launches_per_call(cfg, train=True)`` a step
     (the remat recomputes each superblock's forward in the backward pass),
-    and, with ``falling``, a last loss below the first (each step's loss is
-    on a new batch)."""
+    each ``microbatch`` times a step under gradient accumulation, and, with
+    ``falling``, a last loss below the first (each step's loss is on a new
+    batch)."""
     from repro_torch.kernels import crossentropy as ce
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import slstm, ssd
@@ -1998,7 +2037,8 @@ def run_training(label: str, cfg, run, tokens_per_step: int, falling: bool = Tru
     finally:
         train_loop.make_train_step = real
     steps = len(timer.seconds)
-    per_step = {"crossentropy": 1, **launches_per_call(cfg, train=True)}
+    per_step = {k: microbatch * n for k, n in
+                {"crossentropy": 1, **launches_per_call(cfg, train=True)}.items()}
     assert launches == {k: n * steps for k, n in per_step.items()}, (launches, per_step, steps)
     losses = result["losses"]
     assert len(losses) == steps and all(math.isfinite(l) for l in losses), losses
@@ -2010,7 +2050,8 @@ def run_training(label: str, cfg, run, tokens_per_step: int, falling: bool = Tru
     for i, (s, loss) in enumerate(zip(timer.seconds, losses)):
         print(f"    step {i}: {s:.4f} s, {tokens_per_step / s:.1f} tokens/s, loss {loss:.4f}")
     print(f"  {label}: {steps} steps in {seconds:.2f} s; peak memory {out['peak_mem_gib']:.2f} GiB; "
-          f"launches: crossentropy {launches['crossentropy']} == {steps} steps, flash_attention "
+          f"launches: crossentropy {launches['crossentropy']} == {per_step['crossentropy']} x "
+          f"{steps} steps, flash_attention "
           f"{launches['flash_attention']} == {per_step['flash_attention']} x {steps} steps, ssd "
           f"{launches['ssd']} == {per_step['ssd']} x {steps} steps, slstm {launches['slstm']} == "
           f"{per_step['slstm']} x {steps} steps")
@@ -2135,11 +2176,88 @@ def xlstm_engines_loss(cfg, model, batch, short_batch) -> dict:
                                       "tol": XLSTM_TRAIN_LOSS_TOL}}
 
 
+#: the record_function spans of :func:`moe_mla_spans`, and the kind of
+#: device time each one's launches make
+SPAN_KINDS = {"moe dispatch / combine": "MoE one-hot dispatch / combine",
+              "moe experts": "MoE expert GEMMs", "mla chunk": "MLA chunk loop"}
+
+
+@contextlib.contextmanager
+def moe_mla_spans():
+    """The MoE dispatch (``_moe_einsum`` / ``_moe_sort``), its experts and the
+    MLA chunk body, each wrapped in a ``record_function`` span while the
+    block runs, so a trace can tell their device time apart."""
+    from torch.profiler import record_function
+
+    from repro_torch.models import attention as attn
+    from repro_torch.models import moe
+
+    sites = [(moe, "_moe_einsum", "moe dispatch / combine"),
+             (moe, "_moe_sort", "moe dispatch / combine"),
+             (moe, "_experts", "moe experts"), (attn, "_mla_chunk", "mla chunk")]
+    real = [getattr(mod, attr) for mod, attr, _ in sites]
+
+    def spanned(fn, name):
+        def run(*args, **kwargs):
+            with record_function(name):
+                return fn(*args, **kwargs)
+        return run
+
+    for (mod, attr, name), fn in zip(sites, real):
+        setattr(mod, attr, spanned(fn, name))
+    try:
+        yield
+    finally:
+        for (mod, attr, _), fn in zip(sites, real):
+            setattr(mod, attr, fn)
+
+
+def device_time(events, lo: float, hi: float) -> dict:
+    """The card's busy time inside [lo, hi] (trace microseconds), its idle
+    share, and its device time by kind: the innermost :data:`SPAN_KINDS`
+    span around the host call that launched each kernel (matched through the
+    trace's correlation ids), else the kernel's name.  A backward kernel that
+    autograd launches outside the spans counts by its name."""
+    launched = {}
+    for e in events:
+        corr = e.get("args", {}).get("correlation")
+        if e.get("cat") in ("cuda_runtime", "cuda_driver") and corr is not None:
+            launched[corr] = e["ts"]
+    spans = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+             if e.get("cat") == "user_annotation" and e["name"] in SPAN_KINDS]
+    device = sorted((e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                     and e["ts"] < hi and e["ts"] + e["dur"] > lo), key=lambda e: e["ts"])
+    kinds = {**{k: 0.0 for k in SPAN_KINDS.values()}, "crossentropy kernel": 0.0,
+             "flash_attention kernel": 0.0, "ssd kernel": 0.0, "slstm kernel": 0.0,
+             "GEMM (cuBLAS)": 0.0, "other kernels, copies": 0.0}
+    busy, end = 0.0, lo
+    for e in device:
+        a, b = max(e["ts"], lo), min(e["ts"] + e["dur"], hi)
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+        t = launched.get(e.get("args", {}).get("correlation"))
+        around = [sp for sp in spans if t is not None and sp[0] <= t <= sp[1]]
+        low = e["name"].lower()
+        kind = (SPAN_KINDS[min(around, key=lambda sp: sp[1] - sp[0])[2]] if around else
+                "crossentropy kernel" if "crossentropy" in low else
+                "flash_attention kernel" if "flash_attention" in low else
+                "ssd kernel" if "ssd_kernel" in low or "ssd_tc_kernel" in low else
+                "slstm kernel" if "slstm_kernel" in low else
+                "GEMM (cuBLAS)" if any(w in low for w in ("gemm", "xmma", "cutlass", "cublas"))
+                else "other kernels, copies")
+        kinds[kind] += (b - a) / 1e3
+    return {"traced_ms": (hi - lo) / 1e3, "busy_ms": busy / 1e3,
+            "idle_share": 1.0 - busy / (hi - lo) if device else None,
+            "device_ops": len(device), "kernel_ms_by_kind": kinds}
+
+
 def trace_train_step(cfg, model, batch, name: str) -> dict:
     """One synchronized train step (after a warm one) under
-    ``torch.profiler``: the card's busy time and idle share, and its kernel
-    time by kind.  The trace is written to ``build/<name>.json``.  The
-    optimizer update alone is timed with CUDA events after it."""
+    ``torch.profiler``, with the MoE and MLA spans of :func:`moe_mla_spans`
+    on: the card's busy time, idle share and device time by kind
+    (:func:`device_time`).  The trace is written to ``build/<name>.json``.
+    The optimizer update alone is timed with CUDA events after it."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from repro_torch.train import TrainConfig, make_train_step
@@ -2150,7 +2268,8 @@ def trace_train_step(cfg, model, batch, name: str) -> dict:
     step = make_train_step(cfg, opt)
     step(model, state, 0, batch)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with moe_mla_spans(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
         with record_function("train_step"):
             step(model, state, 1, batch)
             torch.cuda.synchronize()
@@ -2161,37 +2280,16 @@ def trace_train_step(cfg, model, batch, name: str) -> dict:
         events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
     span = next(e for e in events if e.get("cat") == "user_annotation"
                 and e["name"] == "train_step")
-    lo, hi = span["ts"], span["ts"] + span["dur"]
-    device = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
-                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
-                    and e["ts"] < hi and e["ts"] + e["dur"] > lo)
-    busy, end = 0.0, lo
-    kinds = {"crossentropy kernel": 0.0, "flash_attention kernel": 0.0, "ssd kernel": 0.0,
-             "slstm kernel": 0.0, "GEMM (cuBLAS)": 0.0, "other kernels, copies": 0.0}
-    for a, b, kname in device:
-        a, b = max(a, lo), min(b, hi)
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-        low = kname.lower()
-        kind = ("crossentropy kernel" if "crossentropy" in low else
-                "flash_attention kernel" if "flash_attention" in low else
-                "ssd kernel" if "ssd_kernel" in low or "ssd_tc_kernel" in low else
-                "slstm kernel" if "slstm_kernel" in low else
-                "GEMM (cuBLAS)" if any(t in low for t in ("gemm", "xmma", "cutlass", "cublas"))
-                else "other kernels, copies")
-        kinds[kind] += (b - a) / 1e3
+    out = device_time(events, span["ts"], span["ts"] + span["dur"])
     grads = {n: torch.zeros_like(p) for n, p in model.named_parameters()}
-    opt_ms = time_ms(lambda: opt.update(grads, state, dict(model.named_parameters()), 2), 2, 1)
-    out = {"traced_ms": (hi - lo) / 1e3, "busy_ms": busy / 1e3,
-           "idle_share": 1.0 - busy / (hi - lo) if device else None,
-           "device_ops": len(device), "kernel_ms_by_kind": kinds, "optimizer_update_ms": opt_ms}
-    if device:
+    out["optimizer_update_ms"] = time_ms(
+        lambda: opt.update(grads, state, dict(model.named_parameters()), 2), 2, 1)
+    if out["device_ops"]:
         print(f"  trace of one step (torch.profiler, build/{name}.json): {out['traced_ms']:.1f} ms "
-              f"traced, the card busy {out['busy_ms']:.1f} ms in {len(device)} kernels / copies: "
-              f"idle share {out['idle_share']:.4f}; by kind: "
-              + ", ".join(f"{k} {v:.1f} ms" for k, v in kinds.items())
-              + f"; optimizer update alone {opt_ms:.1f} ms (CUDA events)")
+              f"traced, the card busy {out['busy_ms']:.1f} ms in {out['device_ops']} kernels / "
+              f"copies: idle share {out['idle_share']:.4f}; by kind: "
+              + ", ".join(f"{k} {v:.1f} ms" for k, v in out["kernel_ms_by_kind"].items())
+              + f"; optimizer update alone {out['optimizer_update_ms']:.1f} ms (CUDA events)")
     else:
         print("  trace of one step: the trace holds no device activity; idle share not measured")
     return out
@@ -3091,6 +3189,277 @@ def phase_train_xlstm(slstm_rows) -> dict:
     return train
 
 
+# -- MLA / MoE slice -------------------------------------------------------------------
+
+#: depth cuts of the two MoE configs at full width: deepseek-v2-lite's 26
+#: MLA/MoE layers hold 15.7e9 parameters, 62.8 GB of float32 masters, and
+#: ``init_model_params`` draws a stacked leaf whole (``moe.w1`` alone 19.2 GB
+#: at full depth), so serving keeps the dense head layer and 7 MLA/MoE
+#: layers (4.59e9 parameters) and training 3 (2.25e9: masters, AdamW
+#: moments and gradients about 36 GB); qwen3-moe serves 2 of its 94 layers
+#: (6.22e9 parameters, 24.9 GB) and trains 1 (3.73e9) with its Adafactor
+DEEPSEEK_SERVE_SUPERBLOCKS, DEEPSEEK_TRAIN_SUPERBLOCKS = 7, 3
+QWEN3_SERVE_SUPERBLOCKS, QWEN3_TRAIN_SUPERBLOCKS = 2, 1
+#: phase 25(c): the einsum and sort dispatches at capacity 8 (no drop) in
+#: float32 compute on the first group's prompts cut to this many tokens
+#: (at 8 x 512 tokens a group's C is 3072 and the one-hot dispatch and
+#: combine tensors 3.2 GB each in float32), logits within MOE_DISPATCH_TOL
+MOE_COMPARE_SEQ, MOE_DISPATCH_TOL = 512, 1e-4
+#: phases 26 and 27: the ``cuda`` engine's loss against the ``torch``
+#: engine's on one batch (deepseek 8 x 2048 tokens, qwen3-moe one 1 x 2048
+#: microbatch).  MLA and MoE have no kernel, so the two engines differ only
+#: in the cross-entropy and, at qwen3-moe, the flash attention (bf16
+#: tensor-core kernels against their plain versions, float32 sums in
+#: another order); held to xlstm's bound
+MOE_TRAIN_LOSS_TOL = 3e-3
+
+
+def cut_depth(full, n_superblocks: int):
+    """``full`` at its own widths with ``n_superblocks`` stacked superblocks."""
+    return dataclasses.replace(
+        full, n_superblocks=n_superblocks,
+        n_layers=len(full.head_blocks) + n_superblocks * len(full.superblock)
+        + len(full.tail_blocks))
+
+
+def trace_prefill(cfg, model, prompts, capacity: int, name: str) -> dict:
+    """One group's prefill (after a warm one) under ``torch.profiler`` with
+    the MoE / MLA spans on: the card's busy time, idle share and device
+    time by kind (:func:`device_time`); the trace is written to
+    ``build/<name>.json``."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    tokens = left_padded(prompts)
+    prefill_last_logits(cfg, model, tokens, capacity, "cuda")
+    torch.cuda.synchronize()
+    with moe_mla_spans(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
+        with record_function("prefill"):
+            prefill_last_logits(cfg, model, tokens, capacity, "cuda")
+            torch.cuda.synchronize()
+    path = os.path.join(ROOT, "build", f"{name}.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    span = next(e for e in events if e.get("cat") == "user_annotation" and e["name"] == "prefill")
+    out = {"B": tokens.shape[0], "S": tokens.shape[1],
+           **device_time(events, span["ts"], span["ts"] + span["dur"])}
+    if out["device_ops"]:
+        print(f"  trace of one prefill group B={out['B']} S={out['S']} (torch.profiler, "
+              f"build/{name}.json): {out['traced_ms']:.1f} ms traced, the card busy "
+              f"{out['busy_ms']:.1f} ms in {out['device_ops']} kernels / copies: idle share "
+              f"{out['idle_share']:.4f}; by kind: "
+              + ", ".join(f"{k} {v:.1f} ms" for k, v in out["kernel_ms_by_kind"].items()))
+    else:
+        print("  trace of one prefill: the trace holds no device activity; idle share not "
+              "measured")
+    return out
+
+
+def dispatch_modes_agree(cfg, model, prompts) -> dict:
+    """Phase 25(c): one group's logits in float32 compute (the served
+    model's weights, as the ``Engine`` rounded them) at ``moe_capacity`` 8,
+    where no assignment drops, through the einsum and the sort dispatch,
+    within MOE_DISPATCH_TOL; each dispatch twice, the two calls' logits equal
+    bit for bit."""
+    from repro_torch.models import Transformer, forward, logits_from_hidden
+
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32", moe_capacity=8.0)
+    model32 = Transformer(cfg32, device="cuda")
+    model32.load_state_dict(model.state_dict())
+    tokens = left_padded([p[:MOE_COMPARE_SEQ] for p in prompts])
+    logits, seconds = {}, {}
+    with torch.no_grad():
+        for mode in ("einsum", "sort"):
+            model32.cfg = dataclasses.replace(cfg32, moe_dispatch=mode)
+            runs = []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                x, _, _ = forward(model32, {"tokens": tokens}, mode="train")
+                runs.append(logits_from_hidden(model32, x))
+                torch.cuda.synchronize()
+                seconds.setdefault(mode, []).append(time.perf_counter() - t0)
+                del x
+            assert torch.equal(runs[0], runs[1]), mode
+            logits[mode] = runs[0]
+            del runs
+    err = float((logits["einsum"] - logits["sort"]).abs().max())
+    rms = float(logits["sort"].pow(2).mean().sqrt())
+    assert torch.isfinite(logits["sort"]).all() and err <= MOE_DISPATCH_TOL, (err, rms)
+    del model32, logits
+    torch.cuda.empty_cache()
+    B, S = tokens.shape
+    print(f"  (c) float32 compute, moe_capacity 8: einsum vs sort dispatch on {B} x {S} tokens, "
+          f"every position's logits max |d| {err:.3e} (<= {MOE_DISPATCH_TOL}; rms {rms:.4f}); "
+          f"each dispatch's two calls equal bit for bit; s a forward: "
+          + ", ".join(f"{m} {min(t):.3f}" for m, t in seconds.items()))
+    return {"B": B, "S": S, "max_abs_err": err, "logits_rms": rms, "tol": MOE_DISPATCH_TOL,
+            "repeatable": True, "forward_s": seconds}
+
+
+def phase_serve_deepseek() -> dict:
+    """Phase 25: deepseek-v2-lite-16b at full width (cut in depth), served."""
+    from repro_torch import configs
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import count_params, init_model_params
+
+    full = configs.get_config("deepseek-v2-lite-16b")
+    cfg = cut_depth(full, DEEPSEEK_SERVE_SUPERBLOCKS)
+    print(f"phase 25: deepseek-v2-lite-16b at full width (d_model 2048, 16 heads, kv_lora 512, "
+          f"rope 64, {cfg.moe_experts} routed experts top-{cfg.moe_top_k} of {cfg.moe_d_ff} + "
+          f"shared {cfg.moe_shared_d_ff}, vocab {cfg.vocab}, moe_dispatch {cfg.moe_dispatch!r}), "
+          f"depth cut from {full.n_layers} to {cfg.n_layers} layers "
+          f"({count_params(cfg) / 1e9:.3f} B parameters), served on the card; "
+          f"{nvidia_smi('name,power.limit')}")
+    entry = launch_serve.main(["--arch", "deepseek-v2-lite-16b", "--smoke"])
+    torch.cuda.synchronize()
+    assert [len(o) for o in entry["outputs"]] == [32] * 8 and entry["device"] == "cuda", entry
+    print(f"  (a) launch.serve.main(['--arch', 'deepseek-v2-lite-16b', '--smoke']): "
+          f"{entry['tokens']} tokens in {entry['seconds']:.3f} s")
+    t0 = time.perf_counter()
+    model = init_model_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = zamba2_prompts(cfg.vocab)
+    result = serve_engine("(b) Engine", cfg, model, prompts, slots=ZAMBA2_SLOTS, capacity=4096,
+                          max_new=64)
+    result["init_s"] = init_s
+    result["params"] = count_params(cfg)
+    result["entry"] = {"tokens": entry["tokens"], "seconds": entry["seconds"]}
+    result["depth_cut"] = {"n_layers": [full.n_layers, cfg.n_layers],
+                           "n_superblocks": [full.n_superblocks, cfg.n_superblocks]}
+    result["decode_trace"] = decode_idle_share(cfg, model, prompts[:8], 4096, steps=16)
+    result["prefill_trace"] = trace_prefill(cfg, model, prompts[:8], 4096,
+                                            "prefill_trace_deepseek")
+    result["dispatch_modes"] = dispatch_modes_agree(cfg, model, prompts[:8])
+    del model
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_train_deepseek() -> dict:
+    """Phase 26: train deepseek-v2-lite-16b at full width (cut in depth)."""
+    from repro_torch import configs
+    from repro_torch.models import count_params, init_model_params
+    from repro_torch.train import SyntheticLM, TrainConfig, Trainer
+
+    B, S, steps = 8, 2048, 3
+    full = configs.get_config("deepseek-v2-lite-16b")
+    cfg = cut_depth(full, DEEPSEEK_TRAIN_SUPERBLOCKS)
+    print(f"phase 26: train deepseek-v2-lite-16b at full width, depth cut from {full.n_layers} to "
+          f"{cfg.n_layers} layers ({count_params(cfg) / 1e9:.3f} B parameters): Trainer, {steps} "
+          f"steps, batch {B}, seq {S}, bf16 compute, adamw, remat; "
+          f"{nvidia_smi('name,power.limit')}")
+    tcfg = TrainConfig(lr=3e-4, warmup_steps=1, total_steps=steps, eval_every=1,
+                       checkpoint_every=10**9)
+    result, train = run_training(
+        "Trainer", cfg, lambda: Trainer(cfg, tcfg, SyntheticLM(cfg, B, S)).run(), B * S,
+        falling=False)
+    del result
+    torch.cuda.empty_cache()
+    model = init_model_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    batch = SyntheticLM(cfg, B, S, device="cuda").batch_at(0)
+    train["engines"] = engines_loss(cfg, model, batch, tol=MOE_TRAIN_LOSS_TOL)
+    train["trace"] = trace_train_step(cfg, model, batch, "train_trace_deepseek")
+    del model, batch
+    torch.cuda.empty_cache()
+    train["descent"] = descent_on_one_batch(cfg, B, XLSTM_DESCENT_SEQ, XLSTM_DESCENT_STEPS)
+    train["params"] = count_params(cfg)
+    train["depth_cut"] = {"n_layers": [full.n_layers, cfg.n_layers],
+                          "n_superblocks": [full.n_superblocks, cfg.n_superblocks]}
+    return train
+
+
+def phase_qwen3_moe(build_log: str) -> dict:
+    """Phase 27: qwen3-moe-235b-a22b at full width (cut in depth): its GQA
+    16x prefill shapes held on the flash kernel, then served, then
+    trained with its Adafactor and microbatches."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import count_params, init_model_params
+    from repro_torch.train import SyntheticLM, TrainConfig, Trainer
+
+    full = configs.get_config("qwen3-moe-235b-a22b")
+    cfg = cut_depth(full, QWEN3_SERVE_SUPERBLOCKS)
+    H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    print(f"phase 27: qwen3-moe-235b-a22b at full width (d_model {cfg.d_model}, {H} heads / {KV} "
+          f"kv of {D}, {cfg.moe_experts} experts top-{cfg.moe_top_k} of {cfg.moe_d_ff}, vocab "
+          f"{cfg.vocab}); {nvidia_smi('name,power.limit')}")
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    ptxas = flash_ptxas(build_log)
+    flash_rows = []
+    for B, S in zamba2_groups():
+        flash_rows.append(check_flash(gen, "qwen3-moe prefill", B, H, KV, S, 4096, D,
+                                      torch.bfloat16, {"kv_len": S}, True, 5, ptxas,
+                                      qk_scale=3.0))
+    # the training shapes of (c): one microbatch of 1 x 2048 tokens, the
+    # flash forward and its written-out backward over q_chunk rows, and the
+    # loss head (bf16 x, the untied head's float32 master)
+    B, S, steps = 8, 2048, 3
+    micro = full.train_microbatch
+    T = B // micro * S
+    train_checks = {
+        "flash": check_flash(gen, "qwen3-moe training", B // micro, H, KV, S, S, D,
+                             torch.bfloat16, {}, True, 5, ptxas, qk_scale=3.0),
+        "flash_grad": check_flash_grad(gen, "qwen3-moe training", B // micro, H, KV, S, D,
+                                       torch.bfloat16, {}, full.q_chunk),
+        "ce": check_ce(gen, "qwen3-moe training", T, cfg.d_model, cfg.vocab, torch.bfloat16,
+                       torch.float32, 0.0, False, 5),
+        "ce_grad": check_ce_grad(gen, f"qwen3-moe, T={T}", T, cfg.d_model, cfg.vocab,
+                                 torch.bfloat16, 0.0, tied=False)}
+    fa.reset_launches()
+    entry = launch_serve.main(["--arch", "qwen3-moe-235b-a22b", "--smoke"])
+    torch.cuda.synchronize()
+    entry_launches = fa.launches()
+    smoke = configs.get_smoke_config("qwen3-moe-235b-a22b")
+    assert entry_launches == smoke.n_superblocks * 2, entry_launches  # 8 requests, 2 groups
+    assert [len(o) for o in entry["outputs"]] == [32] * 8
+    print(f"  (a) launch.serve.main(['--arch', 'qwen3-moe-235b-a22b', '--smoke']): "
+          f"{entry['tokens']} tokens in {entry['seconds']:.3f} s; flash_attention launches "
+          f"{entry_launches} == {smoke.n_superblocks} layers x 2 prefills")
+    print(f"  (b) served at depth {cfg.n_layers} of {full.n_layers} layers "
+          f"({count_params(cfg) / 1e9:.3f} B parameters)")
+    t0 = time.perf_counter()
+    model = init_model_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = zamba2_prompts(cfg.vocab)
+    serve = serve_engine("(b) Engine", cfg, model, prompts, slots=ZAMBA2_SLOTS, capacity=4096,
+                         max_new=64)
+    assert serve["flash_launches"] == cfg.n_layers * serve["groups"], serve["flash_launches"]
+    serve["init_s"] = init_s
+    serve["params"] = count_params(cfg)
+    serve["entry"] = {"tokens": entry["tokens"], "seconds": entry["seconds"],
+                      "flash_launches": entry_launches}
+    serve["prefill_trace"] = trace_prefill(cfg, model, prompts[:8], 4096, "prefill_trace_qwen3")
+    del model
+    torch.cuda.empty_cache()
+
+    tcfg_cut = cut_depth(full, QWEN3_TRAIN_SUPERBLOCKS)
+    print(f"  (c) train at depth {tcfg_cut.n_layers} ({count_params(tcfg_cut) / 1e9:.3f} B "
+          f"parameters): Trainer, {steps} steps, batch {B}, seq {S}, bf16, "
+          f"{tcfg_cut.optimizer}, microbatch {micro}, remat")
+    tcfg = TrainConfig(lr=3e-4, warmup_steps=1, total_steps=steps, eval_every=1,
+                       checkpoint_every=10**9, microbatch=micro)
+    result, train = run_training(
+        "Trainer", tcfg_cut, lambda: Trainer(tcfg_cut, tcfg, SyntheticLM(tcfg_cut, B, S)).run(),
+        B * S, falling=False, microbatch=micro)
+    del result
+    torch.cuda.empty_cache()
+    model = init_model_params(tcfg_cut, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    batch = SyntheticLM(tcfg_cut, B // micro, S, device="cuda").batch_at(0)
+    train["engines"] = engines_loss(tcfg_cut, model, batch, tol=MOE_TRAIN_LOSS_TOL)
+    del model, batch
+    torch.cuda.empty_cache()
+    train["params"] = count_params(tcfg_cut)
+    return {"flash_rows": flash_rows, "train_checks": train_checks, "serve": serve, "train": train,
+            "depth_cut": {"serve": cfg.n_layers, "train": tcfg_cut.n_layers,
+                          "full": full.n_layers}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every measurement to this JSON file")
@@ -3123,32 +3492,53 @@ def main() -> int:
         if key.startswith("bfloat16"):
             print(f"  ptxas ssd ({key}): {'; '.join(lines)}")
 
-    kernel_rows = phase_kernels(sm_clock_hz)
-    optimize, optimize_rows = phase_optimize(sm_clock_hz)
-    waves, wave_rows = phase_waves(sm_clock_hz)
-    phase_agreement()
-    mc_rows = phase_mc_kernel()
-    mc_set_rows = phase_mc_sets()
-    motpe, motpe_rows, motpe_set_row = phase_motpe()
-    nsga2 = phase_nsga2()
+    phase_s = {"1": time.perf_counter() - t_start}
+
+    def timed(phases: str, fn, *args):
+        """``fn(*args)``, its wall seconds printed and kept under ``phases``."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[phases] = time.perf_counter() - t0
+        print(f"  [phase {phases}: {phase_s[phases]:.1f} s]")
+        return out
+
+    kernel_rows = timed("2", phase_kernels, sm_clock_hz)
+    optimize, optimize_rows = timed("3", phase_optimize, sm_clock_hz)
+    waves, wave_rows = timed("4", phase_waves, sm_clock_hz)
+    timed("5", phase_agreement)
+    mc_rows = timed("6", phase_mc_kernel)
+    mc_set_rows = timed("6b", phase_mc_sets)
+    motpe, motpe_rows, motpe_set_row = timed("7", phase_motpe)
+    nsga2 = timed("8", phase_nsga2)
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full precision
     torch.backends.cudnn.allow_tf32 = False
-    flash_rows = phase_flash(_build.build_log())
-    tinyllama = phase_tinyllama()
-    gemma2 = phase_gemma2()
-    ce_rows, ce_grads = phase_crossentropy()
-    flash_grads = phase_flash_grad()
-    train_tinyllama = phase_train_tinyllama(ce_rows, flash_rows)
-    train_gemma2 = phase_train_gemma2(ce_rows)
-    tune = phase_tune(16, ("dense",))
-    ssd_rows, ssd_grads, ssd_ptx = phase_ssd(_build.build_log())
-    serve_zamba2 = phase_serve_zamba2(ssd_rows)
-    train_zamba2 = phase_train_zamba2(ssd_rows)
-    tune_hybrid = phase_tune(20, ("dense", "mamba2"))
-    slstm_rows, slstm_grads, slstm_ptx, slstm_repeat = phase_slstm(_build.build_log())
-    serve_xlstm = phase_serve_xlstm(slstm_rows)
-    train_xlstm = phase_train_xlstm(slstm_rows)
-    tune_xlstm = phase_tune(24, ("dense", "mlstm", "mamba2"))
+    flash_rows = timed("9", phase_flash, _build.build_log())
+    tinyllama = timed("10", phase_tinyllama)
+    gemma2 = timed("11", phase_gemma2)
+    ce_rows, ce_grads = timed("12", phase_crossentropy)
+    flash_grads = timed("13", phase_flash_grad)
+    train_tinyllama = timed("14", phase_train_tinyllama, ce_rows, flash_rows)
+    train_gemma2 = timed("15", phase_train_gemma2, ce_rows)
+    tune = timed("16", phase_tune, 16, ("dense",))
+    ssd_rows, ssd_grads, ssd_ptx = timed("17", phase_ssd, _build.build_log())
+    serve_zamba2 = timed("18", phase_serve_zamba2, ssd_rows)
+    train_zamba2 = timed("19", phase_train_zamba2, ssd_rows)
+    tune_hybrid = timed("20", phase_tune, 20, ("dense", "mamba2"))
+    slstm_rows, slstm_grads, slstm_ptx, slstm_repeat = timed("21", phase_slstm,
+                                                             _build.build_log())
+    serve_xlstm = timed("22", phase_serve_xlstm, slstm_rows)
+    train_xlstm = timed("23", phase_train_xlstm, slstm_rows)
+    tune_xlstm = timed("24", phase_tune, 24, ("dense", "mlstm", "mamba2"))
+    serve_deepseek = timed("25", phase_serve_deepseek)
+    train_deepseek = timed("26", phase_train_deepseek)
+    qwen3 = timed("27", phase_qwen3_moe, _build.build_log())
+    flash_rows.append(qwen3["train_checks"]["flash"])
+    flash_grads.append(qwen3["train_checks"]["flash_grad"])
+    ce_rows.append(qwen3["train_checks"]["ce"])
+    ce_grads.append(qwen3["train_checks"]["ce_grad"])
+    tune_moe = timed("28", phase_tune, 28, ("dense", "mlstm", "mamba2", "moe"))
+    moe_trials = tune_moe["states_by_family"]["moe"]
+    assert moe_trials and set(moe_trials) <= {"COMPLETE", "PRUNED"}, moe_trials
 
     shape_rows = optimize_rows + wave_rows
     table = wave_rows[-1]  # the score-table build: the kernel's large shape
@@ -3227,6 +3617,13 @@ def main() -> int:
         "launches_train_zamba2": train_zamba2["launches"]["flash_attention"],
         "launches_tune_hybrid": tune_hybrid["launches"]["flash_attention"],
         "launches_tune_xlstm": tune_xlstm["launches"]["flash_attention"],
+        "launches_entry_point_qwen3_moe": qwen3["serve"]["entry"]["flash_launches"],
+        "launches_serve_qwen3_moe": qwen3["serve"]["flash_launches"],
+        "launches_train_qwen3_moe": qwen3["train"]["launches"]["flash_attention"],
+        "launches_tune_moe": tune_moe["launches"]["flash_attention"],
+        "qwen3_moe_prefill": [{k: r[k] for k in ("B", "Sq", "Skv", "ms", "plain_ms", "bound_ms",
+                                                 "bound_by", "max_abs_err")}
+                              for r in qwen3["flash_rows"]],
         "tensor_core_sass": {k: n for k, n in sass.items()
                              if "flash" in k or k == "not available"},
         "shapes": flash_rows,
@@ -3235,6 +3632,7 @@ def main() -> int:
     kernels[0]["launches_tune"] = tune["launches"]["parzen_score"]
     kernels[0]["launches_tune_hybrid"] = tune_hybrid["launches"]["parzen_score"]
     kernels[0]["launches_tune_xlstm"] = tune_xlstm["launches"]["parzen_score"]
+    kernels[0]["launches_tune_moe"] = tune_moe["launches"]["parzen_score"]
     # the training main path's own shape: tinyllama-1.1b's loss at B = 8, S = 2048
     ce_main = next(r for r in ce_rows if r["label"] == "tinyllama training")
     kernels.append({
@@ -3249,6 +3647,9 @@ def main() -> int:
         "launches_tune_hybrid": tune_hybrid["launches"]["crossentropy"],
         "launches_train_xlstm": train_xlstm["launches"]["crossentropy"],
         "launches_tune_xlstm": tune_xlstm["launches"]["crossentropy"],
+        "launches_train_deepseek": train_deepseek["launches"]["crossentropy"],
+        "launches_train_qwen3_moe": qwen3["train"]["launches"]["crossentropy"],
+        "launches_tune_moe": tune_moe["launches"]["crossentropy"],
         "max_abs_err": max(r["max_abs_err"] for r in ce_rows),
         "ms": ce_main["ms"],
         "plain_ms": ce_main["plain_ms"],
@@ -3273,6 +3674,7 @@ def main() -> int:
         "launches_train_zamba2": train_zamba2["launches"]["ssd"],
         "launches_tune_hybrid": tune_hybrid["launches"]["ssd"],
         "launches_tune_xlstm": tune_xlstm["launches"]["ssd"],
+        "launches_tune_moe": tune_moe["launches"]["ssd"],
         "max_abs_err": max(r["max_abs_err"] for r in ssd_rows),
         "ms": ssd_main["ms"],
         "card_ms": ssd_main["card_ms"],
@@ -3324,8 +3726,11 @@ def main() -> int:
                        "serve_zamba2": serve_zamba2, "train_zamba2": train_zamba2,
                        "tune_hybrid": tune_hybrid, "serve_xlstm": serve_xlstm,
                        "train_xlstm": train_xlstm, "tune_xlstm": tune_xlstm,
+                       "serve_deepseek": serve_deepseek, "train_deepseek": train_deepseek,
+                       "qwen3_moe": qwen3, "tune_moe": tune_moe, "phase_seconds": phase_s,
                        "kernels": kernels}, f,
                       indent=1)
+    print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s "
           f"(kernel build {_build.build_seconds():.2f} s)")
     print(smi)

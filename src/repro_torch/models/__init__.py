@@ -1,8 +1,7 @@
 """The port's model zoo: the dense attention family (GQA, sliding windows,
-softcaps; text, VLM and audio backbones), the Mamba2 hybrid family (zamba2)
-and the xLSTM family (mLSTM and sLSTM blocks) for serving and training.
-The other families (MLA, MoE) load their configs and raise
-``NotImplementedError`` when built."""
+softcaps; text, VLM and audio backbones), the Mamba2 hybrid family (zamba2),
+the xLSTM family (mLSTM and sLSTM blocks) and the MLA / MoE family
+(deepseek-v2-lite, qwen3-moe) for serving and training."""
 
 from __future__ import annotations
 
@@ -10,6 +9,7 @@ from .config import SHAPES, BlockDef, ModelConfig, ShapeConfig
 from .transfer import load_params_tree, params_from_jax, params_tree
 from .transformer import (
     Transformer,
+    count_active_params,
     count_params,
     forward,
     init_cache,
@@ -28,6 +28,7 @@ __all__ = [
     "param_specs",
     "init_model_params",
     "count_params",
+    "count_active_params",
     "forward",
     "loss_fn",
     "logits_from_hidden",

@@ -11,8 +11,21 @@ probabilities in float32 for ``P V`` (as the reference's Pallas kernel
 does); the reference's ``attention_full`` rounds them to the compute dtype
 first, so in bfloat16 the two differ by one bfloat16 rounding.
 
-The KV cache is a pair of tensors updated in place.  Multi-head latent
-attention (MLA) belongs to a later slice of the port and raises here.
+The KV cache is a pair of tensors updated in place.
+
+Multi-head latent attention (MLA, DeepSeek-V2) has no kernel in the
+reference: it is plain products over query chunks, and so it is here
+(``torch.einsum`` / ``torch.matmul``, cuBLAS on the card), with the
+reference's rounding points: the absorbed query ``q_nope @ w_uk`` in the
+compute dtype, the scores float32 products of compute-dtype operands (TF32
+off), the probabilities rounded to the compute dtype before ``P c_kv``.  The
+reference halves its query chunk until it divides S; here the chunks are
+``min(q_chunk, S)`` rows with a ragged last one (each row has its own
+softmax, so the function is the same, and an odd S costs no thousands of
+one-row chunks).  Each chunk is recomputed in the backward pass
+(``torch.utils.checkpoint``, the twin of the reference's ``jax.checkpoint``).
+Its cache holds ``c_kv`` [B, T, kv_lora] and ``k_rope`` [B, T, rope] and is
+updated in place.
 """
 
 from __future__ import annotations
@@ -21,9 +34,12 @@ import math
 
 import torch
 
+from torch.utils.checkpoint import checkpoint
+
 from ..kernels.flash_attention import FlashAttentionFunction
+from ..kernels.ops import full_float32_matmul
 from ..kernels.ref import flash_attention_ref
-from .layers import ENGINES, Spec, apply_rope, check_engine, rope, softcap
+from .layers import ENGINES, Spec, apply_rope, check_engine, rms_norm, rope, softcap
 
 __all__ = [
     "ATTN_ENGINES",
@@ -42,7 +58,6 @@ __all__ = [
 #: "auto": the kernel's wrapper (kernel on CUDA tensors, plain version on CPU
 #: ones); "cuda": the kernel (CUDA tensors only); "torch": the plain version
 ATTN_ENGINES = ENGINES
-_MLA_SLICE = "multi-head latent attention (MLA) belongs to the MLA/MoE slice of the port"
 
 
 # -- parameter specs -----------------------------------------------------------------
@@ -60,7 +75,21 @@ def attn_specs(cfg) -> dict:
 
 
 def mla_specs(cfg) -> dict:
-    raise NotImplementedError(_MLA_SLICE)
+    """Multi-head Latent Attention (DeepSeek-V2).  K/V are stored compressed:
+    c_kv = x @ w_dkv (kv_lora dims) plus a single shared rope key head."""
+    d, H = cfg.d_model, cfg.n_heads
+    L = cfg.kv_lora_rank
+    nope, rp, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    std = 1.0 / math.sqrt(d)
+    return {
+        "wq": Spec((d, H, nope + rp), ("fsdp_embed", "heads", "head_dim"), std=std),
+        "w_dkv": Spec((d, L), ("fsdp_embed", "kv_lora"), std=std),
+        "kv_norm": Spec((L,), ("kv_lora",), init="zeros"),
+        "w_kr": Spec((d, rp), ("fsdp_embed", "head_dim"), std=std),
+        "w_uk": Spec((L, H, nope), ("kv_lora", "heads", "head_dim"), std=1.0 / math.sqrt(L)),
+        "w_uv": Spec((L, H, dv), ("kv_lora", "heads", "head_dim"), std=1.0 / math.sqrt(L)),
+        "wo": Spec((H, dv, d), ("heads", "head_dim", "fsdp_embed"), std=1.0 / math.sqrt(H * dv)),
+    }
 
 
 # -- core attention ---------------------------------------------------------------------
@@ -216,16 +245,114 @@ def empty_kv_cache(cfg, batch: int, capacity: int, dtype, window: int = -1, devi
     }
 
 
-# -- MLA (a later slice) -----------------------------------------------------------------------
+# -- MLA -------------------------------------------------------------------------------------
 
 
-def mla_block_full(*args, **kwargs):
-    raise NotImplementedError(_MLA_SLICE)
+def _mla_qkv(p, x, cfg, positions, compute_dtype):
+    B, S, d = x.shape
+    H = cfg.n_heads
+    nope, rp = cfg.qk_nope_dim, cfg.qk_rope_dim
+    q = (x @ p.wq.to(compute_dtype).reshape(d, -1)).reshape(B, S, H, nope + rp)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    sin, cos = rope(positions, rp, cfg.rope_theta)
+    q_rope = apply_rope(q_rope, sin, cos)
+
+    c_kv = rms_norm(x @ p.w_dkv.to(compute_dtype), p.kv_norm, cfg.norm_eps)
+    k_rope = x @ p.w_kr.to(compute_dtype)
+    k_rope = apply_rope(k_rope[:, :, None, :], sin, cos)[:, :, 0, :]  # single shared head
+    return q_nope, q_rope, c_kv, k_rope
 
 
-def mla_block_decode(*args, **kwargs):
-    raise NotImplementedError(_MLA_SLICE)
+def _mla_chunk(q_abs, q_rope, c_kv, k_rope, w_uv, q_pos, kv_len, scale):
+    """One query chunk: float32 scores of compute-dtype operands (TF32 off),
+    the probabilities rounded to the compute dtype, then ``(P c_kv) w_uv``.
+    q_abs [B, q, H, L], q_rope [B, q, H, rope] -> [B, q, H, dv]."""
+    T = c_kv.shape[1]
+    with full_float32_matmul():
+        s = torch.einsum("bqhl,btl->bhqt", q_abs.float(), c_kv.float())
+        s = s + torch.einsum("bqhk,btk->bhqt", q_rope.float(), k_rope.float())
+    s = s * scale
+    k_pos = torch.arange(T, device=c_kv.device)
+    mask = k_pos[None, :] <= q_pos[:, None]
+    if kv_len is not None:
+        mask &= k_pos[None, :] < kv_len
+    s = torch.where(mask, s, torch.full((), -1e30, device=s.device))
+    probs = torch.softmax(s, dim=-1).to(c_kv.dtype)
+    # value up-projection after prob-weighting in compressed space
+    ctx = torch.einsum("bhqt,btl->bqhl", probs, c_kv)
+    return torch.einsum("bqhl,lhv->bqhv", ctx, w_uv)
 
 
-def empty_mla_cache(*args, **kwargs):
-    raise NotImplementedError(_MLA_SLICE)
+def _mla_attend(p, q_nope, q_rope, c_kv, k_rope, cfg, q_offset, kv_len, compute_dtype, q_chunk):
+    """Attention in compressed space.
+
+    Absorb w_uk into q (the MLA trick): score = (q_nope @ w_uk) . c_kv
+    + q_rope . k_rope, so the cache stays [T, kv_lora + rope].  Values are
+    un-compressed per head after the probs.  The query rows run in chunks of
+    ``min(q_chunk, S)`` (the last one ragged), each recomputed in backward.
+    The cache is in the compute dtype or bfloat16; a bfloat16 cache under
+    float32 compute is cast up exactly, as the reference's products promote
+    it.  A float32 cache under bfloat16 compute, where the reference's
+    products would promote to float32 instead, is refused."""
+    B, S, H, _ = q_nope.shape
+    if c_kv.dtype not in (compute_dtype, torch.bfloat16):
+        raise ValueError(f"an MLA cache in {c_kv.dtype} under {compute_dtype} compute: the cache "
+                         f"must be in the compute dtype or bfloat16")
+    scale = 1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
+    c_kv, k_rope = c_kv.to(compute_dtype), k_rope.to(compute_dtype)
+    w_uv = p.w_uv.to(compute_dtype)
+    q_abs = torch.einsum("bshn,lhn->bshl", q_nope, p.w_uk.to(compute_dtype))
+    qc = min(q_chunk, S)
+    remat = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q_abs, q_rope, c_kv, k_rope, w_uv))
+    outs = []
+    for lo in range(0, S, qc):
+        hi = min(lo + qc, S)
+        q_pos = q_offset + torch.arange(lo, hi, device=q_nope.device)
+        args = (q_abs[:, lo:hi], q_rope[:, lo:hi], c_kv, k_rope, w_uv, q_pos, kv_len, scale)
+        outs.append(checkpoint(_mla_chunk, *args, use_reentrant=False) if remat
+                    else _mla_chunk(*args))
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+
+
+def mla_block_full(p, x, cfg, bdef, positions, cache=None, cache_index=None):
+    """Full-sequence MLA sub-block.  Returns (out, cache); the cache (when
+    given) is updated in place and the queries attend over its first
+    ``cache_index + S`` rows (the rows past them, masked in the reference,
+    add exact zeros there)."""
+    B, S, _ = x.shape
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, x, cfg, positions, x.dtype)
+    kv_len = None
+    if cache is not None:
+        kv_len = cache_index + S
+        cache["c_kv"][:, cache_index:kv_len] = c_kv.to(cache["c_kv"].dtype)
+        cache["k_rope"][:, cache_index:kv_len] = k_rope.to(cache["k_rope"].dtype)
+        c_kv, k_rope = cache["c_kv"][:, :kv_len], cache["k_rope"][:, :kv_len]
+    o = _mla_attend(
+        p, q_nope, q_rope, c_kv, k_rope, cfg,
+        q_offset=cache_index if cache is not None else 0,
+        kv_len=kv_len, compute_dtype=x.dtype,
+        q_chunk=cfg.q_chunk if cache is None else cfg.prefill_q_chunk,
+    )
+    return _out_proj(p, o, x.dtype), cache
+
+
+def mla_block_decode(p, x, cfg, bdef, cache, index):
+    """One-token MLA decode with the cache updated in place; the query reads
+    the whole capacity under the ``index + 1`` mask, as the reference does."""
+    positions = torch.full((x.shape[0], 1), index, dtype=torch.int32, device=x.device)
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, x, cfg, positions, x.dtype)
+    cache["c_kv"][:, index] = c_kv[:, 0].to(cache["c_kv"].dtype)
+    cache["k_rope"][:, index] = k_rope[:, 0].to(cache["k_rope"].dtype)
+    o = _mla_attend(
+        p, q_nope, q_rope, cache["c_kv"], cache["k_rope"], cfg,
+        q_offset=index, kv_len=index + 1, compute_dtype=x.dtype, q_chunk=1,
+    )
+    return _out_proj(p, o, x.dtype), cache
+
+
+def empty_mla_cache(cfg, batch: int, capacity: int, dtype, device=None) -> dict:
+    return {
+        "c_kv": torch.zeros((batch, capacity, cfg.kv_lora_rank), dtype=dtype, device=device),
+        "k_rope": torch.zeros((batch, capacity, cfg.qk_rope_dim), dtype=dtype, device=device),
+    }

@@ -17,11 +17,14 @@ blocks through the SSD kernel, and one shared attention block whose
 parameters ``model.shared`` serve every stack position marked ``shared``,
 each repeat with its own KV cache) and the xLSTM family (xlstm: mLSTM blocks
 in torch ops, sLSTM blocks through the sLSTM recurrence kernel; both with
-float32 recurrent caches) are ported for serving and for training:
-``forward`` builds an autograd graph in train mode when the parameters
-require grad, and ``loss_fn`` is the reference's mean-token cross-entropy
-through the fused cross-entropy kernel.  MLA and MoE belong to a later
-slice and raise ``NotImplementedError``.
+float32 recurrent caches) and the MLA / MoE family (deepseek-v2-lite:
+MLA blocks with a compressed ``c_kv`` / ``k_rope`` cache; qwen3-moe: GQA
+through the flash-attention kernel; both with mixture-of-experts FFNs,
+``models/moe.py``, whose load-balance loss ``forward`` sums) are ported for
+serving and for training: ``forward`` builds an autograd graph in train
+mode when the parameters require grad, and ``loss_fn`` is the reference's
+mean-token cross-entropy through the fused cross-entropy kernel, plus
+``moe_aux_coef`` x the aux loss.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ from .layers import (
     spec_map,
     swiglu,
 )
+from .moe import moe_ffn, moe_specs
 
 __all__ = [
     "Transformer",
@@ -56,6 +60,7 @@ __all__ = [
     "block_specs",
     "init_model_params",
     "count_params",
+    "count_active_params",
     "state_items",
     "forward",
     "apply_block",
@@ -66,17 +71,12 @@ __all__ = [
 ]
 
 MODES = ("train", "prefill", "decode")
-_UNPORTED_KINDS = {"mla": "the MLA/MoE slice"}
 #: blocks that norm their own input and add ``x + out``: (train / prefill, decode)
 _RECURRENT_BLOCKS = {
     "mamba2": (m2.mamba2_block_full, m2.mamba2_block_decode),
     "mlstm": (xl.mlstm_block_full, xl.mlstm_block_decode),
     "slstm": (xl.slstm_block_full, xl.slstm_block_decode),
 }
-
-
-def _unported(what: str, slice_name: str):
-    return NotImplementedError(f"{what} is not ported yet: it belongs to {slice_name} of the port")
 
 
 # -- parameter spec tree -------------------------------------------------------------------
@@ -89,7 +89,7 @@ def _ffn_specs(cfg: ModelConfig, bdef: BlockDef) -> dict:
     if bdef.ffn == "none":
         return {}
     if bdef.ffn == "moe":
-        raise _unported("the mixture-of-experts FFN (ffn='moe')", "the MLA/MoE slice")
+        return {"moe": moe_specs(cfg)}
     if bdef.ffn == "gelu":
         return {
             "w1": Spec((d, ff), ("fsdp_embed", "mlp"), std=std),
@@ -103,8 +103,6 @@ def _ffn_specs(cfg: ModelConfig, bdef: BlockDef) -> dict:
 
 
 def block_specs(cfg: ModelConfig, bdef: BlockDef) -> dict:
-    if bdef.kind in _UNPORTED_KINDS:
-        raise _unported(f"the {bdef.kind!r} block", _UNPORTED_KINDS[bdef.kind])
     if bdef.kind == "mamba2":
         return m2.mamba2_specs(cfg)
     if bdef.kind == "mlstm":
@@ -112,7 +110,7 @@ def block_specs(cfg: ModelConfig, bdef: BlockDef) -> dict:
     if bdef.kind == "slstm":
         return xl.slstm_specs(cfg)
     specs: dict = {"ln1": Spec((cfg.d_model,), ("embed",), init="zeros")}
-    specs["attn"] = attn.attn_specs(cfg)
+    specs["attn"] = attn.mla_specs(cfg) if bdef.kind == "mla" else attn.attn_specs(cfg)
     if bdef.ffn != "none":
         specs["ln2"] = Spec((cfg.d_model,), ("embed",), init="zeros")
         specs.update(_ffn_specs(cfg, bdef))
@@ -155,6 +153,19 @@ def param_specs(cfg: ModelConfig) -> dict:
 
 def count_params(cfg: ModelConfig) -> int:
     return sum(math.prod(s.shape) for _, s in spec_leaves(param_specs(cfg)))
+
+
+def count_active_params(cfg: ModelConfig) -> int:
+    """MoE-aware active parameter count (for MODEL_FLOPS = 6*N_active*D): a
+    routed expert's leaves (``moe/w1``, ``w2``, ``w3``) count top_k / E of
+    their size; the router and the shared experts count whole."""
+    total = 0
+    for path, s in spec_leaves(param_specs(cfg)):
+        n = math.prod(s.shape)
+        if "moe" in path and path[-1] in ("w1", "w2", "w3") and cfg.moe_experts:
+            n = n * cfg.moe_top_k // cfg.moe_experts
+        total += n
+    return total
 
 
 def _dt(name: str) -> torch.dtype:
@@ -262,7 +273,9 @@ def _ffn_apply(p, x, cfg, bdef):
     if bdef.ffn == "none":
         return torch.zeros_like(x), aux
     h = rms_norm(x, p.ln2, cfg.norm_eps)
-    if bdef.ffn == "gelu":
+    if bdef.ffn == "moe":
+        y, aux = moe_ffn(p.moe, h, cfg)
+    elif bdef.ffn == "gelu":
         y = gelu_mlp(h, p.w1, p.w2, x.dtype)
     elif bdef.ffn == "geglu":
         a = h @ p.w1.to(x.dtype)
@@ -278,7 +291,8 @@ def _ffn_apply(p, x, cfg, bdef):
 def apply_block(bdef: BlockDef, p, x, cfg, positions, cache, cache_index, mode, engine="auto"):
     """Returns (x_out, cache, aux_loss); the cache is updated in place.  A
     mamba2, mLSTM or sLSTM block norms its input itself (no ``ln1``) and has
-    no FFN, as in the reference."""
+    no FFN, as in the reference; ``aux_loss`` is a MoE FFN's load-balance
+    loss (0.0 for any other block)."""
     if bdef.kind in _RECURRENT_BLOCKS:
         full, decode = _RECURRENT_BLOCKS[bdef.kind]
         if mode == "decode":
@@ -288,7 +302,13 @@ def apply_block(bdef: BlockDef, p, x, cfg, positions, cache, cache_index, mode, 
                               engine=engine)
         return x + out, cache, 0.0
     h = rms_norm(x, p.ln1, cfg.norm_eps)
-    if mode == "decode":
+    if bdef.kind == "mla":  # no kernel: plain products on every engine
+        if mode == "decode":
+            o, cache = attn.mla_block_decode(p.attn, h, cfg, bdef, cache, cache_index)
+        else:
+            o, cache = attn.mla_block_full(p.attn, h, cfg, bdef, positions, cache=cache,
+                                           cache_index=cache_index)
+    elif mode == "decode":
         o, cache = attn.attn_block_decode(p.attn, h, cfg, bdef, cache, cache_index)
     else:
         o, cache = attn.attn_block_full(p.attn, h, cfg, bdef, positions, cache=cache,
@@ -307,7 +327,8 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int, dtype=torch.bfloat16
     """Cache dict matching the segment structure.  Stacked blocks carry a
     leading n_superblocks dim (layer ``l`` uses index ``l``; each repeat of a
     shared block has its own cache).  An attention block's KV cache is in
-    ``dtype``; a mamba2 block's conv and state, an mLSTM block's ``C``, ``n``,
+    ``dtype``, and so is an MLA block's ``c_kv`` and ``k_rope``; a mamba2
+    block's conv and state, an mLSTM block's ``C``, ``n``,
     ``m`` and an sLSTM block's ``c``, ``n``, ``h``, ``m`` are float32."""
 
     def block_cache(b, n=None):
@@ -319,6 +340,8 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int, dtype=torch.bfloat16
             c = xl.empty_mlstm_state(cfg, batch, device=device)
         elif b.kind == "slstm":
             c = xl.empty_slstm_state(cfg, batch, device=device)
+        elif b.kind == "mla":
+            c = attn.empty_mla_cache(cfg, batch, capacity, dtype, device=device)
         else:
             c = attn.empty_kv_cache(cfg, batch, capacity, dtype, window=b.window, device=device)
         if n is None:

@@ -20,6 +20,10 @@ from ..models.attention import ATTN_ENGINES
 
 __all__ = ["make_prefill_step", "make_decode_step", "Engine", "Request", "sample_token"]
 
+#: matrices the reference reads in float32 at every use, which the Engine
+#: leaves float32: an sLSTM block's recurrent weights, a MoE router
+_FLOAT32_MATRICES = ("r_zifo", "moe.router")
+
 
 def make_prefill_step(cfg: ModelConfig, engine: str = "auto") -> Callable:
     """(model, batch, cache) -> (last_logits, cache).  The tokens' length
@@ -86,9 +90,10 @@ class Engine:
     dimensions, a mamba2 block's ``conv_w`` and an mLSTM block's ``wq``,
     ``wk`` and ``w_if`` among them) are cast to the compute dtype in place,
     once: the reference casts them to the compute dtype at every use, to the
-    same numbers.  An sLSTM block's recurrent weights ``r_zifo`` stay
-    float32, because the reference reads them in float32 at every step; so
-    do norm scales, biases and a mamba2 block's ``A_log``, ``D`` and
+    same numbers.  An sLSTM block's recurrent weights ``r_zifo`` and a MoE
+    FFN's ``router`` stay float32, because the reference reads them in
+    float32 at every step; so do norm scales (an MLA block's ``kv_norm``
+    among them), biases and a mamba2 block's ``A_log``, ``D`` and
     ``dt_bias``.  So a model that is still being trained must not be handed
     to an ``Engine``: serve a copy, or a checkpoint restored into a new
     model."""
@@ -107,7 +112,7 @@ class Engine:
         self.model = model.to(self.device)
         with torch.no_grad():
             for name, p in self.model.named_parameters():
-                if p.dim() >= 2 and p.dtype != compute and not name.endswith("r_zifo"):
+                if p.dim() >= 2 and p.dtype != compute and not name.endswith(_FLOAT32_MATRICES):
                     p.data = p.data.to(compute)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self._prefill = make_prefill_step(cfg, engine)

@@ -5,9 +5,9 @@ dynamically constructs the model architecture (family, depth, width, MoE
 topology), the optimizer, and the schedule — then trains the candidate with
 ``repro_torch.train`` on one device and reports eval losses to the pruner at
 every eval step.  Pruned trials stop immediately and never checkpoint
-(ASHA's no-repechage design, paper §3.2).  The port builds the dense,
-``mlstm`` and ``mamba2`` families; a trial that samples ``moe`` raises
-``NotImplementedError`` naming the MLA/MoE slice when its model is built.
+(ASHA's no-repechage design, paper §3.2).  Every family of the default
+space builds: ``dense`` and ``moe`` (GQA through the flash-attention
+kernel, a mixture-of-experts FFN), ``mlstm`` and ``mamba2``.
 """
 
 from __future__ import annotations

@@ -5,11 +5,14 @@ from the same weights (carried across by ``params_from_jax``) and the same
 prompts of unequal length, so left padding, the bfloat16 KV cache, ring
 caches (gemma2's window of 8 under prompts of up to 12 tokens and 10 new
 tokens), zamba2's float32 mamba2 states and shared-block KV caches, xlstm's
-float32 mLSTM and sLSTM states, and slot groups all take part.  In float32
+float32 mLSTM and sLSTM states, deepseek-v2-lite's MLA caches (``c_kv``,
+``k_rope``) and MoE FFNs, qwen3-moe's GQA and MoE FFNs, and slot groups all
+take part.  In float32
 compute the tokens must be identical.  The launcher runs with ``--smoke
---device cpu`` on tinyllama, zamba2 and xlstm.  The ``Engine`` casts the
+--device cpu`` on tinyllama, zamba2, xlstm, deepseek-v2-lite and qwen3-moe.  The ``Engine`` casts the
 matrices to the compute dtype once but keeps an sLSTM block's recurrent
-weights ``r_zifo`` float32, as the reference reads them at every step.
+weights ``r_zifo`` and a MoE router float32, as the reference reads them
+at every step.
 """
 
 import dataclasses
@@ -28,7 +31,7 @@ from repro_torch.models import Transformer, params_from_jax
 from repro_torch.serve import Engine, sample_token
 
 TEXT = ["tinyllama-1.1b", "smollm-135m", "internlm2-1.8b", "gemma2-9b", "zamba2-1.2b",
-        "xlstm-1.3b"]
+        "xlstm-1.3b", "deepseek-v2-lite-16b", "qwen3-moe-235b-a22b"]
 PROMPT_LENS = [5, 12, 3, 9, 7]  # slots=4: a group of four, then one alone
 MAX_NEW, CAPACITY, SLOTS = 10, 32, 4
 
@@ -50,7 +53,8 @@ def test_greedy_tokens_equal_the_reference(arch):
     assert all(len(row) == MAX_NEW for row in got)
 
 
-@pytest.mark.parametrize("arch", ["gemma2-9b", "zamba2-1.2b", "xlstm-1.3b"])
+@pytest.mark.parametrize("arch", ["gemma2-9b", "zamba2-1.2b", "xlstm-1.3b",
+                                  "deepseek-v2-lite-16b"])
 def test_engine_casts_matrices_once_and_keeps_norms_float32(arch):
     cfg = configs.get_smoke_config(arch)  # bfloat16 compute
     model = Transformer(cfg, device="cpu")
@@ -58,7 +62,7 @@ def test_engine_casts_matrices_once_and_keeps_norms_float32(arch):
         torch.nn.init.normal_(p, std=0.02)
     engine = Engine(cfg, model, capacity=16, slots=2, device="cpu")
     for name, p in engine.model.named_parameters():
-        cast = p.dim() >= 2 and not name.endswith("r_zifo")
+        cast = p.dim() >= 2 and not name.endswith(("r_zifo", "moe.router"))
         assert p.dtype == (torch.bfloat16 if cast else torch.float32), name
     out = engine.generate([np.arange(1, 6), np.arange(3, 12)], max_new=4)
     assert [len(o) for o in out] == [4, 4]
@@ -85,7 +89,9 @@ def test_sample_token_greedy_and_top_k():
 
 @pytest.mark.parametrize("arch,name", [("tinyllama-1.1b", "tinyllama-smoke"),
                                        ("zamba2-1.2b", "zamba2-smoke"),
-                                       ("xlstm-1.3b", "xlstm-smoke")])
+                                       ("xlstm-1.3b", "xlstm-smoke"),
+                                       ("deepseek-v2-lite-16b", "deepseek-smoke"),
+                                       ("qwen3-moe-235b-a22b", "qwen3-moe-smoke")])
 def test_launcher_smoke_on_the_cpu(capsys, arch, name):
     result = launch_serve.main(["--arch", arch, "--smoke", "--device", "cpu",
                                 "--requests", "3", "--max-new", "5"])

@@ -26,12 +26,16 @@ both packages' ``loss_fn`` in float32 compute:
   port's engines (the sLSTM kernel's written-out backward and autograd
   through the plain version) alike; every other xlstm leaf agrees within
   1.6e-6;
+  deepseek-v2-lite's and qwen3-moe's (MLA blocks and their query chunks,
+  each recomputed in backward; GQA; MoE FFNs with the einsum dispatch, the
+  aux loss weighted by ``moe_aux_coef`` in the loss) under the same bound;
 * ``warmup_cosine`` equal to the reference's within 1e-7 (the reference
   computes in float32, the port in float64);
 * remat on and off give the same gradients (the recomputation repeats the
-  forward's operations), on gemma2, zamba2 and xlstm;
+  forward's operations), on gemma2, zamba2, xlstm and deepseek-v2-lite (its
+  MLA query chunks recomputed inside the recomputed superblock);
 * the ``torch`` engine (autograd through the plain versions) against the
-  kernels' Functions, on gemma2, zamba2 and xlstm.
+  kernels' Functions, on gemma2, zamba2, xlstm and qwen3-moe.
 
 The train steps (optimizers, microbatches) are in ``test_torch_train_step.py``.
 """
@@ -56,7 +60,7 @@ from repro_torch.train import MemmapTokens, SyntheticLM, warmup_cosine
 
 DENSE = ["tinyllama-1.1b", "smollm-135m", "internlm2-1.8b", "gemma2-9b", "llava-next-34b",
          "musicgen-medium"]
-ARCHS = DENSE + ["zamba2-1.2b", "xlstm-1.3b"]
+ARCHS = DENSE + ["zamba2-1.2b", "xlstm-1.3b", "deepseek-v2-lite-16b", "qwen3-moe-235b-a22b"]
 B, S = 2, 32
 
 
@@ -136,7 +140,7 @@ def test_loss_and_every_gradient_match_the_reference(arch):
     assert seen == set(grads)
 
 
-@pytest.mark.parametrize("arch", ["gemma2-9b", "zamba2-1.2b", "xlstm-1.3b"])
+@pytest.mark.parametrize("arch", ["gemma2-9b", "zamba2-1.2b", "xlstm-1.3b", "deepseek-v2-lite-16b"])
 def test_remat_on_and_off_give_the_same_gradients(arch):
     _, cfg = _configs(arch)
     params = ref_models.init_model_params(dataclasses.replace(
@@ -152,7 +156,7 @@ def test_remat_on_and_off_give_the_same_gradients(arch):
             assert torch.equal(runs[remat][2][name], g), (remat, name)
 
 
-@pytest.mark.parametrize("arch", ["gemma2-9b", "zamba2-1.2b", "xlstm-1.3b"])
+@pytest.mark.parametrize("arch", ["gemma2-9b", "zamba2-1.2b", "xlstm-1.3b", "qwen3-moe-235b-a22b"])
 def test_torch_engine_matches_the_kernel_path(arch):
     """``engine="torch"`` (autograd through the plain versions) against the
     default path (the kernels' Functions, plain forward on the CPU)."""

@@ -5,7 +5,9 @@ zero in both packages, ``make_train_step`` runs on the same ``SyntheticLM``
 batches in float32 compute: 5 AdamW steps, 3 Adafactor steps, 3 SGD steps
 and 3 AdamW steps with ``microbatch=2``, the optimizers built as
 ``make_optimizer_for`` builds them (warmup + cosine, clipping, weight
-decay) but for AdamW's ``eps``, 1e-4 here against the default 1e-8.  With
+decay) but for AdamW's ``eps``, 1e-4 here against the default 1e-8;
+deepseek-v2-lite (MLA, MoE) with AdamW and qwen3-moe (GQA, MoE) with its
+config's Adafactor and microbatches.  With
 1e-8 an entry whose gradient is near zero (|g| about 1e-7, the size of the
 two frameworks' float32 disagreement) takes a normalized step of either
 sign: 6 of 16384 embedding entries ended 1e-3 apart after 5 steps at lr
@@ -102,7 +104,8 @@ def _run_both(arch, optimizer, steps, microbatch=0, eps=1e-4):
     [("smollm-135m", "adamw", 5, 0), ("gemma2-9b", "adamw", 5, 0),
      ("smollm-135m", "adafactor", 3, 0), ("smollm-135m", "sgd", 3, 0),
      ("musicgen-medium", "adamw", 3, 2), ("zamba2-1.2b", "adamw", 3, 2),
-     ("xlstm-1.3b", "adamw", 3, 2)],
+     ("xlstm-1.3b", "adamw", 3, 2), ("deepseek-v2-lite-16b", "adamw", 3, 0),
+     ("qwen3-moe-235b-a22b", "adafactor", 3, 2)],
 )
 def test_train_steps_match_the_reference(arch, optimizer, steps, microbatch):
     model, state, params, ref_state, losses, _ = _run_both(arch, optimizer, steps, microbatch)

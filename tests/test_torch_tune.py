@@ -1,9 +1,9 @@
 """The port's HPO-over-training loop (``repro_torch.tune``) on the CPU: twins
 of ``tests/test_tune_integration.py`` with ``families=("dense",)`` and
-``device="cpu"``, ``("dense", "mamba2")`` and ``("dense", "mlstm")``
-studies, the spaces held equal to the reference's, and the family of a later
-slice (MoE) raising.  (The dashboard of the reference's test
-belongs to the storage and HPO-surfaces slice of the port.)"""
+``device="cpu"``, ``("dense", "mamba2")``, ``("dense", "mlstm")`` and
+``("dense", "moe")`` studies, and the spaces held equal to the reference's.
+(The dashboard of the reference's test belongs to the storage and
+HPO-surfaces slice of the port.)"""
 
 import dataclasses
 
@@ -137,13 +137,23 @@ def test_dense_and_mlstm_study_runs():
     assert np.isfinite(study.best_value)
 
 
-@pytest.mark.parametrize(
-    "family,params,slice_name",
-    [("moe", {"n_experts": 4, "top_k": 1}, "MLA/MoE")],
-)
-def test_later_families_raise_naming_their_slice(family, params, slice_name):
+# the name and id are those the case had when the moe family raised
+@pytest.mark.parametrize("family,params", [("moe", {"n_experts": 4, "top_k": 1})],
+                         ids=["moe-params0-MLA/MoE"])
+def test_later_families_raise_naming_their_slice(family, params):
+    """The ``moe`` family trains: a CPU study over ``("dense", "moe")``
+    whose ``moe`` trials complete or are pruned, and a fixed ``moe`` trial
+    with a finite loss."""
+    spec = dataclasses.replace(SPEC, families=("dense", family))
+    study = hpo.create_study(
+        sampler=hpo.TPESampler(seed=2, n_startup_trials=3, device="cpu"),
+        pruner=hpo.SuccessiveHalvingPruner(min_resource=3, reduction_factor=2),
+    )
+    objective = make_lm_objective(spec, device="cpu")
+    study.optimize(objective, n_trials=8)
+    states = {t.state for t in study.trials if t.params["family"] == family}
+    assert states and states <= {TrialState.COMPLETE, TrialState.PRUNED}, states
+    assert TrialState.FAIL not in {t.state for t in study.trials}
     fixed = {"family": family, "n_layers": 1, "width_exp": 5, "lr": 1e-3, "warmup": 0,
              "weight_decay": 0.01, **params}
-    objective = make_lm_objective(dataclasses.replace(SPEC, families=(family,)), device="cpu")
-    with pytest.raises(NotImplementedError, match=slice_name):
-        objective(hpo.FixedTrial(fixed))
+    assert np.isfinite(objective(hpo.FixedTrial(fixed)))
