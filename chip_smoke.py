@@ -205,6 +205,20 @@ Phases, each of which fails the run by raising:
 28. phase 16's study over the default families, ``("dense", "mlstm",
     "mamba2", "moe")``: at least one ``moe`` trial completes or is pruned,
     none fails.
+29. the storage stack and distributed workers: (a) phase 3's objective,
+    ``TPESampler(seed=0, engine="cuda")`` and ``MedianPruner``, 256 trials
+    on in-memory, ``sqlite:///`` and ``journal://`` files, ``remote://`` to a
+    ``StorageServer`` in this process on protocol 1, the same on protocol 2
+    with ``cache=True``, and two shards: every backend's trials (number,
+    state, params, values, intermediate values) hash alike and launch the
+    Parzen kernel as often, none is left RUNNING; (b) ``run_workers`` with
+    4 spawned workers x 256 trials over a served sqlite file (v2 and the
+    cache), each sampling on the card and recording its pid, its Parzen
+    launches and its card as user attrs: all 1024 trials finished, numbered
+    0-1023, four pids each with launches; (c) 2 spawned workers x 64 trials
+    on a journal file, no server (the file lock across processes); (d) in
+    this process, which has used the card, ``start_method="fork"`` is
+    refused before any process starts.
 
 Each phase's wall seconds are printed after it and in a line before the
 total.
@@ -3460,6 +3474,206 @@ def phase_qwen3_moe(build_log: str) -> dict:
                           "full": full.n_layers}}
 
 
+# -- storage and distributed slice ---------------------------------------------------
+
+#: phase 29: the trials of each backend's study, of each spawned worker over
+#: the served sqlite file, and of each worker over the journal file
+STORAGE_TRIALS = 256
+SERVED_WORKERS, SERVED_WORKER_TRIALS = 4, 256
+JOURNAL_WORKERS, JOURNAL_WORKER_TRIALS = 2, 64
+
+
+def study_fingerprint(trials) -> str:
+    """SHA-256 over every trial's number, state, parameters (float64 bits;
+    a categorical's repr), objective values and intermediate values (step
+    and float64 bits).  ``trials_hash`` stays as it is: phase 7's hash is
+    compared with other commits' (``scripts/kernel_baseline.py``)."""
+    h = hashlib.sha256()
+    for t in trials:
+        h.update(f"{t.number}:{t.state.name}".encode())
+        for name, value in sorted(t.params.items()):
+            h.update(name.encode())
+            h.update(repr(value).encode() if isinstance(value, str) else
+                     np.float64(value).tobytes())
+        h.update(np.asarray(t.values or [], dtype=np.float64).tobytes())
+        for step, value in sorted(t.intermediate_values.items()):
+            h.update(np.int64(step).tobytes() + np.float64(value).tobytes())
+    return h.hexdigest()
+
+
+def cuda_tpe():
+    """A spawned worker's sampler: TPE with the Parzen kernel on the card
+    (``engine="auto"`` may keep small fits on the host)."""
+    import repro_torch.core as hpo
+
+    return hpo.TPESampler(engine="cuda")
+
+
+def worker_objective(trial) -> float:
+    """Phase 3's objective in a spawned worker, recording as user attrs the
+    worker's pid, its cumulative Parzen launches and its card."""
+    from repro_torch.kernels import parzen
+
+    try:
+        return objective(trial)
+    finally:
+        trial.set_user_attr("pid", os.getpid())
+        trial.set_user_attr("parzen_launches", parzen.launches())
+        trial.set_user_attr("device", torch.cuda.get_device_name())
+
+
+def storage_backends(stack, tmp: str) -> list:
+    """Phase 29(a)'s backends, each a fresh storage; the servers run in
+    this process over in-memory storage."""
+    from repro_torch.core.storage import InMemoryStorage, StorageServer, get_storage
+
+    v1 = stack.enter_context(StorageServer(InMemoryStorage(), max_protocol=1))
+    v2 = stack.enter_context(StorageServer(InMemoryStorage()))
+    shards = [stack.enter_context(StorageServer(InMemoryStorage())) for _ in range(2)]
+    remote_v1 = get_storage(v1.url)
+    cached_v2 = get_storage(v2.url, cache=True)
+    assert remote_v1.protocol == 1 and cached_v2.supports_block_fetch
+    return [
+        ("memory", get_storage(None)),
+        ("sqlite", get_storage(f"sqlite:///{tmp}/study.db")),
+        ("journal", get_storage(f"journal://{tmp}/study.journal")),
+        ("remote v1", remote_v1),
+        ("remote v2 + cache", cached_v2),
+        ("remote x2 shards", get_storage("remote://" + ",".join(
+            s.url.split("://")[1] for s in shards))),
+    ]
+
+
+def check_workers(label: str, study, n_workers: int, n_trials: int, card: str,
+                  launches_each: bool) -> dict:
+    """The trials of a ``run_workers`` study: all finished (COMPLETE or
+    PRUNED), numbered densely, from ``n_workers`` pids on ``card``, with
+    each worker's Parzen launches (the largest count its trials recorded)."""
+    trials = study.trials
+    states = {}
+    for t in trials:
+        states[t.state.name] = states.get(t.state.name, 0) + 1
+    assert set(states) <= {"COMPLETE", "PRUNED"}, (label, states)
+    assert sorted(t.number for t in trials) == list(range(n_trials)), (label, len(trials))
+    launches: dict[int, int] = {}
+    for t in trials:
+        pid = t.user_attrs["pid"]
+        launches[pid] = max(launches.get(pid, 0), t.user_attrs["parzen_launches"])
+        assert t.user_attrs["device"] == card, (label, t.user_attrs["device"], card)
+    assert len(launches) == n_workers and os.getpid() not in launches, (label, launches)
+    if launches_each:
+        assert all(n > 0 for n in launches.values()), (label, launches)
+    assert sum(launches.values()) > 0, (label, launches)
+    first = min(t.datetime_start for t in trials)
+    last = max(t.datetime_complete for t in trials)
+    return {"states": states, "launches_by_pid": launches,
+            "launches": sum(launches.values()),
+            "sampling_seconds": (last - first).total_seconds()}
+
+
+def phase_storage() -> dict:
+    """Phase 29: the storage stack and distributed workers on the card."""
+    import multiprocessing
+    import shutil
+    import tempfile
+
+    import repro_torch.core as hpo
+    from repro_torch.kernels import parzen
+
+    card = torch.cuda.get_device_name(0)
+    print(f"phase 29: the storage stack and distributed workers, TPESampler(engine='cuda'), "
+          f"MedianPruner, phase 3's objective; {nvidia_smi('name,power.limit')}")
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="phase29-", dir=os.path.join(ROOT, "build"))
+    out: dict = {"card": card}
+    try:
+        # (a) one seeded study on every backend: the same trials, the same launches
+        runs = []
+        with contextlib.ExitStack() as stack:
+            for label, storage in storage_backends(stack, tmp):
+                study = hpo.create_study(storage=storage, study_name="storage",
+                                         sampler=hpo.TPESampler(seed=0, engine="cuda"),
+                                         pruner=hpo.MedianPruner())
+                parzen.reset_launches()
+                t0 = time.perf_counter()
+                study.optimize(objective, n_trials=STORAGE_TRIALS)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                launches = parzen.launches()
+                trials = study.get_trials()
+                states = [t.state.name for t in trials]
+                run = {"backend": label, "seconds": seconds,
+                       "trials_per_s": len(trials) / seconds, "launches": launches,
+                       "pruned": states.count("PRUNED"), "complete": states.count("COMPLETE"),
+                       "sha256": study_fingerprint(trials)}
+                runs.append(run)
+                print(f"  (a) {label:<18} {len(trials)} trials in {seconds:.3f} s = "
+                      f"{run['trials_per_s']:.2f} trials/s; {run['complete']} complete, "
+                      f"{run['pruned']} pruned; parzen launches {launches}; "
+                      f"sha256 {run['sha256'][:16]}")
+                assert len(trials) == STORAGE_TRIALS and "RUNNING" not in states, (label, states)
+                storage.close()
+        assert len({r["sha256"] for r in runs}) == 1, [(r["backend"], r["sha256"]) for r in runs]
+        assert len({r["launches"] for r in runs}) == 1 and runs[0]["launches"] > 0, runs
+        out["backends"] = runs
+
+        # (b) four spawned workers over a served sqlite file (protocol v2, cached)
+        url = f"sqlite:///{tmp}/workers.db"
+        hpo.create_study(study_name="workers", storage=url, engine="numpy")
+        wall = hpo.run_workers(SERVED_WORKERS, url, "workers", worker_objective,
+                               SERVED_WORKER_TRIALS, sampler_factory=cuda_tpe,
+                               pruner_factory=hpo.MedianPruner, serve_storage=True,
+                               start_method="spawn")
+        n = SERVED_WORKERS * SERVED_WORKER_TRIALS
+        served = check_workers("served", hpo.load_study("workers", url, engine="numpy"),
+                               SERVED_WORKERS, n, card, launches_each=True)
+        served.update(wall_seconds=wall, trials_per_s=n / wall,
+                      sampling_trials_per_s=n / served["sampling_seconds"])
+        out["served"] = served
+        print(f"  (b) {SERVED_WORKERS} spawned workers x {SERVED_WORKER_TRIALS} trials over "
+              f"the served sqlite file (v2 + cache): {n} trials in {wall:.3f} s wall = "
+              f"{served['trials_per_s']:.2f} trials/s ({served['sampling_trials_per_s']:.2f} "
+              f"trials/s from the first trial's start to the last's end, "
+              f"{served['sampling_seconds']:.3f} s); states {served['states']}; parzen "
+              f"launches by worker {list(served['launches_by_pid'].values())} = "
+              f"{served['launches']}")
+
+        # (c) two spawned workers on a journal file, no server: the file lock
+        url = f"journal://{tmp}/workers.journal"
+        hpo.create_study(study_name="journal", storage=url, engine="numpy")
+        wall = hpo.run_workers(JOURNAL_WORKERS, url, "journal", worker_objective,
+                               JOURNAL_WORKER_TRIALS, sampler_factory=cuda_tpe,
+                               pruner_factory=hpo.MedianPruner, start_method="spawn")
+        n = JOURNAL_WORKERS * JOURNAL_WORKER_TRIALS
+        journal = check_workers("journal", hpo.load_study("journal", url, engine="numpy"),
+                                JOURNAL_WORKERS, n, card, launches_each=False)
+        journal.update(wall_seconds=wall, trials_per_s=n / wall)
+        out["journal"] = journal
+        print(f"  (c) {JOURNAL_WORKERS} spawned workers x {JOURNAL_WORKER_TRIALS} trials on "
+              f"the journal file: {n} trials in {wall:.3f} s wall; states "
+              f"{journal['states']}; parzen launches by worker "
+              f"{list(journal['launches_by_pid'].values())}")
+
+        # (d) this process has used the card: forking workers is refused
+        assert torch.cuda.is_initialized()
+        url = f"sqlite:///{tmp}/fork.db"
+        hpo.create_study(study_name="fork", storage=url, engine="numpy")
+        try:
+            hpo.run_workers(2, url, "fork", worker_objective, 1, sampler_factory=cuda_tpe,
+                            start_method="fork")
+        except ValueError as e:
+            refusal = str(e)
+        else:
+            raise AssertionError("run_workers forked a process that has used the card")
+        assert "spawn" in refusal and not multiprocessing.active_children()
+        assert hpo.load_study("fork", url, engine="numpy").trials == []
+        out["fork_refusal"] = refusal
+        print(f"  (d) fork refused: {refusal}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every measurement to this JSON file")
@@ -3539,6 +3753,7 @@ def main() -> int:
     tune_moe = timed("28", phase_tune, 28, ("dense", "mlstm", "mamba2", "moe"))
     moe_trials = tune_moe["states_by_family"]["moe"]
     assert moe_trials and set(moe_trials) <= {"COMPLETE", "PRUNED"}, moe_trials
+    storage = timed("29", phase_storage)
 
     shape_rows = optimize_rows + wave_rows
     table = wave_rows[-1]  # the score-table build: the kernel's large shape
@@ -3633,6 +3848,9 @@ def main() -> int:
     kernels[0]["launches_tune_hybrid"] = tune_hybrid["launches"]["parzen_score"]
     kernels[0]["launches_tune_xlstm"] = tune_xlstm["launches"]["parzen_score"]
     kernels[0]["launches_tune_moe"] = tune_moe["launches"]["parzen_score"]
+    kernels[0]["launches_storage"] = storage["backends"][0]["launches"]
+    kernels[0]["launches_distributed"] = storage["served"]["launches"]
+    kernels[0]["launches_distributed_journal"] = storage["journal"]["launches"]
     # the training main path's own shape: tinyllama-1.1b's loss at B = 8, S = 2048
     ce_main = next(r for r in ce_rows if r["label"] == "tinyllama training")
     kernels.append({
@@ -3727,7 +3945,8 @@ def main() -> int:
                        "tune_hybrid": tune_hybrid, "serve_xlstm": serve_xlstm,
                        "train_xlstm": train_xlstm, "tune_xlstm": tune_xlstm,
                        "serve_deepseek": serve_deepseek, "train_deepseek": train_deepseek,
-                       "qwen3_moe": qwen3, "tune_moe": tune_moe, "phase_seconds": phase_s,
+                       "qwen3_moe": qwen3, "tune_moe": tune_moe, "storage": storage,
+                       "phase_seconds": phase_s,
                        "kernels": kernels}, f,
                       indent=1)
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))

@@ -3,8 +3,10 @@
 The same API as ``repro.core`` for what the port carries: live trials with
 a suggest API, the TPE (with MOTPE), NSGA-II, CMA-ES, GP, grid and random
 samplers, the pruners (with the Pareto-aware wrapper), the multi-objective
-engine (``moo``: dominance, fronts, exact and Monte-Carlo hypervolume) and
-in-memory storage.  The device engines run on the card by default::
+engine (``moo``: dominance, fronts, exact and Monte-Carlo hypervolume), the
+storage backends (in-memory, SQLite, journal file, cached, a ``remote://``
+server / client pair and its sharded cluster) and distributed workers
+(``run_workers``).  The device engines run on the card by default::
 
     import repro_torch.core as hpo
 
@@ -22,6 +24,7 @@ from __future__ import annotations
 
 from . import moo
 from . import telemetry
+from .distributed import RetryFailedTrialCallback, run_workers, worker_main
 from .distributions import (
     BaseDistribution,
     CategoricalDistribution,
@@ -55,7 +58,16 @@ from .samplers import (
     make_sampler,
 )
 from .search_space import IntersectionSearchSpace, intersection_search_space
-from .storage import BaseStorage, InMemoryStorage, get_storage
+from .storage import (
+    BaseStorage,
+    CachedStorage,
+    InMemoryStorage,
+    JournalStorage,
+    RemoteStorage,
+    SQLiteStorage,
+    StorageServer,
+    get_storage,
+)
 from .study import Study, create_study, delete_study, load_study
 from .transfer import import_trials
 from .trial import FixedTrial, Trial
@@ -78,8 +90,10 @@ __all__ = [
     # observability
     "telemetry",
     # storage
-    "BaseStorage", "InMemoryStorage", "get_storage",
-    # misc
+    "BaseStorage", "InMemoryStorage", "SQLiteStorage", "JournalStorage",
+    "RemoteStorage", "CachedStorage", "StorageServer", "get_storage",
+    # distributed / misc
+    "run_workers", "worker_main", "RetryFailedTrialCallback",
     "TrialPruned", "DuplicatedStudyError", "StorageInternalError",
     "intersection_search_space", "IntersectionSearchSpace",
     "ObservationStore",

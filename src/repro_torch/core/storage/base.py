@@ -342,15 +342,22 @@ class BaseStorage:
     flips it on when wire protocol v2 is negotiated."""
 
     def get_observation_block(self, study_id: int, since: int = 0) -> dict[str, Any]:
-        """Observations of *finished* trials as contiguous numpy columns: the
-        wire-protocol refresh path, which arrives with the storage slice
-        (``ObservationStore`` then ingests trial objects instead)."""
-        raise NotImplementedError("block fetch arrives with the storage slice")
+        """Observations of *finished* trials with ``number >= since``, as a
+        dict of contiguous numpy columns (see
+        :func:`.serde.build_observation_block` for the exact layout).  Over
+        wire protocol v2 this is the near-memcpy refresh path of
+        :class:`~repro_torch.core.records.ObservationStore`."""
+        from .serde import build_observation_block
+
+        trials = get_trials_since(self, study_id, since, deepcopy=False)
+        return build_observation_block(trials, len(self.get_study_directions(study_id)))
 
     def get_iv_block(self, study_id: int, since: int = 0) -> dict[str, Any]:
-        """Intermediate-value curves in CSR layout: arrives with the storage
-        slice, like :meth:`get_observation_block`."""
-        raise NotImplementedError("block fetch arrives with the storage slice")
+        """Intermediate-value curves of trials with ``number >= since`` in
+        CSR layout (see :func:`.serde.build_iv_block`)."""
+        from .serde import build_iv_block
+
+        return build_iv_block(get_trials_since(self, study_id, since, deepcopy=False))
 
     # -- heartbeat / fault tolerance ------------------------------------------
 

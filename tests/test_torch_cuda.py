@@ -36,7 +36,10 @@ plain version run in float64 within the reference's kernel tolerance, atol
 (float32 sums in another order over at most 40 steps), and its
 written-out backward to autograd through the float32 plain version; the
 scan and the decode kernel sum in one fixed order, so two calls give equal
-bits, and the decode kernel equals the scan's first step.
+bits, and the decode kernel equals the scan's first step.  A seeded
+``engine="cuda"`` TPE study over a served sqlite file (wire protocol 2, the
+cache) makes the same trials as in memory, and two spawned workers on the
+card each launch the Parzen kernel.
 """
 
 import dataclasses
@@ -1131,3 +1134,80 @@ def test_xlstm_train_step_on_the_card_goes_through_the_slstm_kernel(cuda_device)
     torch.cuda.synchronize()
     assert slstm.launches() == 2 * _n_slstm(cfg)
     assert float(metrics["loss"]) == out["cuda"][0]
+
+
+# -- the storage stack and distributed workers ---------------------------------------
+
+
+def _card_objective(trial):
+    xs = [trial.suggest_float(f"x{i}", -5.0, 5.0) for i in range(3)]
+    k = trial.suggest_int("k", 1, 8)
+    act = trial.suggest_categorical("act", ["relu", "tanh"])
+    loss = sum((x - 1.0) ** 2 for x in xs) + 0.1 * k + 0.3 * (act != "relu")
+    for step in range(3):
+        trial.report(loss * (1.0 + 1.0 / (step + 1)), step)
+        if trial.should_prune():
+            raise hpo.TrialPruned()
+    return loss
+
+
+def _worker_objective(trial):
+    """``_card_objective`` in a spawned worker, recording its pid and its
+    cumulative Parzen launches."""
+    import os
+
+    try:
+        return _card_objective(trial)
+    finally:
+        trial.set_user_attr("pid", os.getpid())
+        trial.set_user_attr("parzen_launches", parzen.launches())
+
+
+def _cuda_tpe():
+    return hpo.TPESampler(engine="cuda", n_startup_trials=5)
+
+
+def _pruner():
+    return hpo.MedianPruner(n_startup_trials=5)
+
+
+def test_cuda_study_over_a_served_sqlite_file_equals_in_memory(cuda_device, tmp_path):
+    from repro_torch.core.storage import CachedStorage, RemoteStorage, StorageServer
+
+    def run(storage):
+        study = hpo.create_study(study_name="served", storage=storage,
+                                 sampler=hpo.TPESampler(seed=0, engine="cuda", n_startup_trials=5),
+                                 pruner=_pruner())
+        parzen.reset_launches()
+        study.optimize(_card_objective, n_trials=64)
+        trials = [(t.number, t.state, sorted(t.params.items()), t.values,
+                   sorted(t.intermediate_values.items())) for t in study.get_trials()]
+        return trials, parzen.launches()
+
+    memory, memory_launches = run(None)
+    with StorageServer(hpo.get_storage(f"sqlite:///{tmp_path}/served.db")) as srv:
+        remote = RemoteStorage(srv.url)
+        assert remote.protocol == 2
+        served, served_launches = run(CachedStorage(remote))
+        remote.close()
+    assert served == memory
+    assert served_launches == memory_launches > 0
+    assert {t[1] for t in memory} <= {hpo.TrialState.COMPLETE, hpo.TrialState.PRUNED}
+
+
+def test_spawned_workers_launch_the_parzen_kernel_on_the_card(cuda_device, tmp_path):
+    import os
+
+    url = f"sqlite:///{tmp_path}/workers.db"
+    hpo.create_study(study_name="workers", storage=url, engine="numpy")
+    hpo.run_workers(2, url, "workers", _worker_objective, 32, sampler_factory=_cuda_tpe,
+                    pruner_factory=_pruner, serve_storage=True, start_method="spawn")
+    trials = hpo.load_study("workers", url, engine="numpy").trials
+    assert sorted(t.number for t in trials) == list(range(64))
+    assert {t.state for t in trials} <= {hpo.TrialState.COMPLETE, hpo.TrialState.PRUNED}
+    launches = {}
+    for t in trials:
+        pid = t.user_attrs["pid"]
+        launches[pid] = max(launches.get(pid, 0), t.user_attrs["parzen_launches"])
+    assert len(launches) == 2 and os.getpid() not in launches
+    assert all(n > 0 for n in launches.values()), launches

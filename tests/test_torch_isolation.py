@@ -6,10 +6,13 @@
 * Without a CUDA device every engine but ``"numpy"`` raises unless the
   caller passes ``device="cpu"``; ``engine="cuda"`` never runs on the CPU.
 * The sampling and serving paths hold no broad ``except`` that could hide a
-  device error, and the parts of later slices raise ``NotImplementedError``
-  (the storage backends); the xlstm and the MLA / MoE families build and
-  run.  The MLA / MoE cases keep the names and ids they had when they held
-  those configs to ``NotImplementedError``.
+  device error; the storage modules, whose server and client map a failed
+  call to a typed error on the client as the reference's do, import no
+  ``torch``, so no device code runs inside those handlers.
+* The storage URLs resolve to their backends and ``get_observation_block``
+  returns the reference's columns; the xlstm and the MLA / MoE families
+  build and run.  These cases keep the names and ids they had when they
+  held the storage backends and those configs to ``NotImplementedError``.
 * A default serving ``Engine``, ``Trainer``, train launcher and tune
   objective need a CUDA device unless the caller passes ``device="cpu"``.
 """
@@ -21,6 +24,7 @@ import sys
 import textwrap
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -156,25 +160,88 @@ def _broad_handlers(path: Path):
      "launch/serve.py", "kernels/crossentropy.py", "models/layers.py", "train/optimizer.py",
      "train/data.py", "train/checkpoint.py", "train/train_loop.py", "launch/train.py",
      "tune/objective.py", "kernels/ssd.py", "models/mamba2.py", "kernels/slstm.py",
-     "models/ssm_xlstm.py", "models/moe.py"],
+     "models/ssm_xlstm.py", "models/moe.py", "core/distributed.py"],
 )
 def test_sampling_path_has_no_broad_except(rel):
     assert list(_broad_handlers(PORT / rel)) == []
 
 
-def test_later_slices_raise_not_implemented():
-    """The multi-objective calls now work; the storage slice still raises."""
+STORAGE_FILES = sorted((PORT / "core" / "storage").glob("*.py"))
+
+
+@pytest.mark.parametrize("path", STORAGE_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_storage_modules_import_no_torch(path):
+    """Storage moves numpy columns and JSON: no module of ``core/storage``
+    imports ``torch``, at the top or inside a function."""
+    for mod in _imported_modules(path):
+        assert mod.split(".")[0] != "torch", f"{path}: imports {mod}"
+
+
+def test_import_scan_covers_the_storage_slice():
+    scanned = {p.relative_to(PORT).as_posix() for p in _port_files() if PORT in p.parents}
+    for name in ("serde", "base", "sqlite", "journal", "cached", "server", "client",
+                 "cluster", "chaos", "inmemory", "__init__"):
+        assert f"core/storage/{name}.py" in scanned
+    assert "core/distributed.py" in scanned
+
+
+#: the reference's observation-block layout: key -> dtype (``None``: not an array)
+OBSERVATION_BLOCK = {
+    "n": None, "n_objectives": None, "numbers": "int64", "states": "int8",
+    "values": "float64", "values_len": "int64", "values_mat": "float64",
+    "last_iv": "float64", "grid_ids": "int64", "params": None,
+}
+
+
+def test_later_slices_raise_not_implemented(tmp_path):
+    """The multi-objective calls work; the storage URLs resolve to their
+    backends (``cache=True`` wraps them) and ``get_observation_block``
+    returns the reference's columns."""
+    import importlib.util
+
+    from repro_torch.core.exceptions import RetryableStorageError
+    from repro_torch.core.storage import CachedStorage, ShardedStorage, StorageServer
+
     assert hpo.TPESampler(multi_objective=True, engine="numpy")._multi_objective
     pruner = pruner_from_spec({"name": "pareto", "wrapped": {"name": "median"}})
     assert isinstance(pruner, hpo.ParetoPruner)
-    for url in ("sqlite:///x.db", "journal://x.journal", "remote://127.0.0.1:1"):
-        with pytest.raises(NotImplementedError, match="storage slice"):
-            hpo.get_storage(url)
-    storage = hpo.InMemoryStorage()
-    with pytest.raises(NotImplementedError):
-        storage.get_observation_block(0)
+    for url, kind in ((f"sqlite:///{tmp_path}/x.db", hpo.SQLiteStorage),
+                      (f"journal://{tmp_path}/x.journal", hpo.JournalStorage),
+                      (str(tmp_path / "y.sqlite3"), hpo.SQLiteStorage),
+                      (str(tmp_path / "y.jsonl"), hpo.JournalStorage)):
+        assert isinstance(hpo.get_storage(url), kind)
+        assert isinstance(hpo.get_storage(url, cache=True), CachedStorage)
+    with pytest.raises(RetryableStorageError):  # resolves, then finds no server
+        hpo.get_storage("remote://127.0.0.1:1")
+    with StorageServer(hpo.InMemoryStorage()) as a, StorageServer(hpo.InMemoryStorage()) as b:
+        assert isinstance(hpo.get_storage(a.url), hpo.RemoteStorage)
+        sharded = hpo.get_storage("remote://" + ",".join(s.url.split("://")[1] for s in (a, b)))
+        assert isinstance(sharded, ShardedStorage)
+        sharded.close()
     study = hpo.create_study(engine="numpy", directions=["minimize", "maximize"])
     assert study.best_trials == []
+    for i in range(3):
+        t = study.ask()
+        t.suggest_float("x", 0, 1)
+        t.report([float(i), 1.0], 0)
+        study.tell(t, [float(i), -float(i)])
+    block = study._storage.get_observation_block(study._study_id)
+    assert {k: getattr(v, "dtype", None) for k, v in block.items()} == {
+        k: (None if dt is None else np.dtype(dt)) for k, dt in OBSERVATION_BLOCK.items()
+    }
+    assert block["n"] == 3 and block["values_mat"].shape == (3, 2)
+    assert study._storage.get_iv_block(study._study_id)["vec_vals"].tolist() == [
+        0.0, 1.0, 1.0, 1.0, 2.0, 1.0,
+    ]
+    if importlib.util.find_spec("jax") is not None:  # and the reference's own bytes
+        from repro.core.storage import serde as ref_serde
+
+        from repro_torch.core.storage import serde
+
+        trials = study._storage.get_all_trials(study._study_id)
+        assert serde.bdumps(block) == ref_serde.bdumps(
+            ref_serde.build_observation_block(trials, 2)
+        )
 
 
 @pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "qwen3-moe-235b-a22b"],
