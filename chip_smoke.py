@@ -219,6 +219,19 @@ Phases, each of which fails the run by raising:
     on a journal file, no server (the file lock across processes); (d) in
     this process, which has used the card, ``start_method="fork"`` is
     refused before any process starts.
+30. trial-parallel tuning under a live dashboard: phase 28's study on a
+    ``sqlite:///`` file under ``build/``, its 16 trials cut to 20 train
+    steps (4 threads on one card run slower than one) run by
+    ``TrialSliceScheduler`` on 4 slices that all name the one card (the
+    opening wave enqueued one trial a family), while a ``DashboardService``
+    on the same URL (a second reader of the file) is polled for
+    ``/delta`` every 0.25 s: no trial FAILs (a kernel that does not build or
+    launch inside a trial stops the run), every family trains and reports,
+    every slice runs a trial and trials overlap, the launch counts follow
+    phase 28's rules, the polls ship every finished trial's row exactly
+    once, 5 idle polls after the study stops read no trial data, and
+    ``/views``, ``/importance``, ``/metrics``, the index page and
+    ``save_dashboard`` (``build/phase30_dashboard.html``) answer.
 
 Each phase's wall seconds are printed after it and in a line before the
 total.
@@ -3674,6 +3687,247 @@ def phase_storage() -> dict:
     return out
 
 
+# -- trial-slice scheduler and live dashboard slice -----------------------------------
+
+#: phase 30: phase 28's study, its trials run by the scheduler on slices that
+#: all name the one card, while the dashboard service polls its file.  Cut in
+#: depth from phase 28's 60 train steps a trial to 20 (the pruner's rungs at
+#: 10 and 20 steps stay): 4 slice threads of one process train slower on one
+#: card than one thread does.  On an NVIDIA H100 80GB HBM3 at 700 W the phase
+#: took 46.3-46.8 s at 60 steps, and 23.9-65.4 s at 40, against its 45-s
+#: budget.
+SLICE_TRIALS, SLICES, SLICE_STEPS = 16, 4, 20
+#: the live dashboard's delta poll period, seconds, and the idle polls made
+#: once the study has stopped
+POLL_SECONDS, IDLE_POLLS = 0.25, 5
+
+
+def max_overlap(events) -> int:
+    """The most trials running at once in the scheduler's event log."""
+    running, most = set(), 0
+    for kind, _slice, number in events:
+        if kind == "start":
+            running.add(number)
+            most = max(most, len(running))
+        else:
+            running.discard(number)
+    return most
+
+
+def slice_study(storage, spec):
+    """Phase 28's sampler and pruner on ``storage``, with the opening wave,
+    one trial a slice, taking one family each: with trials told in thread
+    order the families drawn are not fixed, and every family must train."""
+    import repro_torch.core as hpo
+
+    study = hpo.create_study(
+        study_name="slices", storage=storage,
+        sampler=hpo.TPESampler(seed=0, engine="cuda", n_startup_trials=4,
+                               consider_pruned_trials=True),
+        pruner=hpo.SuccessiveHalvingPruner(min_resource=10, reduction_factor=2))
+    for family in spec.families:
+        study.enqueue_trial({"family": family})
+    return study
+
+
+def phase_tune_slices(sequential: dict) -> dict:
+    """Phase 30: concurrent tune trials on one card under the live dashboard;
+    ``sequential`` is phase 28's result, the same study run one by one."""
+    import shutil
+    import tempfile
+    import threading
+    import traceback
+    import urllib.request
+
+    import repro_torch.core as hpo
+    from repro_torch.core import telemetry
+    from repro_torch.core.frozen import TrialState
+    from repro_torch.kernels import crossentropy as ce
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import parzen, slstm, ssd
+    from repro_torch.serve.dashboard_service import DashboardService
+    from repro_torch.tune import LMTuneSpec, TrialSliceScheduler, make_lm_objective
+
+    spec = dataclasses.replace(LMTuneSpec(), total_steps=SLICE_STEPS)
+    smi = nvidia_smi("name,power.limit")
+    print(f"phase 30: phase 28's study ({' + '.join(spec.families)}, {SLICE_TRIALS} trials of "
+          f"up to {spec.total_steps} steps, "
+          f"TPESampler(seed=0, engine='cuda', n_startup_trials=4, consider_pruned_trials=True), "
+          f"SuccessiveHalvingPruner(min_resource=10, reduction_factor=2)) on a sqlite file, "
+          f"run by TrialSliceScheduler on {SLICES} slices of the one card, the dashboard "
+          f"service on the same URL polled every {POLL_SECONDS} s; {smi}")
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="phase30-", dir=build)
+    url = f"sqlite:///{tmp}/tune.db"
+    study = slice_study(url, spec)
+    failures: list[str] = []
+
+    def run_trial(trial, devices):
+        try:
+            return make_lm_objective(spec, device=devices[0])(trial)
+        except hpo.TrialPruned:
+            raise
+        except Exception:  # the scheduler tells it FAIL; the phase prints it and fails
+            failures.append(f"trial {trial.number}: {traceback.format_exc()}")
+            raise
+
+    sched = TrialSliceScheduler(study, [[torch.device("cuda", 0)]] * SLICES, run_trial)
+    telemetry.reset()
+    telemetry.enable()
+    svc = DashboardService(url).start()
+    base = f"{svc.url}/api/study/slices"
+    cursor = {"rev": -1, "num": -1, "pending": ""}  # as the live page keeps it
+    shipped: list[int] = []
+    polls: list[tuple[float, bool]] = []  # (seconds, idle)
+
+    def get(path: str):
+        with urllib.request.urlopen(path, timeout=60) as r:
+            return r.status, r.read()
+
+    def poll() -> dict:
+        t0 = time.perf_counter()
+        status, body = get(f"{base}/delta?since_rev={cursor['rev']}&since_num={cursor['num']}"
+                           + (f"&pending={cursor['pending']}" if cursor["pending"] else ""))
+        d = json.loads(body)
+        polls.append((time.perf_counter() - t0, d["idle"]))
+        assert status == 200, status
+        if not d["idle"]:
+            shipped.extend(r["number"] for r in d["rows"])
+            cursor.update(rev=d["rev"], num=d["last_number"],
+                          pending=",".join(map(str, d.get("pending", []))))
+        return d
+
+    stop, errors = threading.Event(), []
+
+    def poller() -> None:
+        try:
+            while True:
+                poll()
+                if stop.wait(POLL_SECONDS):
+                    return
+        except Exception as e:  # re-raised below, in the phase's thread
+            errors.append(e)
+
+    out: dict = {"nvidia_smi": smi}
+    thread = threading.Thread(target=poller, name="phase30-poller")
+    try:
+        for kernel in (ce, fa, parzen, ssd, slstm):
+            kernel.reset_launches()
+        thread.start()
+        t0 = time.perf_counter()
+        try:
+            sched.run(n_trials=SLICE_TRIALS)
+            torch.cuda.synchronize()
+        finally:
+            seconds = time.perf_counter() - t0
+            stop.set()
+            thread.join()
+        launches = {"parzen_score": parzen.launches(), "crossentropy": ce.launches(),
+                    "flash_attention": fa.launches(), "ssd": ssd.launches(),
+                    "slstm": slstm.launches()}
+        if errors:
+            raise errors[0]
+        for failure in failures:
+            print(f"  FAILED {failure}")
+        trials = study.get_trials()
+        states = [t.state for t in trials]
+        complete, pruned = states.count(TrialState.COMPLETE), states.count(TrialState.PRUNED)
+        # a trial whose kernel did not build or launch is told FAIL by the
+        # scheduler: none may be
+        assert len(trials) == SLICE_TRIALS and complete + pruned == SLICE_TRIALS, states
+        assert complete >= 1, states
+        by_family = {f: [t.state.name for t in trials if t.params["family"] == f]
+                     for f in spec.families}
+        assert all(by_family.values()), by_family
+        assert all(t.intermediate_values for t in trials), "a trial never reported"
+        events = sched.events
+        slices_used = sorted({e[1] for e in events})
+        assert slices_used == list(range(SLICES)), slices_used
+        overlap = max_overlap(events)
+        assert overlap >= 2, events
+        steps = sum(len(t.intermediate_values) * spec.eval_every for t in trials)
+        mamba2 = bool(by_family.get("mamba2"))
+        assert launches["parzen_score"] > 0 and launches["flash_attention"] > 0, launches
+        assert launches["crossentropy"] == steps, (launches, steps)
+        assert (launches["ssd"] > 0) == mamba2 and launches["slstm"] == 0, launches
+        out.update(trials=SLICE_TRIALS, slices=SLICES, seconds=seconds,
+                   trials_per_s=SLICE_TRIALS / seconds,
+                   sequential_trials_per_s=sequential["trials_per_s"],
+                   complete=complete, pruned=pruned, train_steps=steps,
+                   states_by_family=by_family, max_overlap=overlap, launches=launches,
+                   best_value=study.best_value)
+        print(f"  {SLICE_TRIALS} trials on {SLICES} slices in {seconds:.3f} s = "
+              f"{out['trials_per_s']:.3f} trials/s (phase 28, one by one: "
+              f"{sequential['trials']} trials in {sequential['seconds']:.3f} s = "
+              f"{sequential['trials_per_s']:.3f} trials/s); "
+              f"{smi}")
+        print(f"  {complete} complete, {pruned} pruned, {steps} train steps, up to {overlap} "
+              f"trials at once; by family {by_family}")
+        print(f"  launches: parzen_score {launches['parzen_score']}, crossentropy "
+              f"{launches['crossentropy']} == {steps} train steps, flash_attention "
+              f"{launches['flash_attention']}, ssd {launches['ssd']}, slstm {launches['slstm']}")
+
+        # the study has stopped: the last rows, then idle polls that read no trial data
+        poll()
+        finished = sorted(t.number for t in trials)
+        assert sorted(shipped) == finished and len(shipped) == len(set(shipped)), shipped
+        assert cursor["pending"] == "", cursor
+        during = list(polls)
+        before = telemetry.snapshot()["counters"]
+        for _ in range(IDLE_POLLS):
+            assert poll() == {"rev": cursor["rev"], "idle": True}
+        after = telemetry.snapshot()["counters"]
+        assert after.get("dashboard.delta.idle", 0) == \
+            before.get("dashboard.delta.idle", 0) + IDLE_POLLS, (before, after)
+        moved = {k: (before.get(k, 0), v) for k, v in after.items()
+                 if ".refresh." in k and v != before.get(k, 0)}
+        assert not moved, moved
+        latencies = sorted(1e3 * dt for dt, _ in during)
+        out["polls"] = {"during": len(during), "changed": sum(not idle for _, idle in during),
+                        "median_ms": latencies[len(latencies) // 2],
+                        "max_ms": latencies[-1], "rows": len(shipped)}
+        print(f"  dashboard: {len(during)} delta polls while the scheduler ran, "
+              f"{out['polls']['changed']} changed, median {out['polls']['median_ms']:.3f} ms, "
+              f"max {out['polls']['max_ms']:.3f} ms; {len(shipped)} rows, each finished trial "
+              f"once; {IDLE_POLLS} idle polls after, no refetch")
+
+        status, body = get(f"{base}/views")
+        views = json.loads(body)
+        assert status == 200 and views["n_finished"] == SLICE_TRIALS, views["n_finished"]
+        assert views["history"][0]["numbers"] and views["contour"] is not None
+        assert views["slices"] and views["curves"]["objectives"][0]["numbers"], views.keys()
+        status, body = get(f"{base}/importance")
+        importance = json.loads(body)
+        params = set().union(*(t.params for t in trials))
+        for kind in ("fanova", "spearman"):
+            scores = importance[kind]["0"]
+            assert status == 200 and set(scores) <= params, (kind, scores)
+            assert all(v is not None and math.isfinite(v) for v in scores.values()), scores
+            # both rank COMPLETE trials and answer {} below two of them
+            assert bool(scores) == (complete >= 2), (kind, complete, scores)
+        status, body = get(f"{svc.url}/metrics")
+        assert status == 200 and b"repro_dashboard_delta_idle_total" in body
+        status, body = get(f"{svc.url}/")
+        assert status == 200 and b"/study/slices" in body
+        html_path = os.path.join(build, "phase30_dashboard.html")
+        hpo.save_dashboard(hpo.load_study("slices", url, engine="numpy"), html_path)
+        with open(html_path) as f:
+            page = f.read()
+        assert "Optimization history" in page and "Parameter importances" in page
+        assert "importances unavailable" not in page and page.count("<svg") >= 4, len(page)
+        out["importance"] = importance
+        out["dashboard_html"] = os.path.relpath(html_path, ROOT)
+        print(f"  /views, /importance (fanova {importance['fanova']['0']}), /metrics and / "
+              f"answer 200; save_dashboard wrote {out['dashboard_html']} ({len(page)} bytes)")
+    finally:
+        svc.stop()
+        telemetry.disable()
+        telemetry.reset()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every measurement to this JSON file")
@@ -3754,6 +4008,7 @@ def main() -> int:
     moe_trials = tune_moe["states_by_family"]["moe"]
     assert moe_trials and set(moe_trials) <= {"COMPLETE", "PRUNED"}, moe_trials
     storage = timed("29", phase_storage)
+    tune_slices = timed("30", phase_tune_slices, tune_moe)
 
     shape_rows = optimize_rows + wave_rows
     table = wave_rows[-1]  # the score-table build: the kernel's large shape
@@ -3836,6 +4091,7 @@ def main() -> int:
         "launches_serve_qwen3_moe": qwen3["serve"]["flash_launches"],
         "launches_train_qwen3_moe": qwen3["train"]["launches"]["flash_attention"],
         "launches_tune_moe": tune_moe["launches"]["flash_attention"],
+        "launches_tune_slices": tune_slices["launches"]["flash_attention"],
         "qwen3_moe_prefill": [{k: r[k] for k in ("B", "Sq", "Skv", "ms", "plain_ms", "bound_ms",
                                                  "bound_by", "max_abs_err")}
                               for r in qwen3["flash_rows"]],
@@ -3851,6 +4107,7 @@ def main() -> int:
     kernels[0]["launches_storage"] = storage["backends"][0]["launches"]
     kernels[0]["launches_distributed"] = storage["served"]["launches"]
     kernels[0]["launches_distributed_journal"] = storage["journal"]["launches"]
+    kernels[0]["launches_tune_slices"] = tune_slices["launches"]["parzen_score"]
     # the training main path's own shape: tinyllama-1.1b's loss at B = 8, S = 2048
     ce_main = next(r for r in ce_rows if r["label"] == "tinyllama training")
     kernels.append({
@@ -3868,6 +4125,7 @@ def main() -> int:
         "launches_train_deepseek": train_deepseek["launches"]["crossentropy"],
         "launches_train_qwen3_moe": qwen3["train"]["launches"]["crossentropy"],
         "launches_tune_moe": tune_moe["launches"]["crossentropy"],
+        "launches_tune_slices": tune_slices["launches"]["crossentropy"],
         "max_abs_err": max(r["max_abs_err"] for r in ce_rows),
         "ms": ce_main["ms"],
         "plain_ms": ce_main["plain_ms"],
@@ -3893,6 +4151,7 @@ def main() -> int:
         "launches_tune_hybrid": tune_hybrid["launches"]["ssd"],
         "launches_tune_xlstm": tune_xlstm["launches"]["ssd"],
         "launches_tune_moe": tune_moe["launches"]["ssd"],
+        "launches_tune_slices": tune_slices["launches"]["ssd"],
         "max_abs_err": max(r["max_abs_err"] for r in ssd_rows),
         "ms": ssd_main["ms"],
         "card_ms": ssd_main["card_ms"],
@@ -3946,6 +4205,7 @@ def main() -> int:
                        "train_xlstm": train_xlstm, "tune_xlstm": tune_xlstm,
                        "serve_deepseek": serve_deepseek, "train_deepseek": train_deepseek,
                        "qwen3_moe": qwen3, "tune_moe": tune_moe, "storage": storage,
+                       "tune_slices": tune_slices,
                        "phase_seconds": phase_s,
                        "kernels": kernels}, f,
                       indent=1)

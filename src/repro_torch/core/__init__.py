@@ -5,8 +5,9 @@ a suggest API, the TPE (with MOTPE), NSGA-II, CMA-ES, GP, grid and random
 samplers, the pruners (with the Pareto-aware wrapper), the multi-objective
 engine (``moo``: dominance, fronts, exact and Monte-Carlo hypervolume), the
 storage backends (in-memory, SQLite, journal file, cached, a ``remote://``
-server / client pair and its sharded cluster) and distributed workers
-(``run_workers``).  The device engines run on the card by default::
+server / client pair and its sharded cluster), distributed workers
+(``run_workers``), parameter importances (fANOVA, binned, Spearman) and the
+static HTML dashboard.  The device engines run on the card by default::
 
     import repro_torch.core as hpo
 
@@ -24,6 +25,7 @@ from __future__ import annotations
 
 from . import moo
 from . import telemetry
+from .dashboard import render_dashboard, save_dashboard
 from .distributed import RetryFailedTrialCallback, run_workers, worker_main
 from .distributions import (
     BaseDistribution,
@@ -33,6 +35,7 @@ from .distributions import (
 )
 from .exceptions import DuplicatedStudyError, StorageInternalError, TrialPruned
 from .frozen import FrozenTrial, StudyDirection, TrialState
+from .importance import fanova_importances, param_importances, spearman_importances
 from .pruners import (
     BasePruner,
     HyperbandPruner,
@@ -96,6 +99,8 @@ __all__ = [
     "run_workers", "worker_main", "RetryFailedTrialCallback",
     "TrialPruned", "DuplicatedStudyError", "StorageInternalError",
     "intersection_search_space", "IntersectionSearchSpace",
+    "param_importances", "spearman_importances", "fanova_importances",
+    "render_dashboard", "save_dashboard",
     "ObservationStore",
     "import_trials",
 ]

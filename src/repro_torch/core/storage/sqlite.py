@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import datetime
 import json
+import math
 import os
 import sqlite3
 import threading
@@ -430,8 +431,10 @@ class SQLiteStorage(BaseStorage):
             dist = json_to_distribution(dist_json)
             params[name] = dist.to_external_repr(val)
             dists[name] = dist
+        # SQLite stores a NaN as NULL: a NaN report reads back as the NaN it
+        # was, which the pruners rank (a None would break their comparisons)
         ivs = {
-            s: v for s, v in conn.execute(
+            s: math.nan if v is None else v for s, v in conn.execute(
                 "SELECT step, value FROM trial_intermediate_values WHERE trial_id=?", (trial_id,)
             )
         }

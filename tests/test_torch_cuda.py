@@ -1211,3 +1211,36 @@ def test_spawned_workers_launch_the_parzen_kernel_on_the_card(cuda_device, tmp_p
         launches[pid] = max(launches.get(pid, 0), t.user_attrs["parzen_launches"])
     assert len(launches) == 2 and os.getpid() not in launches
     assert all(n > 0 for n in launches.values()), launches
+
+
+def test_two_scheduler_slices_on_the_card_launch_the_kernels(cuda_device):
+    """Two ``TrialSliceScheduler`` slices that name the one card run 4 tiny
+    tune trials at once: none fails, the TPE scores on the card (Parzen
+    launched) and each train step launches the cross-entropy kernel once."""
+    from repro_torch.kernels import crossentropy as ce
+    from repro_torch.tune import LMTuneSpec, TrialSliceScheduler, make_lm_objective
+
+    spec = LMTuneSpec(vocab=64, seq=32, batch=4, total_steps=6, eval_every=2, max_layers=1,
+                      max_width=64, families=("dense",))
+    study = hpo.create_study(
+        sampler=hpo.TPESampler(seed=0, engine="cuda", n_startup_trials=2,
+                               consider_pruned_trials=True),
+        pruner=hpo.SuccessiveHalvingPruner(min_resource=2, reduction_factor=2),
+    )
+
+    def run_trial(trial, devices):
+        return make_lm_objective(spec, device=devices[0])(trial)
+
+    parzen.reset_launches()
+    ce.reset_launches()
+    fa.reset_launches()
+    sched = TrialSliceScheduler(study, [[cuda_device]] * 2, run_trial)
+    sched.run(n_trials=4)
+    torch.cuda.synchronize()
+    trials = study.trials
+    assert len(trials) == 4
+    assert {t.state for t in trials} <= {hpo.TrialState.COMPLETE, hpo.TrialState.PRUNED}
+    assert {e[1] for e in sched.events} == {0, 1}
+    steps = sum(len(t.intermediate_values) * spec.eval_every for t in trials)
+    assert parzen.launches() > 0 and fa.launches() > 0
+    assert ce.launches() == steps

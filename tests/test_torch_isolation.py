@@ -8,7 +8,11 @@
 * The sampling and serving paths hold no broad ``except`` that could hide a
   device error; the storage modules, whose server and client map a failed
   call to a typed error on the client as the reference's do, import no
-  ``torch``, so no device code runs inside those handlers.
+  ``torch``, so no device code runs inside those handlers; nor do the
+  importances, the analytics, the static dashboard and the dashboard
+  service, whose HTTP handler answers a failed request with a 500.  The
+  trial-slice scheduler's one broad ``except`` is the reference's function:
+  an objective that raised is told as a FAIL trial.
 * The storage URLs resolve to their backends and ``get_observation_block``
   returns the reference's columns; the xlstm and the MLA / MoE families
   build and run.  These cases keep the names and ids they had when they
@@ -177,12 +181,60 @@ def test_storage_modules_import_no_torch(path):
         assert mod.split(".")[0] != "torch", f"{path}: imports {mod}"
 
 
+#: the analytics slice: numpy and stdlib only, as ``core/storage`` is
+ANALYTICS_FILES = [PORT / rel for rel in ("core/importance.py", "core/analytics.py",
+                                          "core/dashboard.py", "serve/dashboard_service.py")]
+
+
+@pytest.mark.parametrize("path", ANALYTICS_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_analytics_modules_import_no_torch(path):
+    """The importances, analytics, static dashboard and dashboard service
+    import no ``torch``, at the top or inside a function, so their broad
+    ``except``s (the service's 500 answer, the CLI's optional server
+    metrics) cannot hide a device error."""
+    mods = list(_imported_modules(path))
+    assert mods, path
+    for mod in mods:
+        assert mod.split(".")[0] != "torch", f"{path}: imports {mod}"
+
+
+def test_scheduler_broad_except_is_the_failed_trial():
+    """The scheduler's one broad handler tells the trial FAIL (the
+    reference's function); the chip run asserts that no trial failed, so a
+    kernel that does not build or launch inside a trial stops that run."""
+    path = PORT / "tune" / "scheduler.py"
+    (line,) = list(_broad_handlers(path))
+    tree = ast.parse(path.read_text())
+    handler = next(n for n in ast.walk(tree)
+                   if isinstance(n, ast.ExceptHandler) and n.lineno == line)
+    body = ast.unparse(handler)
+    assert "self.study.tell(trial, state=TrialState.FAIL)" in body
+    assert "self._log('failed', slice_id, trial.number)" in body
+    assert not any(isinstance(n, ast.Raise) for n in ast.walk(handler))
+    assert all(mod.split(".")[0] != "torch" for mod in _imported_modules(path))
+
+
 def test_import_scan_covers_the_storage_slice():
     scanned = {p.relative_to(PORT).as_posix() for p in _port_files() if PORT in p.parents}
     for name in ("serde", "base", "sqlite", "journal", "cached", "server", "client",
                  "cluster", "chaos", "inmemory", "__init__"):
         assert f"core/storage/{name}.py" in scanned
     assert "core/distributed.py" in scanned
+
+
+def test_import_scan_covers_the_analytics_slice():
+    scanned = {p.relative_to(PORT).as_posix() for p in _port_files() if PORT in p.parents}
+    for rel in ("core/importance.py", "core/analytics.py", "core/dashboard.py",
+                "serve/dashboard_service.py", "tune/scheduler.py"):
+        assert rel in scanned
+    import repro_torch.tune as tune
+    from repro_torch.serve.dashboard_service import DashboardService
+
+    assert tune.TrialSliceScheduler.__module__ == "repro_torch.tune.scheduler"
+    assert DashboardService.__module__ == "repro_torch.serve.dashboard_service"
+    for name in ("fanova_importances", "param_importances", "spearman_importances",
+                 "render_dashboard", "save_dashboard"):
+        assert name in hpo.__all__ and getattr(hpo, name).__module__.startswith("repro_torch.")
 
 
 #: the reference's observation-block layout: key -> dtype (``None``: not an array)

@@ -18,6 +18,8 @@
 * Files cross between the packages: sqlite and journal files written by
   ``repro`` read back in ``repro_torch`` with the same trials, and the other
   way round.
+* A NaN report reads back as NaN on every backend and is pruned; the
+  reference's sqlite storage reads it back as None (a fault it keeps).
 """
 
 import contextlib
@@ -849,3 +851,45 @@ def test_files_cross_between_packages(scheme, writer, tmp_path):
     again = cores[writer].load_study("cross", url, sampler=cores[writer].RandomSampler(seed=0))
     assert _full_fingerprint(again.get_trials()) == _full_fingerprint(read.get_trials())
     assert len(again.get_trials()) == len(written) + 2  # the WAITING trial ran first
+
+
+# -- NaN reports --------------------------------------------------------------------
+
+
+def _nan_report_study(pkg, storage):
+    study = pkg.create_study(storage=storage, sampler=pkg.RandomSampler(seed=0),
+                             pruner=pkg.SuccessiveHalvingPruner(min_resource=1,
+                                                                reduction_factor=2))
+
+    def objective(t):
+        x = t.suggest_float("x", 0, 1)
+        t.report(float("nan") if t.number in (3, 6) else x, 1)
+        if t.should_prune():
+            raise pkg.TrialPruned()
+        return x
+
+    study.optimize(objective, n_trials=10)
+    return study
+
+
+@pytest.mark.parametrize("kind", BACKENDS)
+def test_nan_report_reads_back_as_nan_and_is_pruned(kind, tmp_path):
+    """A diverging trial reports NaN.  SQLite stores a NaN as NULL; the
+    port's sqlite storage reads it back as NaN, as the other backends keep
+    it, so successive halving prunes the trial (a NaN never survives a rung).
+    The reference's sqlite storage reads it back as None, and the pruner's
+    comparison then raises in the trial that reported it."""
+    study = _nan_report_study(hpo, make_storage(kind, tmp_path))
+    trials = study.trials
+    assert [t.state for t in trials].count(TrialState.FAIL) == 0
+    for number in (3, 6):
+        assert trials[number].state == TrialState.PRUNED
+        assert math.isnan(trials[number].intermediate_values[1])
+    if kind == "sqlite":  # the reference's file reads back None
+        ref = _reference()
+        url = f"sqlite:///{tmp_path}/ref.db"
+        with pytest.raises(TypeError):
+            _nan_report_study(ref, url)
+        (summary,) = ref.get_storage(url).get_all_studies()
+        trial = ref.load_study(summary.study_name, url).trials[3]
+        assert trial.intermediate_values == {1: None}

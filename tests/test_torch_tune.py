@@ -2,8 +2,7 @@
 of ``tests/test_tune_integration.py`` with ``families=("dense",)`` and
 ``device="cpu"``, ``("dense", "mamba2")``, ``("dense", "mlstm")`` and
 ``("dense", "moe")`` studies, and the spaces held equal to the reference's.
-(The dashboard of the reference's test belongs to the storage and
-HPO-surfaces slice of the port.)"""
+The full study also renders the dashboard, as the reference's test does."""
 
 import dataclasses
 
@@ -84,6 +83,10 @@ def test_full_study_with_pruning_and_deploy():
     value = objective(hpo.FixedTrial(best.params))
     assert np.isfinite(value)
     assert value == pytest.approx(best.value, rel=1e-6)  # seeded init and data: the same run
+
+    # dashboard renders with learning curves
+    html = hpo.render_dashboard(study)
+    assert "Learning curves" in html
 
 
 def test_train_config_space():
