@@ -232,6 +232,27 @@ Phases, each of which fails the run by raising:
     once, 5 idle polls after the study stops read no trial data, and
     ``/views``, ``/importance``, ``/metrics``, the index page and
     ``save_dashboard`` (``build/phase30_dashboard.html``) answer.
+31. the multi-GPU path: tinyllama-1.1b at full width (d_model 2048, 32 / 4
+    heads, d_ff 5632, vocab 32000) cut to 2 layers through
+    ``launch.specs.build_step`` on a ``DeviceMesh``, in the world of a fixed
+    rule (``sharded_worlds``, printed): 4 NCCL ranks, one a card, in a
+    (2, 2) ("data", "model") mesh when the machine has 4 cards, else one
+    NCCL rank on cuda:0 in a (1, 1) mesh.  In float32 (TF32 off): gathered
+    ``make_sharded_init`` bit for bit ``init_model_params``; 2 sharded
+    train steps of 4 x 512 tokens against the unsharded step on the same
+    card (loss and every parameter within atol 1e-5 / rtol 1e-4); the
+    prefill and decode cells' first logits and 8 greedy tokens of 4 prompts
+    against the unsharded ``Engine``.  In bfloat16: 2 steps of
+    ``build_step``'s own step (AdamW as shipped) against the unsharded
+    one, the losses and gradient norms within 4 bf16 roundings, at most 1%
+    of the parameter entries an AdamW step apart (``SHARDED_BF16_*`` says
+    why).  The flash and cross-entropy launch counts of each rank's sharded
+    steps must be 2 x 2 layers and 1 a step (the kernels ran on the
+    shards); ``compressed_psum`` over tinyllama's gradients within its int8
+    bound; ``pipelined_apply`` over the world's ranks against the
+    sequential composition.  Prints the sharded and unsharded step times
+    (3 more steps each after the checked ones), each rank's resident bytes
+    and step peak.
 
 Each phase's wall seconds are printed after it and in a line before the
 total.
@@ -3928,6 +3949,415 @@ def phase_tune_slices(sequential: dict) -> dict:
     return out
 
 
+#: phase 31: tinyllama-1.1b at full width, depth cut to 2 layers; 4 x 512 tokens a step
+SHARDED_LAYERS = 2
+SHARDED_B, SHARDED_S = 4, 512
+SHARDED_STEPS = 2
+#: steps timed after the checked ones, each path alone (the first step warms up)
+SHARDED_TIMED_STEPS = 3
+#: float32 (TF32 off): the tolerance of the CPU tests (tests/test_torch_parallel.py)
+SHARDED_ATOL, SHARDED_RTOL = 1e-5, 1e-4
+#: bf16: partial sums over heads / FFN width / the vocabulary rounded to bf16
+#: on each shard before the all-reduce move the residual stream by about one
+#: bf16 rounding (2^-8 relative) against one bf16 product over all heads; the
+#: losses and the gradients' global norms must agree within 4 such roundings.
+#: The parameters are no measure of it: AdamW (eps 1e-8, as shipped) moves an
+#: entry by about lr whatever its gradient's size, so an entry whose gradient
+#: is near 0 can step either way on a rounding.  Those flips are counted (an
+#: entry more than half the steps' summed lr apart) and may be at most 1% of
+#: the entries.  A world of one computes the same operations.
+SHARDED_BF16_RTOL = 4 * 2.0**-8
+SHARDED_BF16_FLIPPED_SHARE = 0.01
+
+
+def sharded_world() -> tuple:
+    """Phase 31's world, ``(ranks, mesh shape)``, by a fixed rule: 4 NCCL
+    ranks, one a card, in a (2, 2) ("data", "model") mesh when the machine
+    has 4 cards; else 1 NCCL rank on cuda:0, a (1, 1) mesh.  NCCL refuses
+    two ranks on one card, and gloo, which takes CUDA tensors in c10d's own
+    collectives there, crashed (SIGSEGV in ``wait_tensor``) in the
+    functional all-gather DTensor runs on them."""
+    return (4, (2, 2)) if torch.cuda.device_count() >= 4 else (1, (1, 1))
+
+
+def _resident_bytes(tensors) -> int:
+    """Bytes this rank holds of ``tensors`` (a DTensor's local shard)."""
+    from torch.distributed.tensor import DTensor
+
+    total = 0
+    for t in tensors:
+        t = t.to_local() if isinstance(t, DTensor) else t
+        total += t.numel() * t.element_size()
+    return total
+
+
+def _tree_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tree_leaves(v)
+    else:
+        yield tree
+
+
+def _scalar(v) -> float:
+    from torch.distributed.tensor import DTensor
+
+    return float(v.full_tensor() if isinstance(v, DTensor) else v)
+
+
+def _synced(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _sharded_train(cfg, mesh, opt, batches, seed: int) -> dict:
+    """``SHARDED_STEPS`` steps of the unsharded step and of ``build_step``'s
+    sharded step from the same weights (the sharded ones from
+    ``make_sharded_init``, the unsharded ones from ``init_model_params``,
+    one seed): losses, times, the kernels' launches during the sharded
+    steps, resident bytes and the steps' peak increment of this rank."""
+    from repro_torch.kernels import crossentropy as ce
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.specs import build_step
+    from repro_torch.models import init_model_params
+    from repro_torch.models.sharding import TRAIN_RULES
+    from repro_torch.train import make_train_step
+    from repro_torch.train.train_loop import make_sharded_init
+
+    out: dict = {}
+    plain = init_model_params(cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
+    start = {n: p.detach().clone() for n, p in plain.named_parameters()}
+    init, _, _ = make_sharded_init(cfg, opt, mesh, TRAIN_RULES)
+    (smodel, sstate), out["sharded_init_s"] = _synced(
+        lambda: init(torch.Generator(device="cuda").manual_seed(seed)))
+    # every rank gathers every parameter (a short-circuit would leave the others waiting)
+    out["init_bitwise"] = all([torch.equal(p.full_tensor(), start[n])
+                               for n, p in smodel.named_parameters()])
+    plain_state = opt.init(dict(plain.named_parameters()))
+    plain_step = make_train_step(cfg, opt)
+    cell = build_step(cfg, "train_4k", mesh, opt=opt)
+    out["plain_resident"] = _resident_bytes(list(plain.parameters())
+                                            + list(_tree_leaves(plain_state)))
+    out["sharded_resident"] = _resident_bytes(list(smodel.parameters())
+                                              + list(_tree_leaves(sstate)))
+    plain_losses, plain_s, plain_norms, lr_sum = [], [], [], 0.0
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for i, batch in enumerate(batches):
+        (plain, plain_state, m), s = _synced(lambda: plain_step(plain, plain_state, i, batch))
+        plain_losses.append(float(m["loss"]))
+        plain_norms.append(_scalar(m["grad_norm"]))
+        lr_sum += float(m["lr"])
+        plain_s.append(s)
+    out["plain_peak_increment"] = torch.cuda.max_memory_allocated() - base
+    sharded_losses, sharded_s, sharded_norms = [], [], []
+    sbatches = [cell.shard(None, None, None, b)[3] for b in batches]
+    fa.reset_launches()
+    ce.reset_launches()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for i, sb in enumerate(sbatches):
+        (smodel, sstate, m), s = _synced(lambda: cell.step(smodel, sstate, i, sb))
+        sharded_losses.append(float(m["loss"]))
+        sharded_norms.append(_scalar(m["grad_norm"]))
+        sharded_s.append(s)
+    out["sharded_peak_increment"] = torch.cuda.max_memory_allocated() - base
+    out["launches"] = {"flash_attention": fa.launches(), "crossentropy": ce.launches()}
+    out.update(plain_losses=plain_losses, sharded_losses=sharded_losses,
+               plain_grad_norms=plain_norms, sharded_grad_norms=sharded_norms,
+               plain_step_s=plain_s, sharded_step_s=sharded_s)
+    worst, bad, upd_num, upd_den, flipped, total = -1.0, [], 0.0, 0.0, 0, 0
+    with torch.no_grad():
+        for name, p in plain.named_parameters():
+            got = smodel.get_parameter(name).full_tensor()
+            excess = float(((got - p).abs() - (SHARDED_ATOL + SHARDED_RTOL * p.abs())).max())
+            worst = max(worst, excess)
+            if excess > 0:
+                bad.append(name)
+            upd_num += float(((got - p) ** 2).sum())
+            upd_den += float(((p - start[name]) ** 2).sum())
+            flipped += int(((got - p).abs() > 0.5 * lr_sum).sum())
+            total += p.numel()
+    out.update(param_excess=worst, params_outside=bad,
+               update_rel=math.sqrt(upd_num / max(upd_den, 1e-30)), flipped_share=flipped / total)
+    # steady step times: SHARDED_TIMED_STEPS more of each, on the last batch
+    for key, run in (("plain_steady_s", lambda i: plain_step(plain, plain_state, i, batches[-1])),
+                     ("sharded_steady_s", lambda i: cell.step(smodel, sstate, i, sbatches[-1]))):
+        out[key] = [_synced(lambda: run(SHARDED_STEPS + j))[1] for j in range(SHARDED_TIMED_STEPS)]
+    del smodel, sstate, plain, plain_state, start
+    torch.cuda.empty_cache()
+    return out
+
+
+def _sharded_serve(cfg, mesh, seed: int, max_new: int = 8) -> dict:
+    """The prefill and decode cells against the unsharded path: the first
+    logits with a float32 cache against the unsharded prefill step's
+    (atol / rtol as the train steps), and ``max_new`` greedy tokens of 4
+    prompts of 128 tokens with the ``Engine``'s bfloat16 cache against the
+    ``Engine``'s.  A bf16 cache is no measure of float32 agreement: a k / v
+    entry a float32 rounding from a bf16 boundary rounds to the other
+    neighbour (2^-8 relative), and the logits move by about 1e-3 (on 4
+    H100s, 5.5e-4 past the tolerance)."""
+    from repro_torch.launch.specs import build_step
+    from repro_torch.models import init_cache, init_model_params
+    from repro_torch.serve import Engine
+
+    rng = np.random.RandomState(seed)
+    prompts = [rng.randint(0, cfg.vocab, size=128) for _ in range(SHARDED_B)]
+    capacity = 128 + max_new
+    gen = lambda: torch.Generator(device="cuda").manual_seed(seed)  # noqa: E731
+    engine = Engine(cfg, init_model_params(cfg, gen(), "cuda"), capacity=capacity,
+                    slots=SHARDED_B, engine="cuda")
+    want = engine.generate(prompts, max_new=max_new)
+    tokens = torch.from_numpy(np.stack(prompts)).long().cuda()
+    f32_cache = lambda: init_cache(cfg, SHARDED_B, capacity, torch.float32, device="cuda")  # noqa: E731
+    want_logits = engine._prefill(engine.model, {"tokens": tokens}, f32_cache())[0]
+    del engine
+    prefill = build_step(cfg, "prefill_32k", mesh)
+    decode = build_step(cfg, "decode_32k", mesh)
+    smodel, sbatch, cache = prefill.shard(init_model_params(cfg, gen(), "cuda"),
+                                          {"tokens": tokens}, f32_cache())
+    (logits, _), prefill_s = _synced(lambda: prefill.step(smodel, sbatch, cache))
+    first = logits.full_tensor()
+    excess = float(((first - want_logits).abs()
+                    - (SHARDED_ATOL + SHARDED_RTOL * want_logits.abs())).max())
+    cache = prefill.shard(None, None, init_cache(cfg, SHARDED_B, capacity, device="cuda"))[2]
+    logits, cache = prefill.step(smodel, sbatch, cache)
+    got = [[] for _ in prompts]
+    index = tokens.shape[1]
+    for i in range(max_new):
+        tok = torch.argmax(logits.full_tensor(), dim=-1)
+        for j, t in enumerate(tok[:, 0].tolist()):
+            got[j].append(t)
+        if i + 1 < max_new:
+            logits, cache = decode.step(smodel, decode.shard(None, tok[:, :1])[1], cache, index)
+            index += 1
+    return {"logits_excess": excess, "tokens_equal": got == want, "prefill_s": prefill_s,
+            "cache_placements": str(cache["stack"]["0"]["k"].placements)}
+
+
+def _sharded_compression(cfg, mesh, batch) -> dict:
+    """``compressed_psum`` over the "data" ranks of tinyllama's gradients
+    (one unsharded step's, each rank on its own batch): every element
+    within the int8 bound, n ranks x scale / 2, of the exact float32 sum
+    (plus n float32 roundings of the largest gradient, 2^-23 x max |g|
+    each)."""
+    import torch.distributed as dist
+
+    from repro_torch.models import init_model_params, loss_fn
+    from repro_torch.train.compression import compressed_psum
+
+    group = mesh.get_group(mesh.mesh_dim_names.index("data"))
+    n = dist.get_world_size(group)
+    model = init_model_params(cfg, torch.Generator(device="cuda").manual_seed(7), "cuda")
+    named = dict(model.named_parameters())
+    for p in named.values():
+        p.requires_grad_(True)
+    loss, _ = loss_fn(model, batch)
+    grads = torch.autograd.grad(loss, list(named.values()))
+    worst, elems = 0.0, 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for g in grads:
+        red = compressed_psum(g, group)
+        exact = g.clone()
+        dist.all_reduce(exact, group=group)
+        gmax = g.abs().max().reshape(1)
+        dist.all_reduce(gmax, op=dist.ReduceOp.MAX, group=group)
+        bound = n * ((gmax[0] / 127.0 + 1e-12) / 2 + 2.0**-23 * gmax[0])
+        worst = max(worst, float(((red - exact).abs() / bound).max()))
+        elems += g.numel()
+    torch.cuda.synchronize()
+    return {"ranks": n, "elements": elems, "worst_over_bound": worst,
+            "seconds": time.perf_counter() - t0}
+
+
+def _sharded_pipeline(world: int, d: int) -> dict:
+    """``pipelined_apply`` over the world's ranks (one stage a rank), M = 8
+    microbatches of 4 x ``d``: outputs and gradients against the sequential
+    composition."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.train.pipeline_parallel import pipelined_apply
+
+    mesh = init_device_mesh("cuda", (world,), mesh_dim_names=("stage",))
+    g = torch.Generator(device="cuda").manual_seed(31)
+    params = torch.randn(world, d, d, device="cuda", generator=g) / math.sqrt(d)
+    x = torch.randn(8, 4, d, device="cuda", generator=g)
+
+    def stage_fn(w, h):
+        return torch.tanh(h @ w)
+
+    p1, x1 = params.clone().requires_grad_(True), x.clone().requires_grad_(True)
+    out, seconds = _synced(lambda: pipelined_apply(stage_fn, p1, x1, mesh))
+    gp, gx = torch.autograd.grad((out ** 2).sum(), [p1, x1])
+    dist.all_reduce(gp)  # each rank holds its stage's rows
+    p2, x2 = params.clone().requires_grad_(True), x.clone().requires_grad_(True)
+    ref = x2
+    for i in range(world):
+        ref = stage_fn(p2[i], ref)
+    gp2, gx2 = torch.autograd.grad((ref ** 2).sum(), [p2, x2])
+    return {"stages": world, "out": float((out - ref).abs().max()),
+            "grad_params": float((gp - gp2).abs().max()),
+            "grad_x": float((gx - gx2).abs().max()), "seconds": seconds}
+
+
+def sharded_rank(rank: int, world: int, store: str, out_path: str) -> dict:
+    """Phase 31 on one rank (``rank`` uses ``cuda:rank``); rank 0 writes the
+    result to ``out_path``.  Every check raises on this rank."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train import SyntheticLM, TrainConfig, adamw, warmup_cosine
+    from repro_torch.train.train_loop import make_optimizer_for
+
+    import faulthandler
+
+    faulthandler.enable(all_threads=True)  # a crash in native code prints each rank's stack
+    torch.cuda.set_device(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.load()
+    dist.init_process_group("nccl", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world)
+    try:
+        from repro_torch import configs
+
+        shape = (2, 2) if world == 4 else (1, 1)
+        mesh = make_host_mesh(shape, ("data", "model"), device_type="cuda")
+        full = configs.get_config("tinyllama-1.1b")
+        cfg32 = dataclasses.replace(full, n_layers=SHARDED_LAYERS, n_superblocks=SHARDED_LAYERS,
+                                    compute_dtype="float32", serve_param_dtype="float32")
+        cfg16 = dataclasses.replace(cfg32, compute_dtype="bfloat16",
+                                    serve_param_dtype="bfloat16")
+        data = SyntheticLM(cfg32, SHARDED_B, SHARDED_S, seed=31)
+        batches = [{k: v.cuda() for k, v in data.batch_at(i).items()}
+                   for i in range(SHARDED_STEPS)]
+        # AdamW with eps 1e-4 in float32 (tests/test_torch_train_step.py says why); bf16 as shipped
+        opt32 = adamw(warmup_cosine(3e-4, 100, 1000), eps=1e-4)
+        res = {"rank": rank, "world": world, "mesh": list(shape)}
+        mark = (lambda what: print(f"  rank {rank}: {what}", flush=True)) if world > 1 else (
+            lambda what: None)
+        mark("mesh up")
+        res["f32"] = _sharded_train(cfg32, mesh, opt32, batches, 31)
+        mark("float32 steps")
+        res["bf16"] = _sharded_train(cfg16, mesh, make_optimizer_for(cfg16, TrainConfig()),
+                                     batches, 31)
+        mark("bf16 steps")
+        res["serve"] = _sharded_serve(cfg32, mesh, 31)
+        mark("serving")
+        local = SyntheticLM(cfg32, SHARDED_B, SHARDED_S, seed=31 + mesh.get_coordinate()[0])
+        res["compression"] = _sharded_compression(cfg32, mesh,
+                                                  {k: v.cuda() for k, v in
+                                                   local.batch_at(0).items()})
+        mark("compression")
+        res["pipeline"] = _sharded_pipeline(world, cfg32.d_model)
+        mark("pipeline")
+        res["peak_bytes"] = torch.cuda.max_memory_allocated()
+        every = [None] * world
+        dist.all_gather_object(every, [res["f32"]["sharded_resident"],
+                                       res["f32"]["sharded_peak_increment"]])
+        res["ranks"] = every
+        if rank == 0:  # before the checks, so that a failing run shows its numbers
+            _print_world(res)
+        check_sharded(res)
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:
+        with open(out_path, "w") as f:
+            json.dump(res, f)
+    return res
+
+
+def check_sharded(res: dict) -> None:
+    """Phase 31's assertions on one rank's result."""
+    layers = SHARDED_LAYERS
+    for key in ("f32", "bf16"):
+        r = res[key]
+        assert r["init_bitwise"], f"{key}: gathered make_sharded_init differs from init_model_params"
+        # 2 flash launches a layer a step (remat reruns each superblock's forward), 1 CE a step
+        assert r["launches"] == {"flash_attention": 2 * layers * SHARDED_STEPS,
+                                 "crossentropy": SHARDED_STEPS}, (key, r["launches"])
+        assert all(math.isfinite(x) for x in r["sharded_losses"] + r["plain_losses"]), r
+    f32 = res["f32"]
+    for got, want in zip(f32["sharded_losses"], f32["plain_losses"]):
+        assert abs(got - want) <= SHARDED_ATOL + SHARDED_RTOL * abs(want), f32
+    assert not f32["params_outside"], (f32["params_outside"][:8], f32["param_excess"])
+    bf16 = res["bf16"]
+    for got, want in zip(bf16["sharded_losses"] + bf16["sharded_grad_norms"],
+                         bf16["plain_losses"] + bf16["plain_grad_norms"]):
+        assert abs(got - want) <= SHARDED_BF16_RTOL * abs(want), bf16
+    assert bf16["flipped_share"] <= SHARDED_BF16_FLIPPED_SHARE, bf16["flipped_share"]
+    serve = res["serve"]
+    assert serve["logits_excess"] <= 0.0 and serve["tokens_equal"], serve
+    assert res["compression"]["worst_over_bound"] <= 1.0, res["compression"]
+    pp = res["pipeline"]
+    assert max(pp["out"], pp["grad_params"], pp["grad_x"]) <= 1e-5, pp
+
+
+def _run_world(world: int, tmp: str) -> dict:
+    store, out_path = os.path.join(tmp, "store"), os.path.join(tmp, "rank0.json")
+    if world == 1:
+        return sharded_rank(0, 1, store, out_path)
+    import torch.multiprocessing as mp
+
+    mp.start_processes(sharded_rank, args=(world, store, out_path), nprocs=world,
+                       start_method="spawn", join=True)
+    with open(out_path) as f:
+        return json.load(f)
+
+
+def _print_world(res: dict) -> None:
+    gib = 2.0**30
+    for key in ("f32", "bf16"):
+        r = res[key]
+        print(f"  {key}: losses sharded {r['sharded_losses']} unsharded {r['plain_losses']}; "
+              f"steady step s sharded {[round(s, 4) for s in r['sharded_steady_s']]} unsharded "
+              f"{[round(s, 4) for s in r['plain_steady_s']]} (first steps "
+              f"{[round(s, 4) for s in r['sharded_step_s']]} / "
+              f"{[round(s, 4) for s in r['plain_step_s']]}); launches {r['launches']}; rank 0 "
+              f"resident {r['sharded_resident'] / gib:.3f} GiB sharded, "
+              f"{r['plain_resident'] / gib:.3f} GiB unsharded; step peak increment "
+              f"{r['sharded_peak_increment'] / gib:.3f} / {r['plain_peak_increment'] / gib:.3f} "
+              f"GiB; init bitwise {r['init_bitwise']} ({r['sharded_init_s']:.2f} s); params "
+              f"worst excess over atol+rtol {r['param_excess']:.3g}; update rel "
+              f"{r['update_rel']:.3g}, flipped share {r['flipped_share']:.3g}; grad norms "
+              f"{r['sharded_grad_norms']} / {r['plain_grad_norms']}")
+    print(f"  serve: {res['serve']}")
+    print(f"  compression: {res['compression']}")
+    print(f"  pipeline: {res['pipeline']}")
+    print(f"  per rank [f32 sharded resident, step peak increment] bytes: {res['ranks']}; "
+          f"rank 0 peak allocated {res['peak_bytes'] / gib:.2f} GiB")
+
+
+def phase_sharded() -> dict:
+    """Phase 31: the multi-GPU path (``launch.specs.build_step`` on a
+    ``DeviceMesh``) at tinyllama-1.1b's full width cut to 2 layers."""
+    import shutil
+    import tempfile
+
+    world, shape = sharded_world()
+    print(f"phase 31: tinyllama-1.1b (d_model 2048, 32 / 4 heads, d_ff 5632, vocab 32000) cut "
+          f"to {SHARDED_LAYERS} layers through build_step on a DeviceMesh, "
+          f"{SHARDED_STEPS} checked steps of {SHARDED_B} x {SHARDED_S}; world {world} in a "
+          f"{shape} ('data', 'model') mesh over NCCL ({torch.cuda.device_count()} card(s); the "
+          f"rule: 4 ranks, one a card, with 4 cards, else 1); {nvidia_smi('name,power.limit')}")
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="phase31-", dir=build)
+    try:
+        res = _run_world(world, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"  {nvidia_smi('name,power.limit')}")
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every measurement to this JSON file")
@@ -4009,6 +4439,7 @@ def main() -> int:
     assert moe_trials and set(moe_trials) <= {"COMPLETE", "PRUNED"}, moe_trials
     storage = timed("29", phase_storage)
     tune_slices = timed("30", phase_tune_slices, tune_moe)
+    sharded = timed("31", phase_sharded)
 
     shape_rows = optimize_rows + wave_rows
     table = wave_rows[-1]  # the score-table build: the kernel's large shape
@@ -4092,6 +4523,8 @@ def main() -> int:
         "launches_train_qwen3_moe": qwen3["train"]["launches"]["flash_attention"],
         "launches_tune_moe": tune_moe["launches"]["flash_attention"],
         "launches_tune_slices": tune_slices["launches"]["flash_attention"],
+        "launches_sharded_train": sharded["f32"]["launches"]["flash_attention"],
+        "launches_sharded_train_bf16": sharded["bf16"]["launches"]["flash_attention"],
         "qwen3_moe_prefill": [{k: r[k] for k in ("B", "Sq", "Skv", "ms", "plain_ms", "bound_ms",
                                                  "bound_by", "max_abs_err")}
                               for r in qwen3["flash_rows"]],
@@ -4126,6 +4559,8 @@ def main() -> int:
         "launches_train_qwen3_moe": qwen3["train"]["launches"]["crossentropy"],
         "launches_tune_moe": tune_moe["launches"]["crossentropy"],
         "launches_tune_slices": tune_slices["launches"]["crossentropy"],
+        "launches_sharded_train": sharded["f32"]["launches"]["crossentropy"],
+        "launches_sharded_train_bf16": sharded["bf16"]["launches"]["crossentropy"],
         "max_abs_err": max(r["max_abs_err"] for r in ce_rows),
         "ms": ce_main["ms"],
         "plain_ms": ce_main["plain_ms"],
@@ -4205,7 +4640,7 @@ def main() -> int:
                        "train_xlstm": train_xlstm, "tune_xlstm": tune_xlstm,
                        "serve_deepseek": serve_deepseek, "train_deepseek": train_deepseek,
                        "qwen3_moe": qwen3, "tune_moe": tune_moe, "storage": storage,
-                       "tune_slices": tune_slices,
+                       "tune_slices": tune_slices, "sharded": sharded,
                        "phase_seconds": phase_s,
                        "kernels": kernels}, f,
                       indent=1)

@@ -9,6 +9,8 @@ from .config import SHAPES, BlockDef, ModelConfig, ShapeConfig
 from .transfer import load_params_tree, params_from_jax, params_tree
 from .transformer import (
     Transformer,
+    abstract_params,
+    cache_logical,
     count_active_params,
     count_params,
     forward,
@@ -16,7 +18,9 @@ from .transformer import (
     init_model_params,
     logits_from_hidden,
     loss_fn,
+    named_params_logical,
     param_specs,
+    params_logical,
 )
 
 __all__ = [
@@ -27,6 +31,10 @@ __all__ = [
     "Transformer",
     "param_specs",
     "init_model_params",
+    "abstract_params",
+    "params_logical",
+    "named_params_logical",
+    "cache_logical",
     "count_params",
     "count_active_params",
     "forward",

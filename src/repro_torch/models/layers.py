@@ -1,12 +1,18 @@
 """Shared layers + the parameter-spec machinery.
 
 Every parameter is declared as a :class:`Spec` (shape, logical axes, init).
-Spec trees (nested dicts of specs) give the parameter count with no
-allocation, and the shapes and initialization of the model's tensors.
+Spec trees (nested dicts of specs) give, with no weight allocation:
+
+* the parameter count, and abstract parameters (meta-device tensors,
+  :func:`spec_shapes`) for sharded init and ``launch/specs.py``,
+* the logical axes (:func:`spec_logical`) that ``models/sharding.py`` maps
+  to DTensor placements,
+* the shapes and initialization of the model's tensors.
+
 ``cross_entropy_chunked``, the training loss, goes through the fused
-cross-entropy kernel (``kernels/crossentropy.py``).
-(The reference's abstract-shape and logical-axis views of a spec tree
-serve its dry run and sharding, which later slices port.)
+cross-entropy kernel (``kernels/crossentropy.py``); under an active mesh
+(``models/sharding.py``) it is the vocab-parallel loss of
+``models/tensor_parallel.py``, the kernel on each rank's vocabulary shard.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import torch.nn.functional as F
 
 from ..kernels.crossentropy import fused_crossentropy
 from ..kernels.ref import crossentropy_ref
+from .sharding import active
 
 __all__ = [
     "ENGINES",
@@ -27,6 +34,8 @@ __all__ = [
     "Spec",
     "spec_leaves",
     "spec_map",
+    "spec_shapes",
+    "spec_logical",
     "init_params",
     "init_tensor",
     "rms_norm",
@@ -87,6 +96,17 @@ def spec_map(fn: Callable[[Spec], Any], tree) -> Any:
     if isinstance(tree, Spec):
         return fn(tree)
     return {key: spec_map(fn, sub) for key, sub in tree.items()}
+
+
+def spec_shapes(tree, dtype) -> Any:
+    """The tree with each spec replaced by a meta-device tensor of its shape
+    in ``dtype`` (no storage is allocated)."""
+    return spec_map(lambda s: torch.empty(s.shape, dtype=dtype, device="meta"), tree)
+
+
+def spec_logical(tree) -> Any:
+    """The tree with each spec replaced by its logical axes."""
+    return spec_map(lambda s: s.logical, tree)
 
 
 def init_tensor(s: Spec, generator: torch.Generator, device) -> torch.Tensor:
@@ -190,8 +210,15 @@ def cross_entropy_chunked(
     ``x``'s dtype, as the reference's ``w_out.astype(x.dtype)`` rounds it: a
     bfloat16 ``x``'s tensor-core kernel reads one bf16 cast of it a call in
     the same layout, a float32 ``x``'s kernel reads it in place.
-    ``engine="torch"`` runs autograd through the plain version instead."""
+    ``engine="torch"`` runs autograd through the plain version instead.
+    Under an active mesh it is the vocab-parallel loss
+    (``tensor_parallel.cross_entropy``)."""
     check_engine(engine, x.device)
+    if active() is not None:
+        from .tensor_parallel import cross_entropy
+
+        return cross_entropy(x, w_out, labels, final_softcap=final_softcap, mask=mask,
+                             engine=engine)
     B, S, D = x.shape
     chunk = min(chunk, S)
     if S % chunk != 0:

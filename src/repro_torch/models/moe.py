@@ -45,7 +45,8 @@ import torch.nn.functional as F
 from ..kernels.ops import full_float32_matmul
 from .layers import Spec
 
-__all__ = ["moe_specs", "moe_ffn", "shared_expert_specs", "top_k", "group_size", "EXPERT_ROWS"]
+__all__ = ["moe_specs", "moe_ffn", "shared_expert_specs", "top_k", "route", "group_size",
+           "EXPERT_ROWS"]
 
 #: the einsum dispatch's expert-buffer rows (E x groups x C) a block of groups
 EXPERT_ROWS = 1 << 18
@@ -83,16 +84,23 @@ def top_k(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     return values[..., :k], indices[..., :k]
 
 
-def _router(p, x, cfg):
-    """Returns (top-k weights [T, k] float32, top-k expert ids [T, k], aux
-    loss).  The logits are float32 products (TF32 off) of the float32
-    activations and router."""
+def route(p, x, cfg):
+    """Returns (router probabilities [T, E], top-k weights [T, k] float32,
+    top-k expert ids [T, k]).  The logits are float32 products (TF32 off) of
+    the float32 activations and router."""
     with full_float32_matmul():
         logits = x.float() @ p.router.float()
     probs = torch.softmax(logits, dim=-1)
     w, idx = top_k(probs, cfg.moe_top_k)
     if cfg.moe_norm_topk:
         w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+    return probs, w, idx
+
+
+def _router(p, x, cfg):
+    """Returns (top-k weights [T, k] float32, top-k expert ids [T, k], aux
+    loss)."""
+    probs, w, idx = route(p, x, cfg)
     # Switch aux loss: E * sum_e (fraction of first choices to e) * (mean prob for e)
     E = cfg.moe_experts
     load = F.one_hot(idx[:, 0], E).to(torch.float32).mean(0)
@@ -125,11 +133,15 @@ def _experts(p, xe: torch.Tensor, dtype) -> torch.Tensor:
 # -- einsum (one-hot) dispatch --------------------------------------------------------------
 
 
-def _moe_einsum(p, xt, w, idx, cfg):
-    """xt: [T, d] flat tokens."""
+def _moe_einsum(p, xt, w, idx, cfg, experts=None, group=None):
+    """xt: [T, d] flat tokens.  Under expert parallelism
+    (``models/tensor_parallel.py``) ``experts = (lo, hi)`` names the experts
+    whose weights ``p`` holds: only their buffers are filled and run, and
+    the result is their part of the sum over experts; ``group`` is then the
+    group size of the whole batch, of which ``xt`` holds whole groups."""
     T, d = xt.shape
     E, k = cfg.moe_experts, cfg.moe_top_k
-    Sg = group_size(T, cfg)
+    Sg = group_size(T, cfg) if group is None else group
     G = T // Sg
     C = _capacity(Sg, cfg)
 
@@ -164,9 +176,14 @@ def _moe_einsum(p, xt, w, idx, cfg):
             2, slot[g0:g1], keep[g0:g1].to(xt.dtype))
         combine = torch.zeros((n, Sg, E * C), dtype=torch.float32, device=xt.device).scatter(
             2, slot[g0:g1], wg[g0:g1] * keep[g0:g1].to(torch.float32))
-        xe = torch.einsum("gsec,gsd->egcd", dispatch.view(n, Sg, E, C), xg[g0:g1])
-        o = _experts(p, xe.reshape(E, n * C, d), xt.dtype).view(E, n, C, d)
-        ys.append(torch.einsum("egcd,gsec->gsd", o, combine.to(xt.dtype).view(n, Sg, E, C)))
+        dispatch, combine = dispatch.view(n, Sg, E, C), combine.view(n, Sg, E, C)
+        ne = E
+        if experts is not None:  # this rank's experts (the reference's "experts" anchor)
+            dispatch, combine = dispatch[:, :, experts[0]:experts[1]], combine[:, :, experts[0]:experts[1]]
+            ne = experts[1] - experts[0]
+        xe = torch.einsum("gsec,gsd->egcd", dispatch, xg[g0:g1])
+        o = _experts(p, xe.reshape(ne, n * C, d), xt.dtype).view(ne, n, C, d)
+        ys.append(torch.einsum("egcd,gsec->gsd", o, combine.to(xt.dtype)))
     y = ys[0] if len(ys) == 1 else torch.cat(ys)
     return y.reshape(T, d)
 

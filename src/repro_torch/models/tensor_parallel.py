@@ -1,0 +1,569 @@
+"""The model's blocks on local shards, under an active mesh.
+
+``models/sharding.py`` stores every parameter as a DTensor in the rules'
+placements (FSDP over the batch axes, tensor parallelism over ``"model"``).
+Each block here is one call on local shards, Megatron style: its inputs are
+redistributed to the layout its local computation needs (the activation
+whole along the sequence and replicated over ``"model"``, the batch still
+split; the weights gathered over the batch axes, split over ``"model"``
+along heads, FFN width or experts), the one-device code runs on the local
+tensors (the flash-attention, SSD and cross-entropy kernels on the local
+heads or vocabulary shard), and the output is a DTensor that is a partial
+sum over ``"model"``.  DTensor inserts the collectives: the all-gathers of
+the redistributions, the reduce-scatter or all-reduce when the partial
+output joins the residual stream, and in the backward pass their adjoints.
+
+The rule for gradients: a mesh dim *splits* a block's work when the batch
+is sharded over it or the block divides its heads / width / experts over it.
+An input that is replicated over a splitting dim gets a partial-sum gradient
+there (each rank saw a part of the tokens or of the heads); an output that is
+not sharded over a splitting dim is a partial sum there.  Where a block
+cannot split over ``"model"`` (the head count does not divide it) every
+rank computes the whole block and the output is replicated.
+
+What each block adds to the reference's anchors: the activation constraint
+between layers is the caller's (``transformer.forward``); the attention
+block's Megatron layout (q / k / v over heads) and the MoE block's experts
+over ``"model"`` are this module's local layouts.
+
+Not yet run sharded (each raises ``NotImplementedError``): mLSTM and sLSTM
+blocks, a KV cache sharded over ``head_dim`` (kv heads that do not divide
+``"model"`` under ``SERVE_RULES``), an MLA or a mamba2 block with a cache,
+and the sort dispatch of a MoE block with the batch split.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from types import SimpleNamespace
+
+import torch
+import torch.distributed as dist
+import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+from ..kernels.crossentropy import crossentropy_backward, crossentropy_forward
+from ..kernels.ref import crossentropy_lse_ref
+from . import attention as attn
+from . import mamba2 as m2
+from .layers import check_engine, rms_norm
+from .moe import _moe_einsum, _moe_sort, group_size, route
+from .sharding import active, local_shard, logical_to_spec
+
+__all__ = [
+    "apply_block",
+    "embed_tokens",
+    "rms_norm_rows",
+    "cross_entropy",
+]
+
+
+# -- local calls ----------------------------------------------------------------------------
+
+
+class _Local:
+    """One block's call on local shards: the mesh, its names, and the mesh
+    dims over which the block's work is split."""
+
+    def __init__(self, mesh, split: set):
+        self.mesh = mesh
+        self.names = tuple(mesh.mesh_dim_names)
+        self.split = {self.names.index(a) for a in split}
+
+    def placements(self, dims: dict) -> tuple:
+        """``dims``: ``{tensor dim: mesh axis or tuple of axes}``."""
+        pl: list = [Replicate()] * len(self.names)
+        for d, axes in dims.items():
+            for ax in (axes,) if isinstance(axes, str) else axes:
+                pl[self.names.index(ax)] = Shard(d)
+        return tuple(pl)
+
+    def arg(self, t: DTensor, dims: dict | None = None) -> torch.Tensor:
+        """The local tensor of ``t`` in the layout ``dims``; its gradient is
+        a partial sum over the splitting dims it is replicated over."""
+        if not isinstance(t, DTensor):
+            raise TypeError(f"under an active mesh the model's tensors are DTensors, got "
+                            f"{type(t).__name__}")
+        pl = self.placements(dims or {})
+        grad = tuple(Partial() if isinstance(p, Replicate) and i in self.split else p
+                     for i, p in enumerate(pl))
+        if tuple(t.placements) != pl:
+            t = t.redistribute(self.mesh, pl)
+        return t.to_local(grad_placements=grad)
+
+    def out(self, local: torch.Tensor, dims: dict | None = None, reduced=()) -> DTensor:
+        """A DTensor of ``local``: sharded as ``dims`` says, a partial sum
+        over the other splitting dims except the mesh axes in ``reduced``."""
+        pl = list(self.placements(dims or {}))
+        done = {self.names.index(a) for a in reduced}
+        for i in self.split:
+            if isinstance(pl[i], Replicate) and i not in done:
+                pl[i] = Partial()
+        return DTensor.from_local(local, self.mesh, tuple(pl), run_check=False)
+
+    def coord(self, axis: str) -> int:
+        return self.mesh.get_local_rank(self.names.index(axis))
+
+
+def _ctx():
+    pair = active()
+    if pair is None:
+        raise RuntimeError("no active mesh (models.sharding.activation_sharding)")
+    return pair
+
+
+def _tp(mesh, rules) -> "tuple[str | None, int]":
+    """The tensor-parallel mesh axis (the rules' ``"heads"`` axis present in
+    the mesh) and its size; ``(None, 1)`` without one."""
+    names = tuple(mesh.mesh_dim_names)
+    for ax in rules.mesh_axes("heads"):
+        if ax in names:
+            return ax, mesh.size(names.index(ax))
+    return None, 1
+
+
+def _batch_axes(mesh, rules, batch: int) -> tuple:
+    """The mesh axes the batch dim is sharded over (the rules' ``"batch"``
+    axes present in the mesh that divide it)."""
+    entry = logical_to_spec(("batch",), (batch,), mesh, rules)
+    if not entry or entry[0] is None:
+        return ()
+    return (entry[0],) if isinstance(entry[0], str) else tuple(entry[0])
+
+
+def _split_over(tp_axis, n: int, tp: int) -> bool:
+    """Whether a block divides ``n`` heads / columns / experts over the model
+    axis: whenever they divide it, as the rules shard them (a size-1 axis
+    included, so the layouts equal the stored placements)."""
+    return tp_axis is not None and n % tp == 0
+
+
+def _local(mesh, rules, batch: int, tp_axis, tp_split: bool):
+    axes = set(_batch_axes(mesh, rules, batch))
+    if tp_split:
+        axes.add(tp_axis)
+    return _Local(mesh, axes), _batch_axes(mesh, rules, batch)
+
+
+def _group(mesh, axis: str):
+    return mesh.get_group(tuple(mesh.mesh_dim_names).index(axis))
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """A sum over a process group whose adjoint is the sum of the
+    gradients (each rank's output is a separate use of the total)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        y = x.clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+# -- embedding, norm ----------------------------------------------------------------------
+
+
+def embed_tokens(model, cfg, batch: dict, compute_dtype) -> DTensor:
+    """Vocab-parallel embedding: each rank looks up the tokens of its
+    vocabulary rows and writes zeros elsewhere, a partial sum over
+    ``"model"`` that the caller's anchor reduces (exact: one nonzero
+    term a row).  Audio sums its codebooks' lookups; a VLM's image
+    embeddings go in front on the first model rank only."""
+    mesh, rules = _ctx()
+    tokens = batch["tokens"]
+    B = tokens.shape[0]
+    tp_axis, tp = _tp(mesh, rules)
+    split = _split_over(tp_axis, cfg.vocab, tp)
+    loc, baxes = _local(mesh, rules, B, tp_axis, split)
+    bd = {0: baxes} if baxes else {}
+    tok = loc.arg(tokens, bd).long()
+    vdim = 1 if cfg.modality == "audio" else 0  # [K, V, d] codebook tables
+    emb = loc.arg(model.embed, {vdim: tp_axis} if split else {})
+    n = emb.shape[vdim]
+    lo = loc.coord(tp_axis) * n if split else 0
+    zero = torch.zeros((), dtype=compute_dtype, device=tok.device)
+
+    def lookup(table, t):
+        t = t - lo
+        rows = table[t.clamp(0, n - 1)].to(compute_dtype)
+        return torch.where(((t >= 0) & (t < n))[..., None], rows, zero)
+
+    if cfg.modality == "audio":
+        x = torch.zeros((tok.shape[0], tok.shape[2], cfg.d_model), dtype=compute_dtype,
+                        device=tok.device)
+        for kb in range(cfg.num_codebooks):
+            x = x + lookup(emb[kb], tok[:, kb])
+    else:
+        x = lookup(emb, tok)
+        if cfg.modality == "vlm" and "image_embeds" in batch:
+            img = loc.arg(batch["image_embeds"], bd).to(compute_dtype)
+            if split and loc.coord(tp_axis) != 0:
+                img = torch.zeros_like(img)
+            x = torch.cat([img, x], dim=1)
+    if cfg.embed_scale:
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=compute_dtype, device=x.device)
+    return loc.out(x, bd)
+
+
+def rms_norm_rows(x: DTensor, scale: DTensor, eps: float) -> DTensor:
+    """``layers.rms_norm`` on the local rows of ``x`` (sharded over batch
+    and sequence, never over the last dim); the scale's gradient is a
+    partial sum over every dim ``x`` is sharded over."""
+    mesh, _ = _ctx()
+    names = tuple(mesh.mesh_dim_names)
+    if any(isinstance(p, Partial) for p in x.placements):
+        raise ValueError("rms_norm_rows takes a reduced activation")
+    dims = {}
+    for i, p in enumerate(x.placements):
+        if isinstance(p, Shard):
+            dims.setdefault(p.dim, []).append(names[i])
+    loc = _Local(mesh, {a for axes in dims.values() for a in axes})
+    dims = {d: tuple(a) for d, a in dims.items()}
+    y = rms_norm(loc.arg(x, dims), loc.arg(scale), eps)
+    return loc.out(y, dims)
+
+
+# -- blocks ------------------------------------------------------------------------------
+
+
+def _kv_slice(H: int, KV: int, tp: int, rank: int) -> tuple[int, int]:
+    """The kv heads the query heads of ``rank`` read, when the kv heads
+    do not divide the model axis (GQA: query head h reads kv head h // (H /
+    KV))."""
+    G = H // KV
+    Hl = H // tp
+    if Hl % G and G % Hl:
+        raise NotImplementedError(f"{H} query heads over {tp} ranks straddle the kv groups "
+                                  f"of {G}")
+    lo = rank * Hl // G
+    return lo, ((rank + 1) * Hl - 1) // G + 1
+
+
+def _cache_arg(loc, t: DTensor, dims: dict) -> torch.Tensor:
+    """A cache leaf is written in place: it must already be in the layout
+    the local computation needs."""
+    if tuple(t.placements) != loc.placements(dims):
+        raise NotImplementedError(f"a cache leaf in {t.placements}: the block needs "
+                                  f"{loc.placements(dims)} (kv heads over the model axis)")
+    return t.to_local()
+
+
+def _attn(bdef, p, x: DTensor, cfg, cache, cache_index, mode, engine) -> DTensor:
+    """ln1 + attention over this rank's heads; a partial sum over the model
+    axis (the flash-attention kernel runs on the local heads)."""
+    mesh, rules = _ctx()
+    tp_axis, tp = _tp(mesh, rules)
+    B, S = x.shape[0], x.shape[1]
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    split = _split_over(tp_axis, H, tp)
+    kv_split = split and KV % tp == 0
+    loc, baxes = _local(mesh, rules, B, tp_axis, split)
+    bd = {0: baxes} if baxes else {}
+    xl = loc.arg(x, bd)
+    ln1 = loc.arg(p.ln1)
+    wq = loc.arg(p.attn.wq, {1: tp_axis} if split else {})
+    wo = loc.arg(p.attn.wo, {0: tp_axis} if split else {})
+    wk = loc.arg(p.attn.wk, {1: tp_axis} if kv_split else {})
+    wv = loc.arg(p.attn.wv, {1: tp_axis} if kv_split else {})
+    if split and not kv_split:
+        lo, hi = _kv_slice(H, KV, tp, loc.coord(tp_axis))
+        wk, wv = wk[:, lo:hi], wv[:, lo:hi]
+    c = None
+    if cache is not None:
+        cd = dict(bd)
+        if kv_split:
+            cd[2] = tp_axis
+        elif split:
+            raise NotImplementedError("a KV cache whose kv heads do not divide the model axis")
+        c = {key: _cache_arg(loc, t, cd) for key, t in cache.items()}
+    h = rms_norm(xl, ln1, cfg.norm_eps)
+    pl = SimpleNamespace(wq=wq, wk=wk, wv=wv, wo=wo)
+    if mode == "decode":
+        o, _ = attn.attn_block_decode(pl, h, cfg, bdef, c, cache_index)
+    else:
+        positions = (torch.arange(S, device=xl.device) + (cache_index or 0)).expand(xl.shape[0], S)
+        o, _ = attn.attn_block_full(pl, h, cfg, bdef, positions, cache=c,
+                                    cache_index=cache_index, engine=engine)
+    return loc.out(o, bd)
+
+
+def _mla(bdef, p, x: DTensor, cfg, cache, mode) -> DTensor:
+    """ln1 + multi-head latent attention over this rank's heads (train
+    mode): the latent ``c_kv`` and the shared rope key are computed on
+    every rank from the replicated down-projections, the query, ``w_uk``,
+    ``w_uv`` and output projections split by heads; a partial sum over the
+    model axis."""
+    if cache is not None or mode == "decode":
+        raise NotImplementedError("a sharded MLA block with a cache (its latent is not split "
+                                  "by heads)")
+    mesh, rules = _ctx()
+    tp_axis, tp = _tp(mesh, rules)
+    B, S = x.shape[0], x.shape[1]
+    split = _split_over(tp_axis, cfg.n_heads, tp)
+    loc, baxes = _local(mesh, rules, B, tp_axis, split)
+    bd = {0: baxes} if baxes else {}
+    hd = {1: tp_axis} if split else {}
+    pa = p.attn
+    pl = SimpleNamespace(wq=loc.arg(pa.wq, hd), w_dkv=loc.arg(pa.w_dkv),
+                         kv_norm=loc.arg(pa.kv_norm), w_kr=loc.arg(pa.w_kr),
+                         w_uk=loc.arg(pa.w_uk, hd), w_uv=loc.arg(pa.w_uv, hd),
+                         wo=loc.arg(pa.wo, {0: tp_axis} if split else {}))
+    xl = loc.arg(x, bd)
+    h = rms_norm(xl, loc.arg(p.ln1), cfg.norm_eps)
+    positions = torch.arange(S, device=xl.device).expand(xl.shape[0], S)
+    local_cfg = dataclasses.replace(cfg, n_heads=pl.wq.shape[1])
+    o, _ = attn.mla_block_full(pl, h, local_cfg, bdef, positions)
+    return loc.out(o, bd)
+
+
+def _ffn(bdef, p, x: DTensor, cfg):
+    """ln2 + the FFN over this rank's width (or experts); returns ``(y, aux)``,
+    ``y`` a partial sum over the model axis."""
+    mesh, rules = _ctx()
+    tp_axis, tp = _tp(mesh, rules)
+    B = x.shape[0]
+    if bdef.ffn == "moe":
+        return _moe(p, x, cfg, mesh, rules, tp_axis, tp)
+    ff = bdef.d_ff or cfg.d_ff
+    split = _split_over(tp_axis, ff, tp)
+    loc, baxes = _local(mesh, rules, B, tp_axis, split)
+    bd = {0: baxes} if baxes else {}
+    xl = loc.arg(x, bd)
+    h = rms_norm(xl, loc.arg(p.ln2), cfg.norm_eps)
+    col, row = ({1: tp_axis}, {0: tp_axis}) if split else ({}, {})
+    w1, w2 = loc.arg(p.w1, col), loc.arg(p.w2, row)
+    dt = xl.dtype
+    if bdef.ffn == "gelu":
+        y = F.gelu(h @ w1.to(dt), approximate="tanh") @ w2.to(dt)
+    elif bdef.ffn == "geglu":
+        w3 = loc.arg(p.w3, col)
+        y = (F.gelu(h @ w1.to(dt), approximate="tanh") * (h @ w3.to(dt))) @ w2.to(dt)
+    else:
+        w3 = loc.arg(p.w3, col)
+        y = (F.silu(h @ w1.to(dt)) * (h @ w3.to(dt))) @ w2.to(dt)
+    return loc.out(y, bd), 0.0
+
+
+def _moe(p, x: DTensor, cfg, mesh, rules, tp_axis, tp):
+    """ln2 + a MoE FFN with this rank's experts (the einsum dispatch over
+    the whole batch's groups, only the local experts' buffers filled).
+
+    The Switch aux loss ``E * sum_e load_e * importance_e`` takes both
+    means over the whole batch: the first-choice counts are summed over
+    the batch axes (no gradient), and each rank returns its tokens' part of
+    the importance term, divided by the model axis's size because every
+    rank of it computes the same term — a partial sum over every splitting
+    dim, whose gradient is then the whole one."""
+    B, S, d = x.shape
+    E = cfg.moe_experts
+    pm = p.moe
+    split = _split_over(tp_axis, E, tp)
+    if cfg.moe_shared_d_ff and split and cfg.moe_shared_d_ff % tp:
+        raise NotImplementedError(f"shared experts of width {cfg.moe_shared_d_ff} over {tp} ranks")
+    loc, baxes = _local(mesh, rules, B, tp_axis, split)
+    if baxes and cfg.moe_dispatch == "sort":
+        raise NotImplementedError("the sort dispatch with the batch split (one capacity over "
+                                  "all tokens)")
+    bd = {0: baxes} if baxes else {}
+    xl = loc.arg(x, bd)
+    h = rms_norm(xl, loc.arg(p.ln2), cfg.norm_eps)
+    ex = {0: tp_axis} if split else {}
+    pl = SimpleNamespace(router=loc.arg(pm.router), w1=loc.arg(pm.w1, ex), w3=loc.arg(pm.w3, ex),
+                         w2=loc.arg(pm.w2, ex))
+    xt = h.reshape(-1, d)
+    T_all = B * S
+    probs, w, idx = route(pl, xt, cfg)
+    if cfg.moe_dispatch == "sort":  # the batch is whole here
+        if split:
+            raise NotImplementedError("the sort dispatch with experts over the model axis")
+        y = _moe_sort(pl, xt, w, idx, cfg)
+    else:
+        Sg = group_size(T_all, cfg)
+        if xt.shape[0] % Sg:
+            raise NotImplementedError(f"MoE groups of {Sg} tokens straddle the batch shards of "
+                                      f"{xt.shape[0]} tokens")
+        experts = None
+        if split:
+            lo = loc.coord(tp_axis) * (E // tp)
+            experts = (lo, lo + E // tp)
+        y = _moe_einsum(pl, xt, w, idx, cfg, experts=experts, group=Sg)
+    if cfg.moe_shared_d_ff:
+        col, row = ({1: tp_axis}, {0: tp_axis}) if split else ({}, {})
+        sw1, sw3, sw2 = loc.arg(pm.sw1, col), loc.arg(pm.sw3, col), loc.arg(pm.sw2, row)
+        y = y + (F.silu(xt @ sw1.to(xt.dtype)) * (xt @ sw3.to(xt.dtype))) @ sw2.to(xt.dtype)
+    counts = F.one_hot(idx[:, 0], E).to(torch.float32).sum(0)
+    for ax in baxes:
+        dist.all_reduce(counts, group=_group(mesh, ax))
+    load = counts / T_all
+    aux = E * torch.sum(load * (probs.sum(0) / T_all))
+    if split:
+        aux = aux / tp
+    return loc.out(y.reshape(xl.shape), bd), loc.out(aux)
+
+
+def _mamba2(p, x: DTensor, cfg, engine) -> DTensor:
+    """A mamba2 block over this rank's heads (train mode): the in-projection
+    and conv columns of the local heads and of the B / C groups they read,
+    the SSD kernel on the local heads, the gated RMS norm over all heads
+    (its sum of squares all-reduced over the model axis), the local rows
+    of the out-projection; a partial sum over the model axis."""
+    mesh, rules = _ctx()
+    tp_axis, tp = _tp(mesh, rules)
+    b, S, d = x.shape
+    di, H, G, N = m2._dims(cfg)
+    P = cfg.ssm_head_dim
+    split = _split_over(tp_axis, H, tp)
+    loc, baxes = _local(mesh, rules, b, tp_axis, split)
+    bd = {0: baxes} if baxes else {}
+    hd = {0: tp_axis} if split else {}
+    xl = loc.arg(x, bd)
+    w_in, conv_w, conv_b = loc.arg(p.w_in), loc.arg(p.conv_w), loc.arg(p.conv_b)
+    A_log, D, dt_bias = loc.arg(p.A_log, hd), loc.arg(p.D, hd), loc.arg(p.dt_bias, hd)
+    out_norm, w_out = loc.arg(p.out_norm, hd), loc.arg(p.w_out, hd)
+    rep = H // G
+    lo, hi = 0, H
+    if split:
+        lo = loc.coord(tp_axis) * (H // tp)
+        hi = lo + H // tp
+    Hl = hi - lo
+    if Hl % rep and rep % Hl:
+        raise NotImplementedError(f"{Hl} local heads straddle the B / C groups of {rep} heads")
+    g_lo, g_hi = lo // rep, (hi - 1) // rep + 1
+    dev = xl.device
+
+    def cols(*spans):
+        return torch.cat([torch.arange(a, z, device=dev) for a, z in spans])
+
+    gn = (g_lo * N, g_hi * N)
+    in_cols = cols((lo * P, hi * P), (di + lo * P, di + hi * P), (2 * di + gn[0], 2 * di + gn[1]),
+                   (2 * di + G * N + gn[0], 2 * di + G * N + gn[1]),
+                   (2 * di + 2 * G * N + lo, 2 * di + 2 * G * N + hi))
+    conv_cols = cols((lo * P, hi * P), (di + gn[0], di + gn[1]),
+                     (di + G * N + gn[0], di + G * N + gn[1]))
+    dl, gl = Hl * P, (g_hi - g_lo) * N
+    dtype = xl.dtype
+    xn = rms_norm(xl, loc.arg(p.norm), cfg.norm_eps)
+    proj = xn @ w_in[:, in_cols].to(dtype)
+    z, conv_in, dt_raw = proj[..., :dl], proj[..., dl:2 * dl + 2 * gl], proj[..., 2 * dl + 2 * gl:]
+    conved, _ = m2._causal_conv(conv_in, conv_w[:, conv_cols].to(dtype),
+                                conv_b[conv_cols].to(dtype))
+    bl = xl.shape[0]
+    xh = conved[..., :dl].reshape(bl, S, Hl, P)
+    Bm = conved[..., dl:dl + gl].reshape(bl, S, g_hi - g_lo, N)
+    Cm = conved[..., dl + gl:].reshape(bl, S, g_hi - g_lo, N)
+    dt = F.softplus(dt_raw.to(torch.float32) + dt_bias.to(torch.float32))
+    A = -torch.exp(A_log.to(torch.float32))
+    y, _ = m2.ssd_chunked(xh, dt, A, Bm, Cm, chunk=cfg.ssm_chunk, engine=engine)
+    y = y + xh.to(torch.float32) * D.to(torch.float32)[:, None]
+    y32 = y.reshape(bl, S, dl).to(dtype).to(torch.float32)
+    ss = torch.sum(y32 * y32, dim=-1, keepdim=True)
+    if split:
+        ss = _AllReduceSum.apply(ss, _group(mesh, tp_axis))
+    yn = y32 * torch.rsqrt(ss / di + cfg.norm_eps)
+    yf = (yn * (1.0 + out_norm.to(torch.float32))).to(dtype)
+    return loc.out((yf * F.silu(z)) @ w_out.to(dtype), bd)
+
+
+def apply_block(bdef, p, x: DTensor, cfg, cache, cache_index, mode, engine):
+    """``transformer.apply_block`` on shards: ``(x_out, cache, aux)``; the
+    cache's local shards are updated in place."""
+    check_engine(engine, x.device)
+    if bdef.kind == "mamba2":
+        if cache is not None or mode == "decode":
+            raise NotImplementedError("a sharded mamba2 block with a cache")
+        return x + _mamba2(p, x, cfg, engine).redistribute(x.device_mesh, x.placements), cache, 0.0
+    if bdef.kind == "mla":
+        o = _mla(bdef, p, x, cfg, cache, mode)
+    elif bdef.kind == "attn":
+        o = _attn(bdef, p, x, cfg, cache, cache_index, mode, engine)
+    else:
+        raise NotImplementedError(f"a sharded {bdef.kind} block")
+    o = o.redistribute(x.device_mesh, x.placements)
+    if bdef.post_norms:
+        o = rms_norm_rows(o, p.pn1, cfg.norm_eps)
+    x = x + o
+    if bdef.ffn == "none":
+        return x, cache, 0.0
+    y, aux = _ffn(bdef, p, x, cfg)
+    y = y.redistribute(x.device_mesh, x.placements)
+    if bdef.post_norms:
+        y = rms_norm_rows(y, p.pn2, cfg.norm_eps)
+    return x + y, cache, aux
+
+
+# -- vocab-parallel cross-entropy -------------------------------------------------------------
+
+
+class _VocabParallelCE(torch.autograd.Function):
+    """Per-token NLL over a vocabulary split across ``group``: each rank runs
+    the cross-entropy kernel on its shard of ``W`` (labels outside the
+    shard mapped to -1: no label logit there); the global logsumexp is a
+    max / sum-exp all-reduce of the shards' ``lse``, and the label logit
+    ``lse_s - nll_s`` comes from the shard that holds the label (the others
+    contribute exact zeros).  The backward is the kernel's written-out
+    backward with the global ``lse``: ``dW`` for the local shard, ``dx`` a
+    partial sum over the shards."""
+
+    @staticmethod
+    def forward(ctx, x, w, labels, softcap, group, plain):
+        fwd = crossentropy_lse_ref if plain else crossentropy_forward
+        nll_s, lse_s = fwd(x, w, labels, softcap)
+        if group is None:
+            nll, lse = nll_s, lse_s
+        else:
+            m = lse_s.clone()
+            dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+            se = torch.exp(lse_s - m)
+            dist.all_reduce(se, group=group)
+            lse = m + torch.log(se)
+            picked = lse_s - nll_s
+            dist.all_reduce(picked, group=group)
+            nll = lse - picked
+        ctx.save_for_backward(x, w, labels, lse)
+        ctx.softcap = softcap
+        return nll
+
+    @staticmethod
+    def backward(ctx, grad_nll):
+        x, w, labels, lse = ctx.saved_tensors
+        dx, dw = crossentropy_backward(x, w, labels, lse, grad_nll, ctx.softcap)
+        return dx, dw, None, None, None, None
+
+
+def cross_entropy(x: DTensor, w_out: DTensor, labels: DTensor, *, final_softcap=None,
+                  mask=None, engine: str = "auto") -> DTensor:
+    """``layers.cross_entropy_chunked`` under an active mesh: the mean
+    token NLL with the vocabulary split over the model axis
+    (:class:`_VocabParallelCE`); a partial sum over the batch axes."""
+    mesh, rules = _ctx()
+    check_engine(engine, x.device)
+    B, S, D = x.shape
+    V = w_out.shape[1]
+    tp_axis, tp = _tp(mesh, rules)
+    split = _split_over(tp_axis, V, tp)
+    loc, baxes = _local(mesh, rules, B, tp_axis, split)
+    bd = {0: baxes} if baxes else {}
+    xl = loc.arg(x, bd).reshape(-1, D)
+    wl = loc.arg(w_out, {1: tp_axis} if split else {})
+    lab = loc.arg(labels, bd).reshape(-1).long()
+    if split:
+        lo = loc.coord(tp_axis) * wl.shape[1]
+        lab = lab - lo
+        lab = torch.where((lab >= 0) & (lab < wl.shape[1]), lab, torch.full_like(lab, -1))
+    group = _group(mesh, tp_axis) if split else None
+    nll = _VocabParallelCE.apply(xl, wl, lab, float(final_softcap or 0.0), group,
+                                 engine == "torch")
+    if mask is None:
+        loss = nll.sum() / max(B * S, 1)
+    else:  # a plain [B, S] mask, the same on every rank: this shard's rows of it
+        m = local_shard(mask, mesh, loc.placements(bd)).reshape(-1).to(torch.float32)
+        loss = (nll * m).sum() / torch.clamp(mask.to(torch.float32).sum(), min=1.0)
+    return loc.out(loss, reduced=(tp_axis,) if split else ())

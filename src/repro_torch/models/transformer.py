@@ -49,16 +49,24 @@ from .layers import (
     rms_norm,
     softcap,
     spec_leaves,
+    spec_logical,
     spec_map,
+    spec_shapes,
     swiglu,
 )
+from . import tensor_parallel
 from .moe import moe_ffn, moe_specs
+from .sharding import active, constrain, wrap_with_sharding_ctx
 
 __all__ = [
     "Transformer",
     "param_specs",
     "block_specs",
     "init_model_params",
+    "abstract_params",
+    "params_logical",
+    "named_params_logical",
+    "cache_logical",
     "count_params",
     "count_active_params",
     "state_items",
@@ -71,6 +79,9 @@ __all__ = [
 ]
 
 MODES = ("train", "prefill", "decode")
+#: the residual stream's logical axes: the anchor after the embedding and at
+#: the top of each stacked superblock (sequence parallelism under TRAIN_RULES)
+_RESIDUAL = ("batch", "seq", None)
 #: blocks that norm their own input and add ``x + out``: (train / prefill, decode)
 _RECURRENT_BLOCKS = {
     "mamba2": (m2.mamba2_block_full, m2.mamba2_block_decode),
@@ -149,6 +160,32 @@ def param_specs(cfg: ModelConfig) -> dict:
         else:
             tree["out"] = Spec((d, V), ("embed", "vocab"), std=1.0 / math.sqrt(d))
     return tree
+
+
+def abstract_params(cfg: ModelConfig) -> dict:
+    """The reference's parameter tree as meta-device tensors in
+    ``cfg.param_dtype`` (stacked leaves with their layer axis)."""
+    return spec_shapes(param_specs(cfg), _dt(cfg.param_dtype))
+
+
+def params_logical(cfg: ModelConfig) -> dict:
+    """The reference's tree of logical axes (stacked leaves lead with
+    ``"layers"``)."""
+    return spec_logical(param_specs(cfg))
+
+
+def named_params_logical(cfg: ModelConfig) -> dict:
+    """``{model parameter name: logical axes}``: layer ``l`` of a stacked
+    leaf (``stack.<l>.<rest>``) drops the leading ``"layers"`` axis."""
+    out = {}
+    for path, s in spec_leaves(param_specs(cfg)):
+        if path[0] == "stack":
+            rest = ".".join(path[1:])
+            for layer in range(cfg.n_superblocks):
+                out[f"stack.{layer}.{rest}"] = s.logical[1:]
+        else:
+            out[".".join(path)] = s.logical
+    return out
 
 
 def count_params(cfg: ModelConfig) -> int:
@@ -292,7 +329,10 @@ def apply_block(bdef: BlockDef, p, x, cfg, positions, cache, cache_index, mode, 
     """Returns (x_out, cache, aux_loss); the cache is updated in place.  A
     mamba2, mLSTM or sLSTM block norms its input itself (no ``ln1``) and has
     no FFN, as in the reference; ``aux_loss`` is a MoE FFN's load-balance
-    loss (0.0 for any other block)."""
+    loss (0.0 for any other block).  Under an active mesh the block runs on
+    local shards (``tensor_parallel.apply_block``)."""
+    if active() is not None:
+        return tensor_parallel.apply_block(bdef, p, x, cfg, cache, cache_index, mode, engine)
     if bdef.kind in _RECURRENT_BLOCKS:
         full, decode = _RECURRENT_BLOCKS[bdef.kind]
         if mode == "decode":
@@ -357,10 +397,44 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int, dtype=torch.bfloat16
     return cache
 
 
+_CACHE_LOGICAL = {
+    "k": ("batch", "kv_seq", "kv_heads", "head_dim"),
+    "v": ("batch", "kv_seq", "kv_heads", "head_dim"),
+    "c_kv": ("batch", "kv_seq", "kv_lora"),
+    "k_rope": ("batch", "kv_seq", "head_dim"),
+    "C": ("batch", "heads", "head_dim", None),
+    "n": ("batch", "heads", "head_dim"),
+    "m": ("batch", "heads"),
+    "c": ("batch", "heads", "head_dim"),
+    "h": ("batch", "heads", "head_dim"),
+    "conv": ("batch", None, "mlp"),
+    "state": ("batch", "heads", "head_dim", "state"),
+}
+
+
+def cache_logical(cache, path: tuple = ()) -> dict:
+    """Logical axes for every cache leaf (a cache of tensors, meta ones
+    included): the leaf's key picks the base axes, trimmed or extended with
+    ``None`` to the leaf's rank (an sLSTM ``m`` / ``n`` has 3 dims, an mLSTM
+    ``m`` 2); leaves under ``stack`` gain a leading ``"layers"``."""
+    if isinstance(cache, dict):
+        return {key: cache_logical(sub, (*path, key)) for key, sub in cache.items()}
+    base = _CACHE_LOGICAL[path[-1]]
+    in_stack = "stack" in path
+    rank = cache.dim() - (1 if in_stack else 0)
+    if len(base) > rank:
+        base = base[:rank]
+    elif len(base) < rank:
+        base = base + (None,) * (rank - len(base))
+    return (("layers",) + base) if in_stack else base
+
+
 # -- embeddings & head --------------------------------------------------------------------------
 
 
 def embed_tokens(model: Transformer, cfg: ModelConfig, batch: dict, compute_dtype):
+    if active() is not None:
+        return tensor_parallel.embed_tokens(model, cfg, batch, compute_dtype)
     emb = model.embed
     if cfg.modality == "audio":
         # batch["tokens"]: [B, K, S] -> sum of per-codebook embeddings
@@ -394,6 +468,7 @@ def _superblock(model: Transformer, layer: int, x, positions, engine):
     ``(x, aux)``."""
     cfg = model.cfg
     aux = 0.0
+    x = constrain(x, _RESIDUAL)
     for i in range(len(cfg.superblock)):
         bdef, p = model.stack_block(layer, i)
         x, _, a = apply_block(bdef, p, x, cfg, positions, None, 0, "train", engine)
@@ -417,7 +492,13 @@ def forward(model: Transformer, batch: dict, cache=None, cache_index: int = 0, m
     (``torch.utils.checkpoint``, the twin of the reference's
     ``jax.checkpoint`` around its scan body).  Both of the reference's remat
     policies recompute the whole superblock here: remat changes the memory,
-    never the numbers."""
+    never the numbers.
+
+    Under an active mesh (``sharding.activation_sharding``) the parameters,
+    the batch and the cache are DTensors: the residual stream is anchored
+    to ``("batch", "seq", None)`` after the embedding and at the top of each
+    stacked superblock, and every block runs on local shards
+    (``models/tensor_parallel.py``)."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     if mode != "train" and cache is None:
@@ -425,19 +506,26 @@ def forward(model: Transformer, batch: dict, cache=None, cache_index: int = 0, m
     cfg = model.cfg
     compute = _dt(cfg.compute_dtype)
     x = embed_tokens(model, cfg, batch, compute)
+    x = constrain(x, _RESIDUAL)
     B, S = x.shape[:2]
     positions = None
     if mode != "decode":
         positions = (torch.arange(S, device=x.device) + cache_index).expand(B, S)
     remat = mode == "train" and cfg.remat != "none" and torch.is_grad_enabled()
+    superblock = _superblock
+    if remat and active() is not None:
+        # the recomputation may run on the autograd engine's thread: carry the mesh there
+        superblock = wrap_with_sharding_ctx(_superblock, *active())
     aux_total = 0.0
     for seg, pos, layer, bdef, p in model.blocks():
         if remat and seg == "stack":
             if pos == "0":  # one checkpoint per superblock, as the reference's scan body
-                x, aux = checkpoint(_superblock, model, layer, x, positions, engine,
+                x, aux = checkpoint(superblock, model, layer, x, positions, engine,
                                     use_reentrant=False)
                 aux_total += aux
             continue
+        if seg == "stack" and pos == "0":
+            x = constrain(x, _RESIDUAL)
         c = None
         if cache is not None:
             c = cache[seg][pos]
@@ -445,7 +533,10 @@ def forward(model: Transformer, batch: dict, cache=None, cache_index: int = 0, m
                 c = {key: t[layer] for key, t in c.items()}
         x, _, aux = apply_block(bdef, p, x, cfg, positions, c, cache_index, mode, engine)
         aux_total += aux
-    x = rms_norm(x, model.final_norm, cfg.norm_eps)
+    if active() is not None:
+        x = tensor_parallel.rms_norm_rows(x, model.final_norm, cfg.norm_eps)
+    else:
+        x = rms_norm(x, model.final_norm, cfg.norm_eps)
     return x, cache, aux_total
 
 

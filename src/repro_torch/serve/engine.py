@@ -17,6 +17,7 @@ import torch
 from ..kernels import ops
 from ..models import ModelConfig, Transformer, forward, init_cache, logits_from_hidden
 from ..models.attention import ATTN_ENGINES
+from ..models.sharding import active
 
 __all__ = ["make_prefill_step", "make_decode_step", "Engine", "Request", "sample_token"]
 
@@ -29,25 +30,31 @@ def make_prefill_step(cfg: ModelConfig, engine: str = "auto") -> Callable:
     """(model, batch, cache) -> (last_logits, cache).  The tokens' length
     fills cache[0:S]; ``engine`` picks the attention, the SSD scan and the
     sLSTM scan (``"cuda"`` kernels, ``"torch"`` plain versions, ``"auto"`` by device).  Runs under
-    ``torch.inference_mode``: serving builds no autograd graph."""
+    ``torch.inference_mode``: serving builds no autograd graph (under an
+    active mesh ``torch.no_grad``: the DTensor cache's views need version
+    counters)."""
 
-    @torch.inference_mode()
     def prefill(model, batch, cache):
-        x, cache, _ = forward(model, batch, cache=cache, cache_index=0, mode="prefill",
-                              engine=engine)
-        return logits_from_hidden(model, x[:, -1:]), cache
+        with _no_graph():
+            x, cache, _ = forward(model, batch, cache=cache, cache_index=0, mode="prefill",
+                                  engine=engine)
+            return logits_from_hidden(model, x[:, -1:]), cache
 
     return prefill
+
+
+def _no_graph():
+    return torch.no_grad() if active() is not None else torch.inference_mode()
 
 
 def make_decode_step(cfg: ModelConfig) -> Callable:
     """(model, tokens [B,1] (or [B,K,1] audio), cache, index) -> (logits, cache)."""
 
-    @torch.inference_mode()
     def decode(model, tokens, cache, index):
-        x, cache, _ = forward(model, {"tokens": tokens}, cache=cache, cache_index=index,
-                              mode="decode")
-        return logits_from_hidden(model, x), cache
+        with _no_graph():
+            x, cache, _ = forward(model, {"tokens": tokens}, cache=cache, cache_index=index,
+                                  mode="decode")
+            return logits_from_hidden(model, x), cache
 
     return decode
 

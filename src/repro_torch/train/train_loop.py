@@ -5,31 +5,57 @@ cross-entropy loss (``models.loss_fn``, through the fused cross-entropy,
 flash-attention and SSD kernels and their written-out backwards), optional
 microbatch accumulation, the optimizer update in place.
 
+The same step runs sharded (``launch.specs.build_step``): under an active
+mesh the parameters, the optimizer state and the batch are DTensors, the
+model's blocks run on local shards (``models/tensor_parallel.py``), the
+loss is replicated before the backward pass, and each gradient is
+redistributed to its parameter's placements before the update.
+``make_sharded_init`` creates the parameters and the optimizer state
+already sharded.
+
 ``Trainer`` adds the production concerns: init on a device from a seeded
 ``torch.Generator``, checkpoint/restart (auto-resume from the latest step),
 deterministic data skip on resume, eval hooks that feed the HPO pruner, and
-graceful preemption (SIGTERM -> final checkpoint).  It runs on one device;
-sharded init and meshes belong to the multi-GPU slice of the port.
+graceful preemption (SIGTERM -> final checkpoint).  It runs on one device.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import signal
 from typing import Callable
 
 import torch
+from torch.distributed.tensor import DTensor, Shard
 
 from ..kernels import ops
-from ..models import ModelConfig, Transformer, init_model_params, loss_fn
+from ..models import (
+    ModelConfig,
+    Transformer,
+    abstract_params,
+    init_model_params,
+    loss_fn,
+    named_params_logical,
+    params_logical,
+)
+from ..models.layers import init_tensor, spec_leaves
+from ..models.sharding import (
+    ShardingRules,
+    axis_sizes,
+    dim_names,
+    distribute,
+    sharded_zeros,
+    spec_to_placements,
+    tree_shardings,
+)
 from ..models.transfer import load_params_tree, params_tree
+from ..models.transformer import param_specs, state_items
 from .checkpoint import CheckpointManager
 from .optimizer import Optimizer, make_optimizer, warmup_cosine
 
 __all__ = ["TrainConfig", "make_train_step", "make_optimizer_for", "Trainer",
            "make_sharded_init"]
-
-_MULTI_GPU = "the multi-GPU slice of the port"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,7 +91,12 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, microbatch: int = 0) -> Ca
 
     def grads_of(model, names, leaves, batch):
         loss, metrics = loss_fn(model, batch)
+        if isinstance(loss, DTensor):  # sharded: a partial sum over the batch axes
+            loss = loss.full_tensor()
+            metrics = {k: v.full_tensor() if isinstance(v, DTensor) else v
+                       for k, v in metrics.items()}
         grads = torch.autograd.grad(loss, leaves)
+        grads = [_placed_like(g, p) for g, p in zip(grads, leaves)]
         return loss.detach(), metrics, dict(zip(names, grads))
 
     def step(model: Transformer, opt_state, step_no: int, batch: dict):
@@ -76,11 +107,9 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, microbatch: int = 0) -> Ca
         if microbatch and microbatch > 1:
             # grad accumulation over microbatch slices of the batch dim
             loss_sum = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
-            grad_sum = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                        for n, p in named.items()}
+            grad_sum = {n: torch.zeros_like(p, dtype=torch.float32) for n, p in named.items()}
             for i in range(microbatch):
-                part = {k: v[i * (v.shape[0] // microbatch):(i + 1) * (v.shape[0] // microbatch)]
-                        for k, v in batch.items()}
+                part = {k: _rows(v, i, microbatch) for k, v in batch.items()}
                 loss, _, grads = grads_of(model, names, leaves, part)
                 loss_sum += loss
                 for n, g in grads.items():
@@ -98,15 +127,143 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, microbatch: int = 0) -> Ca
     return step
 
 
-def make_sharded_init(*args, **kwargs):
-    raise NotImplementedError(f"sharded init belongs to {_MULTI_GPU}")
+def _placed_like(g, p):
+    """A DTensor gradient redistributed to its parameter's placements."""
+    if isinstance(g, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def _rows(v, i: int, m: int):
+    """Microbatch ``i`` of ``m`` along the batch dim.  A DTensor batch is
+    sliced on each rank's shard: microbatch ``i`` holds the ``i``-th slice
+    of every data shard (the same rows in all, grouped otherwise than the
+    unsharded step's contiguous slices)."""
+    if isinstance(v, DTensor):
+        local = v.to_local()
+        b = local.shape[0] // m
+        return DTensor.from_local(local[i * b:(i + 1) * b], v.device_mesh, v.placements,
+                                  run_check=False)
+    b = v.shape[0] // m
+    return v[i * b:(i + 1) * b]
+
+
+def _meta_params(cfg: ModelConfig) -> dict:
+    return dict(Transformer(cfg, device="meta").named_parameters())
+
+
+def make_sharded_init(cfg: ModelConfig, opt: Optimizer, mesh, rules: ShardingRules):
+    """Init with every tensor born sharded.  Returns ``(init, p_sh, o_sh)``:
+    ``p_sh`` the placements of each model parameter (``{name:
+    placements}``), ``o_sh`` the optimizer state's (the state's tree), and
+    ``init(generator) -> (model, opt_state)``.
+
+    ``init`` draws each leaf of the reference's parameter tree in turn from
+    ``generator`` (on every rank the same seed), as ``init_model_params``
+    draws them, keeps this rank's shard of it on the mesh's device and drops
+    the rest before the next leaf: no rank ever holds the whole model, and
+    gathered the parameters are bit for bit ``init_model_params`` with the
+    same seed.  A stacked leaf is drawn whole (its layers are one draw, as
+    in ``init_model_params``), so the largest leaf must fit one device:
+    qwen3-moe-235b's stacked expert weights (about 300 GB in float32) do
+    not.  The optimizer state is zeros (every state leaf of the port's
+    optimizers starts at zero), each rank allocating its shard."""
+    p_sh = tree_shardings(_meta_params(cfg), named_params_logical(cfg), mesh, rules)
+    tree_sh = tree_shardings(abstract_params(cfg), params_logical(cfg), mesh, rules)
+    opt_abs = opt.init(_meta_params(cfg))
+    o_sh = _opt_shardings(opt_abs, tree_sh, mesh)
+
+    def init(generator: torch.Generator):
+        model = Transformer(cfg, device="meta")
+        for path, s in spec_leaves(param_specs(cfg)):
+            value = init_tensor(s, generator, generator.device)
+            for name, part in state_items(path, value):
+                owner, _, leaf = name.rpartition(".")
+                module = model.get_submodule(owner) if owner else model
+                setattr(module, leaf, torch.nn.Parameter(distribute(part, mesh, p_sh[name]),
+                                                         requires_grad=False))
+            del value
+        state = _map_tree(lambda a, pl: sharded_zeros(a.shape, a.dtype, mesh, pl), opt_abs, o_sh)
+        return model, state
+
+    return init, p_sh, o_sh
+
+
+def _map_tree(fn, tree, other):
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v, other[k]) for k, v in tree.items()}
+    return fn(tree, other)
+
+
+def _placements_spec(placements: tuple, names: tuple, ndim: int) -> list:
+    """The reference's spec (as a list of length ``ndim``) of placements."""
+    spec: list = [None] * ndim
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard):
+            d = p.dim
+            spec[d] = names[i] if spec[d] is None else (
+                (*spec[d], names[i]) if isinstance(spec[d], tuple) else (spec[d], names[i]))
+    return spec
+
+
+def _opt_shardings(opt_abs, param_shardings, mesh):
+    """Optimizer state placements: inherit from the matching parameter
+    (the state path's suffix is the parameter's path in the reference's
+    tree) where shapes coincide (adam m/v); adafactor's factored vr/vc
+    inherit the param spec minus the reduced axis (so expert/vocab shards
+    stay sharded), dropping axes that no longer divide; anything else is
+    replicated.  ``param_shardings`` is the reference-shaped tree of
+    parameter placements; ``mesh`` a ``DeviceMesh`` or ``{axis: size}``."""
+    names = dim_names(mesh)
+    sizes = axis_sizes(mesh)
+    flat_p = dict(_flat(param_shardings))
+
+    def param_spec_for(keys):
+        for start in range(len(keys)):
+            if keys[start:] in flat_p:
+                return flat_p[keys[start:]]
+        return None
+
+    def one(keys, leaf):
+        hit = param_spec_for(keys)
+        if hit is not None:
+            return hit
+        if keys and keys[-1] in ("vr", "vc"):
+            hit = param_spec_for(keys[:-1])
+            if hit is not None:
+                spec = _placements_spec(hit, names, leaf.dim() + 1)
+                del spec[-1 if keys[-1] == "vr" else -2]
+                clean = []
+                for dim, ax in zip(leaf.shape, spec):
+                    axes = (ax,) if isinstance(ax, str) else (ax or ())
+                    size = math.prod(sizes[a] for a in axes)
+                    clean.append(ax if dim % max(size, 1) == 0 else None)
+                return spec_to_placements(tuple(clean), mesh)
+        return spec_to_placements((), mesh)
+
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            return {k: walk(v, (*path, k)) for k, v in tree.items()}
+        return one(path, tree)
+
+    return walk(opt_abs, ())
+
+
+def _flat(tree, path=()):
+    if isinstance(tree, dict):
+        for key, sub in tree.items():
+            yield from _flat(sub, (*path, key))
+    else:
+        yield path, tree
 
 
 class Trainer:
     """Host-side loop with checkpoint/restart and pruner hooks, on one device.
 
     ``device=None`` means the card; without one the trainer raises unless the
-    caller passes ``device="cpu"``."""
+    caller passes ``device="cpu"``.  ``mesh`` and ``rules`` are stored and not
+    read, as in the reference, whose ``run()`` trains unsharded too: a
+    sharded step is ``launch.specs.build_step``'s."""
 
     def __init__(
         self,
@@ -119,12 +276,12 @@ class Trainer:
         report_fn: Callable[[int, float], bool] | None = None,
         device=None,
     ):
-        if mesh is not None or rules is not None:
-            raise NotImplementedError(f"meshes and sharding rules belong to {_MULTI_GPU}")
         self.cfg = cfg
         self.tcfg = tcfg
         self.data = data_iter
         self.workdir = workdir
+        self.mesh = mesh
+        self.rules = rules
         self.report_fn = report_fn  # returns True if the trial should stop (pruned)
         self.opt = make_optimizer_for(cfg, tcfg)
         self._step_fn = make_train_step(cfg, self.opt, tcfg.microbatch)

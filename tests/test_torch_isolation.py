@@ -164,7 +164,9 @@ def _broad_handlers(path: Path):
      "launch/serve.py", "kernels/crossentropy.py", "models/layers.py", "train/optimizer.py",
      "train/data.py", "train/checkpoint.py", "train/train_loop.py", "launch/train.py",
      "tune/objective.py", "kernels/ssd.py", "models/mamba2.py", "kernels/slstm.py",
-     "models/ssm_xlstm.py", "models/moe.py", "core/distributed.py"],
+     "models/ssm_xlstm.py", "models/moe.py", "core/distributed.py", "models/sharding.py",
+     "models/tensor_parallel.py", "launch/mesh.py", "launch/specs.py", "train/compression.py",
+     "train/pipeline_parallel.py"],
 )
 def test_sampling_path_has_no_broad_except(rel):
     assert list(_broad_handlers(PORT / rel)) == []
@@ -435,5 +437,7 @@ def test_default_trainer_and_train_launcher_need_cuda_or_an_explicit_cpu(no_cuda
         make_lm_objective(spec)(hpo.FixedTrial({"family": "dense", "n_layers": 1, "width_exp": 5,
                                                "n_heads": 2, "ff_mult": 1, "window": -1,
                                                "lr": 1e-3, "warmup": 0, "weight_decay": 0.01}))
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        Trainer(cfg, TrainConfig(total_steps=1), data, device="cpu", mesh=object())
+    # the reference stores a mesh and rules and trains unsharded; so does the port
+    mesh, rules = object(), object()
+    trainer = Trainer(cfg, TrainConfig(total_steps=1), data, device="cpu", mesh=mesh, rules=rules)
+    assert trainer.mesh is mesh and trainer.rules is rules
