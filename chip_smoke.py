@@ -253,6 +253,25 @@ Phases, each of which fails the run by raising:
     sequential composition.  Prints the sharded and unsharded step times
     (3 more steps each after the checked ones), each rank's resident bytes
     and step peak.
+32. the launch analysis tooling: (a) phase 31's model (tinyllama-1.1b at
+    full width, 2 layers) in bf16, a 4 x 512 train step and a prefill
+    through ``build_step`` on a (1, 1) mesh, counted by
+    ``launch.op_analysis.analyze_step`` once on real CUDA tensors (a world
+    of one NCCL rank: the kernels launch through their custom ops) and once
+    on fake CUDA tensors (a world of one fake rank: nothing runs): equal
+    FLOPs, bytes and per-op counts, each kernel op's count equal to its
+    wrapper's launch count, the fake train step's peak memory
+    (``MemTracker``) within 10% of the real step's
+    ``max_memory_allocated``; the measured step seconds beside the three
+    roofline terms, and the flash and cross-entropy kernels' share of the
+    bound their registered formulas give at the step's shapes; (d) what the
+    op dispatch costs a call (the op against its own function, in turns) at
+    the score table's Parzen shape and tinyllama's prefill flash shape; (b)
+    ``launch.dryrun.run_cell("smollm-135m", "decode_32k", multi_pod=True)``
+    on 512 fake ranks and fake CUDA tensors (the reference's dry-run cell:
+    512 chips, under 80 GB a card, FLOPs counted); (c) tinyllama-1.1b's
+    ``train_4k`` cell at full width cut to 6 layers on the 256-rank
+    single-pod world, its flash and cross-entropy op counts and FLOP shares.
 
 Each phase's wall seconds are printed after it and in a line before the
 total.
@@ -269,6 +288,7 @@ import contextlib
 import dataclasses
 import hashlib
 import json
+import logging
 import math
 import re
 import os
@@ -4358,6 +4378,257 @@ def phase_sharded() -> dict:
     return res
 
 
+#: phase 32(a): phase 31's model and step (tinyllama-1.1b at full width, 2 layers, 4 x 512)
+#: in bf16, counted on real and on fake CUDA tensors; the fake step's peak
+#: memory within this share of the real step's ``max_memory_allocated``
+OPS_PEAK_RTOL = 0.10
+#: phase 32(c): tinyllama-1.1b's train_4k cell on the single-pod fake world,
+#: depth cut to this many layers (full width) to keep the phase inside 60 s
+OPS_DRYRUN_LAYERS = 6
+#: phase 32(d): calls a dispatch-cost timing averages
+OPS_DISPATCH_REPS = 200
+
+
+def _zeros_tree(tree, device):
+    """``tree``'s meta tensors as zeros on ``device`` (fake ones under a
+    ``FakeTensorMode``)."""
+    if isinstance(tree, dict):
+        return {k: _zeros_tree(v, device) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return torch.zeros(tree.shape, dtype=tree.dtype, device=device)
+    return tree
+
+
+def _count_cells(cfg, batch: dict, fake: bool) -> dict:
+    """``op_analysis.analyze_step`` of the train and prefill cells of
+    ``build_step`` on a (1, 1) mesh, on real CUDA tensors (a world of one
+    NCCL rank: the kernels launch, their counts and the step's peak memory
+    are read, the steps timed without the analysis) or on fake ones (a
+    world of one fake rank: nothing runs on the card)."""
+    import torch.distributed as dist
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.kernels import crossentropy as ce
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.dryrun import fake_world
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.op_analysis import analyze_step
+    from repro_torch.launch.specs import build_step
+    from repro_torch.models import Transformer, init_cache, init_model_params
+
+    B, S = batch["tokens"].shape
+    out: dict = {}
+    with contextlib.ExitStack() as stack:
+        if fake:
+            stack.enter_context(fake_world(1))
+        else:
+            tmp = stack.enter_context(_tempdir())
+            dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                    rank=0, world_size=1)
+            stack.callback(dist.destroy_process_group)
+        mesh = make_host_mesh((1, 1), ("data", "model"), device_type="cuda")
+        for name in ("train", "prefill"):
+            cell = build_step(cfg, "train_4k" if name == "train" else "prefill_32k", mesh)
+            with contextlib.ExitStack() as inner:
+                if fake:
+                    inner.enter_context(FakeTensorMode())
+                    model = Transformer(cfg, device="cuda")
+                    data = {k: torch.empty(v.shape, dtype=v.dtype, device="cuda")
+                            for k, v in batch.items()}
+                else:
+                    torch.cuda.empty_cache()
+                    other = torch.cuda.memory_allocated()
+                    model = init_model_params(cfg, torch.Generator(device="cuda").manual_seed(32),
+                                              "cuda")
+                    data = batch
+                if name == "train":
+                    args = cell.shard(model, _zeros_tree(cell.args[1], "cuda"), 0, data)
+                else:
+                    args = cell.shard(model, {"tokens": data["tokens"]},
+                                      init_cache(cfg, B, S, torch.bfloat16, device="cuda"))
+                if not fake:
+                    fa.reset_launches()
+                    ce.reset_launches()
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                stats = analyze_step(cell.step, *args, mesh=mesh)
+                row = {"stats": stats.asdict()}
+                if not fake:
+                    torch.cuda.synchronize()
+                    row["real_peak"] = torch.cuda.max_memory_allocated() - other
+                    row["launches"] = {"flash_attention": fa.launches(),
+                                       "crossentropy": ce.launches()}
+                    if name == "train":  # two more steps, the last one timed
+                        _synced(lambda: cell.step(args[0], args[1], 1, args[3]))
+                        row["step_s"] = _synced(lambda: cell.step(args[0], args[1], 2, args[3]))[1]
+                    else:
+                        row["step_s"] = _synced(lambda: cell.step(*args))[1]
+                out[name] = row
+                del args, model
+    return out
+
+
+@contextlib.contextmanager
+def _tempdir():
+    import shutil
+    import tempfile
+
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="phase32-", dir=build)
+    try:
+        yield tmp
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _kernel_bound_ms(op: dict, dtype_peak: float) -> float:
+    """A kernel op's least time a call from its registered FLOPs and its
+    bytes (inputs read once, outputs written once)."""
+    n = op["count"]
+    return 1e3 * max(op["flops"] / n / dtype_peak, op["bytes"] / n / HBM_BYTES_PER_S)
+
+
+def _dispatch_costs() -> dict:
+    """Milliseconds a call through the wrapper (as the main path calls it:
+    its checks, then the op), through the kernel's op, and through the op's
+    own function (the launch without the dispatcher), in turns in one
+    process, at the score table's Parzen shape (C 4096 against 26 / 4072
+    components) and tinyllama's prefill flash shape (B 8, S 2048, 32 / 4
+    heads of 64, bf16)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import parzen
+
+    rng = np.random.RandomState(32)
+    cands = torch.tensor(rng.uniform(-3, 3, 4096), dtype=torch.float32, device="cuda")
+    comps = [torch.tensor(a, dtype=torch.float32, device="cuda")
+             for k in MAIN_PATH_COMPONENTS[1] for a in synthetic_mixture(rng, k, 0)]
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    q, k, v = flash_inputs(gen, 8, 32, 4, 2048, 2048, 64, torch.bfloat16, True, qk_scale=3.0)
+    kv_len = k.shape[2]
+    out = {}
+    flash_args = (q, k, v, True, -1, 0.0, 0, kv_len)
+    for name, wrapper, op, raw in (
+            ("parzen_score", lambda: parzen.parzen_score(cands, *comps),
+             lambda: parzen._parzen_op(cands, *comps),
+             lambda: parzen._parzen_op._init_fn(cands, *comps)),
+            ("flash_attention", lambda: fa.flash_attention(q, k, v),
+             lambda: fa._flash_op(*flash_args), lambda: fa._flash_op._init_fn(*flash_args))):
+        # in turns: raw, op, wrapper, wrapper, op, raw
+        times = [time_ms(fn, OPS_DISPATCH_REPS) for fn in (raw, op, wrapper, wrapper, op, raw)]
+        out[name] = {"wrapper_ms": (times[2] + times[3]) / 2, "op_ms": (times[1] + times[4]) / 2,
+                     "raw_ms": (times[0] + times[5]) / 2, "runs_ms": times}
+        out[name]["dispatch_ms"] = out[name]["op_ms"] - out[name]["raw_ms"]
+    return out
+
+
+def phase_op_analysis() -> dict:
+    """Phase 32: the launch analysis tooling (``launch/op_analysis.py``,
+    ``launch/dryrun.py``, ``launch/roofline.py``) on the card's build."""
+    from repro_torch import configs
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.op_analysis import kernel_ops
+    from repro_torch.launch.roofline import HBM_BW, HBM_BYTES, PEAK_FLOPS, collective_seconds
+    from repro_torch.train import SyntheticLM
+
+    # DTensor warns at every redistribution it splits into one collective a mesh dim
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(logging.ERROR)
+    full = configs.get_config("tinyllama-1.1b")
+    cfg = dataclasses.replace(full, n_layers=SHARDED_LAYERS, n_superblocks=SHARDED_LAYERS)
+    print(f"phase 32: (a) tinyllama-1.1b at full width cut to {SHARDED_LAYERS} layers, a "
+          f"{SHARDED_B} x {SHARDED_S} bf16 train step and a prefill through build_step on a "
+          f"(1, 1) mesh, counted by op_analysis.analyze_step on real CUDA tensors (1 NCCL rank) "
+          f"and on fake ones (1 fake rank); {nvidia_smi('name,power.limit')}")
+    data = SyntheticLM(cfg, SHARDED_B, SHARDED_S, seed=32)
+    batch = {k: v.cuda() for k, v in data.batch_at(0).items()}
+    real = _count_cells(cfg, batch, fake=False)
+    fake = _count_cells(cfg, batch, fake=True)
+    out: dict = {"real": {}, "fake": {}}
+    for name in ("train", "prefill"):
+        r, f = real[name]["stats"], fake[name]["stats"]
+        counts = {k: v["count"] for k, v in r["ops"].items()}
+        kops = kernel_ops(r)
+        launches = real[name]["launches"]
+        fake_peak = f["memory"]["per_device_total"]
+        real_peak = real[name]["real_peak"]
+        terms = {"compute": r["flops"] / PEAK_FLOPS, "memory": r["bytes_accessed"] / HBM_BW,
+                 "collective": collective_seconds(r["collectives_by_dim"])}
+        print(f"  (a) {name}: flops real {r['flops']:.6e} fake {f['flops']:.6e}; bytes real "
+              f"{r['bytes_accessed']:.6e} fake {f['bytes_accessed']:.6e}; {sum(counts.values())} "
+              f"ops of {len(counts)} kinds; kernel ops {kops}; launches {launches}; peak fake "
+              f"{fake_peak / 2**30:.4f} GiB (MemTracker) real {real_peak / 2**30:.4f} GiB "
+              f"(max_memory_allocated); step {real[name]['step_s']:.4f} s measured, roofline "
+              f"terms compute {terms['compute']:.6f} memory {terms['memory']:.6f} collective "
+              f"{terms['collective']:.6f} s")
+        assert r["flops"] == f["flops"] and r["bytes_accessed"] == f["bytes_accessed"], name
+        assert counts == {k: v["count"] for k, v in f["ops"].items()}, name
+        for op, n in launches.items():
+            assert kops.get(op, {"count": 0})["count"] == n, (name, op, kops, launches)
+        assert launches["flash_attention"] > 0, launches
+        if name == "train":
+            assert launches["crossentropy"] == 1, launches
+            assert abs(fake_peak - real_peak) <= OPS_PEAK_RTOL * real_peak, (fake_peak, real_peak)
+        out["real"][name] = {**real[name], "terms": terms}
+        out["fake"][name] = fake[name]
+    # each kernel's share of its bound at the step's shapes (CUDA events)
+    from repro_torch.kernels import crossentropy as ce
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    q, k, v = flash_inputs(gen, SHARDED_B, 32, 4, SHARDED_S, SHARDED_S, 64, torch.bfloat16,
+                           True, qk_scale=3.0)
+    x = torch.randn(SHARDED_B * SHARDED_S, cfg.d_model, device="cuda", generator=gen,
+                    dtype=torch.bfloat16)
+    w = torch.randn(cfg.d_model, cfg.vocab, device="cuda", generator=gen) / math.sqrt(cfg.d_model)
+    labels = torch.randint(0, cfg.vocab, (SHARDED_B * SHARDED_S,), device="cuda", generator=gen)
+    kops = kernel_ops(out["real"]["train"]["stats"])
+    shares = {}
+    for op, fn in (("flash_attention", lambda: fa.flash_attention(q, k, v)),
+                   ("crossentropy", lambda: ce.crossentropy_forward(x, w, labels))):
+        ms = time_ms(fn, 20)
+        bound = _kernel_bound_ms(kops[op], BF16_TC_OPS_PER_S)
+        shares[op] = {"ms": ms, "bound_ms": bound, "share": bound / ms}
+        print(f"  (a) {op} at the step's shapes: {ms:.4f} ms, bound {bound:.4f} ms from its "
+              f"registered formula and bytes, {bound / ms:.3f} of the bound")
+    out["bound_shares"] = shares
+    out["dispatch"] = _dispatch_costs()
+    for op, d in out["dispatch"].items():
+        print(f"  (d) {op}: {d['wrapper_ms']:.5f} ms a call through the wrapper (its checks "
+              f"and the op), {d['op_ms']:.5f} ms through the op, {d['raw_ms']:.5f} ms through "
+              f"the op's own function; dispatch {d['dispatch_ms'] * 1e3:.2f} us a call (runs "
+              f"raw / op / wrapper / wrapper / op / raw "
+              f"{[round(t, 5) for t in d['runs_ms']]})")
+    # (b) the reference's dry-run cell, (c) a training cell, on fake CUDA tensors
+    out_dir = os.path.join(ROOT, "build", "phase32_dryrun")
+    t0 = time.perf_counter()
+    rec = run_cell("smollm-135m", "decode_32k", multi_pod=True, out_dir=out_dir, device="cuda")
+    out["dryrun_smollm"] = {k: rec[k] for k in ("n_chips", "memory", "build_s", "run_s")}
+    out["dryrun_smollm"].update(flops=rec["op_stats"]["flops"],
+                                collectives_by_dim=rec["op_stats"]["collectives_by_dim"],
+                                seconds=time.perf_counter() - t0)
+    print(f"  (b) smollm-135m decode_32k on 512 fake ranks: {out['dryrun_smollm']}")
+    assert rec["n_chips"] == 512, rec["n_chips"]
+    assert rec["memory"]["per_device_total"] < HBM_BYTES, rec["memory"]
+    assert rec["op_stats"]["flops"] > 0
+    cut = dataclasses.replace(full, n_layers=OPS_DRYRUN_LAYERS, n_superblocks=OPS_DRYRUN_LAYERS)
+    t0 = time.perf_counter()
+    rec = run_cell("tinyllama-1.1b", "train_4k", multi_pod=False, out_dir=out_dir, device="cuda",
+                   cfg=cut)
+    kops = kernel_ops(rec["op_stats"])
+    flops = rec["op_stats"]["flops"]
+    out["dryrun_tinyllama"] = {"layers": OPS_DRYRUN_LAYERS, "memory": rec["memory"],
+                               "flops": flops, "kernel_ops": kops,
+                               "flop_shares": {op: v["flops"] / flops for op, v in kops.items()},
+                               "seconds": time.perf_counter() - t0}
+    print(f"  (c) tinyllama-1.1b train_4k cut to {OPS_DRYRUN_LAYERS} layers on 256 fake ranks: "
+          f"{rec['memory']['per_device_total'] / 2**30:.3f} GiB a card, {flops:.4e} FLOPs a "
+          f"card; kernel ops {kops}; FLOP shares {out['dryrun_tinyllama']['flop_shares']}")
+    assert kops["flash_attention"]["count"] == 2 * OPS_DRYRUN_LAYERS, kops
+    assert kops["crossentropy"]["count"] == 1, kops
+    print(f"  {nvidia_smi('name,power.limit')}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every measurement to this JSON file")
@@ -4440,6 +4711,7 @@ def main() -> int:
     storage = timed("29", phase_storage)
     tune_slices = timed("30", phase_tune_slices, tune_moe)
     sharded = timed("31", phase_sharded)
+    op_analysis = timed("32", phase_op_analysis)
 
     shape_rows = optimize_rows + wave_rows
     table = wave_rows[-1]  # the score-table build: the kernel's large shape
@@ -4626,6 +4898,16 @@ def main() -> int:
         "shapes": slstm_rows,
         "gradient_checks": slstm_grads,
     })
+    for entry in kernels:  # every launch is the kernel's custom op (kernels/ops.py)
+        entry["op"] = f"repro_torch::{entry['name']}"
+        name = entry["name"]
+        if name in op_analysis["bound_shares"]:
+            entry["launches_op_analysis_train"] = op_analysis["real"]["train"]["launches"][name]
+            entry["launches_op_analysis_prefill"] = op_analysis["real"]["prefill"]["launches"][name]
+            entry["op_analysis_bound_share"] = op_analysis["bound_shares"][name]
+            entry["dryrun_tinyllama"] = op_analysis["dryrun_tinyllama"]["kernel_ops"][name]
+        if name in op_analysis["dispatch"]:
+            entry["dispatch"] = op_analysis["dispatch"][name]
     if opts.out:
         os.makedirs(os.path.dirname(os.path.abspath(opts.out)), exist_ok=True)
         with open(opts.out, "w") as f:
@@ -4641,6 +4923,7 @@ def main() -> int:
                        "serve_deepseek": serve_deepseek, "train_deepseek": train_deepseek,
                        "qwen3_moe": qwen3, "tune_moe": tune_moe, "storage": storage,
                        "tune_slices": tune_slices, "sharded": sharded,
+                       "op_analysis": op_analysis,
                        "phase_seconds": phase_s,
                        "kernels": kernels}, f,
                       indent=1)

@@ -31,7 +31,9 @@ ops (:func:`crossentropy_backward`), over chunks of rows, with the large
 products through ``torch.matmul``.
 
 CPU tensors take the plain PyTorch version (``kernels/ref.py``); CUDA
-tensors launch ``x``'s dtype's kernel or raise.  Every launch adds one to a
+tensors launch ``x``'s dtype's kernel or raise.  The launch is the custom op
+``torch.ops.repro_torch.crossentropy`` (``kernels/ops.py``), with a fake
+implementation and a FLOP formula (2 T D V).  Every launch adds one to a
 thread-safe counter (:func:`launches`), so a run can show that its main path
 went through the kernel.
 """
@@ -42,7 +44,7 @@ import threading
 
 import torch
 
-from .ops import full_float32_matmul
+from .ops import flop_formula, full_float32_matmul, kernel_op
 from .ref import crossentropy_lse_ref
 
 __all__ = [
@@ -51,6 +53,7 @@ __all__ = [
     "crossentropy_backward",
     "tensor_core_weight",
     "CrossEntropyFunction",
+    "crossentropy_flops",
     "launches",
     "reset_launches",
 ]
@@ -135,6 +138,15 @@ def crossentropy_forward(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
     _check(x, w, labels)
     if x.device.type == "cpu":
         return crossentropy_lse_ref(x, w, labels, softcap)
+    return _ce_op(x, w, labels, float(softcap))
+
+
+@kernel_op("crossentropy")
+def _ce_op(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
+           softcap: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's launch on CUDA tensors that :func:`crossentropy_forward`
+    has checked (the bfloat16 kernel's copy of ``W`` included): new ``(nll,
+    lse)`` tensors."""
     T, D = x.shape
     V = w.shape[1]
     w_sd, w_sv = w.stride()
@@ -156,13 +168,27 @@ def crossentropy_forward(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
         err = lib.crossentropy_launch(
             x.data_ptr(), _DTYPE_CODES[x.dtype], x.stride(0), x.stride(1),
             w.data_ptr(), _DTYPE_CODES[w.dtype], w_sd, w_sv,
-            labels.data_ptr(), int(labels.dtype == torch.int64), T, D, V, float(softcap),
+            labels.data_ptr(), int(labels.dtype == torch.int64), T, D, V, softcap,
             part.data_ptr(), nll.data_ptr(), lse.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"crossentropy kernel launch failed: cudaError {err}")
     _count_launch()
     return nll, lse
+
+
+@_ce_op.register_fake
+def _(x, w, labels, softcap):
+    T = x.shape[0]
+    return x.new_empty(T, dtype=torch.float32), x.new_empty(T, dtype=torch.float32)
+
+
+@flop_formula("crossentropy")
+def crossentropy_flops(x_shape, w_shape, labels_shape, softcap, *, out_shape=None,
+                       **kwargs) -> int:
+    """The logits' product, computed inside the kernel: 2 T D V FLOPs."""
+    T, D = x_shape
+    return 2 * T * D * w_shape[1]
 
 
 @full_float32_matmul()

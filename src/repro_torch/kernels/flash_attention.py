@@ -37,7 +37,11 @@ element strides, so the model passes its ``[B, S, H, D]`` tensors as
 transposed views and no copy is made.
 
 CPU tensors take the plain PyTorch version (``kernels/ref.py``); CUDA
-tensors launch their dtype's kernel or raise.  Every launch adds one to a
+tensors launch their dtype's kernel or raise.  The launch is the custom op
+``torch.ops.repro_torch.flash_attention`` (``kernels/ops.py``): its fake
+implementation gives the output's shape, dtype and strides, and its FLOP
+formula counts 4 D FLOPs per (query, key) pair the causal / window band and
+``kv_len`` leave (:func:`attention_pairs`).  Every launch adds one to a
 thread-safe counter (:func:`launches`), so a run can show that its main path
 went through the kernel.
 """
@@ -48,13 +52,14 @@ import ctypes
 import math
 import threading
 
+import numpy as np
 import torch
 
-from .ops import full_float32_matmul
+from .ops import flop_formula, full_float32_matmul, kernel_op
 from .ref import flash_attention_ref
 
 __all__ = ["flash_attention", "flash_attention_backward", "FlashAttentionFunction", "launches",
-           "reset_launches", "HEAD_DIMS"]
+           "reset_launches", "attention_pairs", "flash_attention_flops", "HEAD_DIMS"]
 
 #: head widths the kernel is built for (one template instance each)
 HEAD_DIMS = (8, 16, 32, 64, 128, 256)
@@ -117,13 +122,6 @@ def _check(q, k, v, causal, window, q_offset, kv_len) -> int:
         raise ValueError(f"causal query at position {last} has no key below kv_len={kv_len}")
     if window > 0 and not causal and last - window + 1 >= kv_len:
         raise ValueError(f"query at position {last} has no key in its window below kv_len={kv_len}")
-    if q.dtype == torch.bfloat16 and q.device.type == "cuda":
-        for name, t in (("q", q), ("k", k), ("v", v)):
-            strides = [s for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1]
-            if t.data_ptr() % 16 or any(s % 8 for s in strides):
-                raise ValueError(f"{name}'s storage must be 16-byte aligned and its batch, head "
-                                 f"and position strides multiples of 8 for the bfloat16 kernel, "
-                                 f"got strides {t.stride()}")
     return kv_len
 
 
@@ -156,11 +154,26 @@ def flash_attention(
                                    q_offset=q_offset, kv_len=kv_len)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on CPU or CUDA tensors, got {q.device}")
+    return _flash_op(q, k, v, bool(causal), int(window), float(softcap), int(q_offset), kv_len)
+
+
+@kernel_op("flash_attention")
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, window: int,
+              softcap: float, q_offset: int, kv_len: int) -> torch.Tensor:
+    """The kernel's launch on CUDA tensors that :func:`flash_attention` has
+    checked: a new tensor in ``q``'s dtype, shape and strides."""
     out = torch.empty_like(q)  # q's strides: [B, S, H, D] memory for a transposed view
     B, Hq, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     if out.numel() == 0:
         return out
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            strides = [s for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1]
+            if t.data_ptr() % 16 or any(s % 8 for s in strides):
+                raise ValueError(f"{name}'s storage must be 16-byte aligned and its batch, head "
+                                 f"and position strides multiples of 8 for the bfloat16 kernel, "
+                                 f"got strides {t.stride()}")
     # (batch, position, head) element strides of each tensor
     strides = (ctypes.c_longlong * 12)(*(
         s for t in (q, k, v, out) for s in (t.stride(0), t.stride(2), t.stride(1))
@@ -172,13 +185,37 @@ def flash_attention(
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPE_CODES[q.dtype],
-            B, Hq, Hkv, Sq, Skv, D, ctypes.addressof(strides), int(bool(causal)), int(window),
-            float(softcap), int(q_offset), kv_len, 1.0 / math.sqrt(D), stream,
+            B, Hq, Hkv, Sq, Skv, D, ctypes.addressof(strides), int(causal), window,
+            softcap, q_offset, kv_len, 1.0 / math.sqrt(D), stream,
         )
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
     _count_launch()
     return out
+
+
+@_flash_op.register_fake
+def _(q, k, v, causal, window, softcap, q_offset, kv_len):
+    return torch.empty_like(q)
+
+
+def attention_pairs(Sq: int, Skv: int, causal: bool = True, window: int = -1,
+                    q_offset: int = 0, kv_len: "int | None" = None) -> int:
+    """(query, key) pairs the kernel computes per (batch, head): each query
+    row's keys inside the causal / window band and below ``kv_len``."""
+    kv_len = Skv if kv_len is None else kv_len
+    qp = q_offset + np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(kv_len - 1, qp) if causal else np.full(Sq, kv_len - 1)
+    lo = np.maximum(0, qp - window + 1) if window > 0 else np.zeros(Sq, np.int64)
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+@flop_formula("flash_attention")
+def flash_attention_flops(q_shape, k_shape, v_shape, causal, window, softcap, q_offset, kv_len,
+                          *, out_shape=None, **kwargs) -> int:
+    """``QK^T`` and ``PV``: 4 D FLOPs per computed (query, key) pair and head."""
+    B, Hq, Sq, D = q_shape
+    return 4 * D * B * Hq * attention_pairs(Sq, k_shape[2], causal, window, q_offset, kv_len)
 
 
 @full_float32_matmul()

@@ -15,8 +15,11 @@ samples ``[s, m]`` they count the samples dominated by at least one point
   samples, for checks.
 
 CPU tensors take the plain PyTorch versions (``kernels/ref.py``); CUDA
-tensors launch the kernels or raise.  Every launch of the two counting
-kernels adds one to its thread-safe counter (:func:`launches`,
+tensors launch the kernels or raise.  Each counting launch is a custom op,
+``torch.ops.repro_torch.mc_hv_counts`` and ``...mc_hv_counts_sets``
+(``kernels/ops.py``), with a fake implementation and a FLOP formula (the
+compares, and the batched kernel's sample arithmetic).  Every launch of the
+two counting kernels adds one to its thread-safe counter (:func:`launches`,
 :func:`set_launches`), so a run can show that its main path went through
 them.
 """
@@ -27,10 +30,11 @@ import threading
 
 import torch
 
+from .ops import flop_formula, kernel_op
 from .ref import mc_hv_counts_ref, mc_hv_counts_sets_ref, mc_hv_samples_ref
 
-__all__ = ["mc_hv_counts", "mc_hv_counts_sets", "mc_hv_samples", "launches", "set_launches",
-           "reset_launches"]
+__all__ = ["mc_hv_counts", "mc_hv_counts_sets", "mc_hv_samples", "mc_hv_counts_flops",
+           "mc_hv_counts_sets_flops", "launches", "set_launches", "reset_launches"]
 
 #: objectives one staged point tile of the kernel holds (``kTileFloats``)
 MAX_OBJECTIVES = 4096
@@ -98,25 +102,49 @@ def mc_hv_counts(
         return mc_hv_counts_ref(points, samples)
     if points.device.type != "cuda":
         raise ValueError(f"mc_hv_counts runs on CPU or CUDA tensors, got {points.device}")
-    n, m = points.shape
-    s = samples.shape[0]
-    # one zeroed int32 buffer: excl in [0, n), total at [n]
-    counts = torch.zeros(n + 1, dtype=torch.int32, device=points.device)
-    if n and s:
-        from ._build import load
-
-        lib = load()
-        with torch.cuda.device(points.device):
-            stream = torch.cuda.current_stream(points.device).cuda_stream
-            err = lib.mc_hv_counts_launch(
-                points.data_ptr(), n, samples.data_ptr(), s, m,
-                counts.data_ptr(), counts[n:].data_ptr(), stream,
-            )
-        if err != 0:
-            raise RuntimeError(f"mc_hv_counts kernel launch failed: cudaError {err}")
-        _count_launch("counts")
+    n = points.shape[0]
+    if n and samples.shape[0]:
+        counts = _counts_op(points, samples)
+    else:
+        counts = torch.zeros(n + 1, dtype=torch.int32, device=points.device)
     out = counts.to(torch.float32)
     return out[:n], out[n]
+
+
+@kernel_op("mc_hv_counts")
+def _counts_op(points: torch.Tensor, samples: torch.Tensor) -> torch.Tensor:
+    """The counting kernel's launch on CUDA tensors that :func:`mc_hv_counts`
+    has checked: a new zeroed int32 buffer, ``excl`` in ``[0, n)`` and
+    ``total`` at ``[n]``."""
+    n, m = points.shape
+    counts = torch.zeros(n + 1, dtype=torch.int32, device=points.device)
+    from ._build import load
+
+    lib = load()
+    with torch.cuda.device(points.device):
+        stream = torch.cuda.current_stream(points.device).cuda_stream
+        err = lib.mc_hv_counts_launch(
+            points.data_ptr(), n, samples.data_ptr(), samples.shape[0], m,
+            counts.data_ptr(), counts[n:].data_ptr(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"mc_hv_counts kernel launch failed: cudaError {err}")
+    _count_launch("counts")
+    return counts
+
+
+@_counts_op.register_fake
+def _(points, samples):
+    return points.new_empty(points.shape[0] + 1, dtype=torch.int32)
+
+
+@flop_formula("mc_hv_counts")
+def mc_hv_counts_flops(points_shape, samples_shape, *, out_shape=None, **kwargs) -> int:
+    """Every point against every sample in every objective: ``n s m``
+    compares.  The kernel stops a sample's scan at its second dominator, so
+    the count it needs on given data can be less (``chip_smoke.py`` counts
+    that)."""
+    return points_shape[0] * samples_shape[0] * points_shape[1]
 
 
 def _check_boxes(lo: torch.Tensor, span: torch.Tensor, u: torch.Tensor) -> None:
@@ -167,25 +195,54 @@ def mc_hv_counts_sets(
                          f"{tuple(offsets.shape)}")
     if u.device.type == "cpu":
         return mc_hv_counts_sets_ref(points, offsets, lo, span, u)
-    N, m = points.shape
-    s = u.shape[0]
-    # one zeroed int32 buffer: excl in [0, N), total in [N, N + G)
-    counts = torch.zeros(N + G, dtype=torch.int32, device=u.device)
+    N = points.shape[0]
     if N:
-        from ._build import load
-
-        lib = load()
-        with torch.cuda.device(u.device):
-            stream = torch.cuda.current_stream(u.device).cuda_stream
-            err = lib.mc_hv_counts_sets_launch(
-                points.data_ptr(), offsets.data_ptr(), lo.data_ptr(), span.data_ptr(),
-                u.data_ptr(), G, s, m, counts.data_ptr(), counts[N:].data_ptr(), stream,
-            )
-        if err != 0:
-            raise RuntimeError(f"mc_hv_counts_sets kernel launch failed: cudaError {err}")
-        _count_launch("sets")
+        counts = _sets_op(points, offsets, lo, span, u)
+    else:
+        counts = torch.zeros(N + G, dtype=torch.int32, device=u.device)
     out = counts.to(torch.float32)
     return out[:N], out[N:]
+
+
+@kernel_op("mc_hv_counts_sets")
+def _sets_op(points: torch.Tensor, offsets: torch.Tensor, lo: torch.Tensor, span: torch.Tensor,
+             u: torch.Tensor) -> torch.Tensor:
+    """The batched kernel's launch on CUDA tensors that
+    :func:`mc_hv_counts_sets` has checked: a new zeroed int32 buffer,
+    ``excl`` in ``[0, N)`` and the sets' ``total`` in ``[N, N + G)``."""
+    N, m = points.shape
+    G = lo.shape[0]
+    counts = torch.zeros(N + G, dtype=torch.int32, device=u.device)
+    from ._build import load
+
+    lib = load()
+    with torch.cuda.device(u.device):
+        stream = torch.cuda.current_stream(u.device).cuda_stream
+        err = lib.mc_hv_counts_sets_launch(
+            points.data_ptr(), offsets.data_ptr(), lo.data_ptr(), span.data_ptr(),
+            u.data_ptr(), G, u.shape[0], m, counts.data_ptr(), counts[N:].data_ptr(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"mc_hv_counts_sets kernel launch failed: cudaError {err}")
+    _count_launch("sets")
+    return counts
+
+
+@_sets_op.register_fake
+def _(points, offsets, lo, span, u):
+    return points.new_empty(points.shape[0] + lo.shape[0], dtype=torch.int32)
+
+
+@flop_formula("mc_hv_counts_sets")
+def mc_hv_counts_sets_flops(points_shape, offsets_shape, lo_shape, span_shape, u_shape,
+                            *, out_shape=None, **kwargs) -> int:
+    """Each set's points against its ``s`` samples in every objective, ``N s
+    m`` compares, plus the samples' float64 multiply and add, ``2 G s m``
+    (the compares a sample needs before its second dominator can be fewer,
+    as for :func:`mc_hv_counts_flops`)."""
+    N, m = points_shape
+    s = u_shape[0]
+    return N * s * m + 2 * lo_shape[0] * s * m
 
 
 def mc_hv_samples(lo: torch.Tensor, span: torch.Tensor, u: torch.Tensor) -> torch.Tensor:

@@ -48,6 +48,9 @@ __all__ = [
     "pad_pow2_vec",
     "pad_pow2_rows",
     "full_float32_matmul",
+    "OP_NAMESPACE",
+    "kernel_op",
+    "flop_formula",
 ]
 
 #: guards the process-global TF32 flag around :func:`full_float32_matmul`
@@ -68,6 +71,38 @@ def full_float32_matmul():
             yield
         finally:
             torch.backends.cuda.matmul.allow_tf32 = allow_tf32
+
+# -- the kernels as custom ops ---------------------------------------------------
+#
+# Each kernel's launch is a ``torch.library.custom_op`` with a fake
+# implementation (its outputs' shapes and dtypes) and a FLOP formula
+# (``torch.utils.flop_counter``), so a step runs on fake tensors in a world of
+# fake ranks (``launch/dryrun.py``) and ``launch/op_analysis.py`` counts the
+# kernels' work as it counts aten ops'.  The op is registered for CUDA only:
+# CPU tensors take the plain version in the wrapper and never reach it.
+
+#: the ops' namespace, ``torch.ops.repro_torch``: the package's own name, so a
+#: copy imported under another name (``scripts/kernel_baseline.py``) registers
+#: ops of its own
+OP_NAMESPACE = __name__.split(".")[0]
+
+
+def kernel_op(name: str):
+    """Decorator: ``torch.library.custom_op`` ``<OP_NAMESPACE>::<name>``
+    with a CUDA implementation only.  No kernel writes an input in place
+    (every output is allocated by the launch), so ``mutates_args`` is empty."""
+    return torch.library.custom_op(f"{OP_NAMESPACE}::{name}", mutates_args=(),
+                                   device_types="cuda")
+
+
+def flop_formula(name: str):
+    """Decorator: the FLOP formula of the op ``name`` (called with the
+    inputs' shapes in place of tensors, as ``torch.utils.flop_counter``
+    calls its own)."""
+    from torch.utils.flop_counter import register_flop_formula
+
+    return register_flop_formula(getattr(getattr(torch.ops, OP_NAMESPACE), name))
+
 
 # -- pow2 padding ---------------------------------------------------------------
 

@@ -14,7 +14,10 @@ when a call needs more, so an eager call allocates nothing.  Under
 CUDA-graph capture a call takes buffers of its own from the graph's pool.
 
 CPU tensors take the plain PyTorch version (``kernels/ref.py``); CUDA
-tensors launch the kernel or raise.  Every launch adds one to a
+tensors launch the kernel or raise.  The launch is the custom op
+``torch.ops.repro_torch.parzen_score`` (``kernels/ops.py``), with a fake
+implementation and a FLOP formula (9 operations, the exp among them, per
+(candidate, component) pair).  Every launch adds one to a
 thread-safe counter (:func:`launches`), so a run can show that its main path
 went through the kernel.
 """
@@ -26,9 +29,13 @@ import threading
 
 import torch
 
+from .ops import flop_formula, kernel_op
 from .ref import parzen_score_ref
 
-__all__ = ["parzen_score", "launches", "reset_launches"]
+__all__ = ["parzen_score", "parzen_flops", "launches", "reset_launches", "OPS_PER_PAIR"]
+
+#: float32 operations per (candidate, component) pair besides the exp
+OPS_PER_PAIR = 8
 
 _count_lock = threading.Lock()
 _launches = 0
@@ -100,9 +107,20 @@ def parzen_score(
         return parzen_score_ref(cands, *comps)
     if cands.device.type != "cuda":
         raise ValueError(f"parzen_score runs on CPU or CUDA tensors, got {cands.device}")
-    out = torch.empty_like(cands)
     if len(cands) == 0:
-        return out
+        return torch.empty_like(cands)
+    return _parzen_op(cands, *comps)
+
+
+@kernel_op("parzen_score")
+def _parzen_op(cands: torch.Tensor, l_mus: torch.Tensor, l_sigmas: torch.Tensor,
+               l_log_norm: torch.Tensor, g_mus: torch.Tensor, g_sigmas: torch.Tensor,
+               g_log_norm: torch.Tensor) -> torch.Tensor:
+    """The kernel's launch on CUDA tensors that :func:`parzen_score` has
+    checked: a new [C] tensor.  The workspaces it reuses are the wrapper's,
+    never an input."""
+    comps = (l_mus, l_sigmas, l_log_norm, g_mus, g_sigmas, g_log_norm)
+    out = torch.empty_like(cands)
     if torch.cuda.current_device() == cands.device.index:
         _launch(cands, comps, out)
     else:
@@ -110,6 +128,20 @@ def parzen_score(
             _launch(cands, comps, out)
     _count_launch()
     return out
+
+
+@_parzen_op.register_fake
+def _(cands, l_mus, l_sigmas, l_log_norm, g_mus, g_sigmas, g_log_norm):
+    return torch.empty_like(cands)
+
+
+@flop_formula("parzen_score")
+def parzen_flops(cands_shape, l_mus_shape, l_sigmas_shape, l_log_norm_shape, g_mus_shape,
+                 g_sigmas_shape, g_log_norm_shape, *, out_shape=None, **kwargs) -> int:
+    """Per (candidate, component) pair of both mixtures: the standardized
+    distance, its square, the log density and the online logsumexp's max and
+    sum, :data:`OPS_PER_PAIR` float32 operations, and one exp."""
+    return cands_shape[0] * (l_mus_shape[0] + g_mus_shape[0]) * (OPS_PER_PAIR + 1)
 
 
 def _launch(cands: torch.Tensor, comps: tuple, out: torch.Tensor) -> None:

@@ -33,7 +33,9 @@ a reverse loop over time for the state's gradient, and ``dR`` as one
 product at the end.
 
 CPU tensors take the plain PyTorch version (``kernels/ref.py::
-slstm_scan_ref``); CUDA tensors launch the kernel or raise.  Every launch
+slstm_scan_ref``); CUDA tensors launch the kernel or raise.  The launch is
+the custom op ``torch.ops.repro_torch.slstm`` (``kernels/ops.py``), with a
+fake implementation and a FLOP formula (2 S B 4 H D^2).  Every launch
 adds one to a thread-safe counter (:func:`launches`), so a run can show that
 its main path went through the kernel.
 """
@@ -47,11 +49,11 @@ import threading
 import torch
 
 from ._build import load
-from .ops import full_float32_matmul
+from .ops import flop_formula, full_float32_matmul, kernel_op
 from .ref import slstm_scan_ref
 
-__all__ = ["slstm_forward", "slstm_backward", "slstm_plan", "SLSTMFunction", "launches",
-           "reset_launches"]
+__all__ = ["slstm_forward", "slstm_backward", "slstm_plan", "SLSTMFunction", "slstm_flops",
+           "launches", "reset_launches"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -162,8 +164,10 @@ def _plan(B: int, H: int, D: int, dtype: torch.dtype, index: int) -> dict:
 
 def _launch(u, R, state, save_states: bool):
     """The kernel on CUDA tensors, on the current device: the decode kernel
-    at S = 1, else the cooperative scan.  Lean: a decode step calls it once
-    a token and sLSTM block."""
+    at S = 1, else the cooperative scan; ``(seqs [n, B, S, d], final [4, B,
+    H, D])`` in float32, ``n`` 4 with ``save_states`` (``h``, ``c``, ``n``,
+    ``m``) else 1.  Lean: a decode step calls it once a token and sLSTM
+    block."""
     B, S, d4 = u.shape
     H, D = R.shape[1], R.shape[2]
     u_sb, u_ss, u_sd = u.stride()
@@ -174,17 +178,10 @@ def _launch(u, R, state, save_states: bool):
     R = R.contiguous()
     c0, n0, h0, m0 = (t.contiguous() for t in state)
     f32 = torch.float32
-    n_seq = 4 if save_states else 1
-    if S == 1:  # one allocation for everything
-        out = torch.empty((n_seq + 4, B, H, D), dtype=f32, device=dev).unbind(0)
-        seqs = [t.view(B, 1, H * D) for t in out[:n_seq]]
-        final = out[n_seq:]
-        hx = None
-    else:  # the final state apart: a cache holding it does not hold the sequences
-        seqs = torch.empty((n_seq, B, S, H * D), dtype=f32, device=dev).unbind(0)
-        final = torch.empty((4, B, H, D), dtype=f32, device=dev).unbind(0)
-        hx = torch.zeros((2, B, H, D), dtype=torch.int64, device=dev)
-    c_ptr, n_ptr, m_ptr = ((t.data_ptr() for t in seqs[1:]) if save_states
+    seqs = torch.empty((4 if save_states else 1, B, S, H * D), dtype=f32, device=dev)
+    final = torch.empty((4, B, H, D), dtype=f32, device=dev)
+    hx = torch.zeros((2, B, H, D), dtype=torch.int64, device=dev) if S > 1 else None
+    c_ptr, n_ptr, m_ptr = ((seqs[i].data_ptr() for i in (1, 2, 3)) if save_states
                            else (None, None, None))
     err = load().slstm_launch(
         u.data_ptr(), _DTYPE_CODES[u.dtype], u_sb, u_ss, R.data_ptr(),
@@ -196,7 +193,39 @@ def _launch(u, R, state, save_states: bool):
     if err != 0:
         raise RuntimeError(f"slstm kernel launch failed: cudaError {err}")
     _count_launch()
-    return (seqs[0], tuple(final), tuple(seqs[1:])) if save_states else (seqs[0], tuple(final))
+    return seqs, final
+
+
+@kernel_op("slstm")
+def _slstm_op(u: torch.Tensor, R: torch.Tensor, c0: torch.Tensor, n0: torch.Tensor,
+              h0: torch.Tensor, m0: torch.Tensor,
+              save_states: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's launch on CUDA tensors that :func:`slstm_forward` has
+    checked: new ``(seqs, final)`` tensors (:func:`_launch`).  The initial
+    state is read, never written: the model copies ``final`` into its
+    cache."""
+    state = (c0, n0, h0, m0)
+    if torch.cuda.current_device() == u.device.index:
+        return _launch(u, R, state, save_states)
+    with torch.cuda.device(u.device):
+        return _launch(u, R, state, save_states)
+
+
+@_slstm_op.register_fake
+def _(u, R, c0, n0, h0, m0, save_states):
+    B, S, _ = u.shape
+    H, D = R.shape[1], R.shape[2]
+    return (u.new_empty((4 if save_states else 1, B, S, H * D), dtype=torch.float32),
+            u.new_empty((4, B, H, D), dtype=torch.float32))
+
+
+@flop_formula("slstm")
+def slstm_flops(u_shape, R_shape, c0_shape, n0_shape, h0_shape, m0_shape, save_states,
+                *, out_shape=None, **kwargs) -> int:
+    """The recurrent products ``h @ R``: 2 S B 4 H D^2 FLOPs."""
+    B, S, _ = u_shape
+    _, H, D, _ = R_shape
+    return 2 * S * B * 4 * H * D * D
 
 
 def slstm_forward(
@@ -213,14 +242,14 @@ def slstm_forward(
     S, d]``): the kernel on CUDA tensors, the plain version on CPU ones."""
     state = (c0, n0, h0, m0)
     _check(u, R, state)
-    dev = u.device
-    if dev.type == "cpu":
+    if u.device.type == "cpu":
         with torch.no_grad():
             return slstm_scan_ref(u, R, *state, states=save_states)
-    if torch.cuda.current_device() == dev.index:
-        return _launch(u, R, state, save_states)
-    with torch.cuda.device(dev):
-        return _launch(u, R, state, save_states)
+    seqs, final = _slstm_op(u, R, c0, n0, h0, m0, save_states)
+    final = tuple(final.unbind(0))
+    if save_states:
+        return seqs[0], final, tuple(seqs[1:].unbind(0))
+    return seqs[0], final
 
 
 def _by_head(t: torch.Tensor, B: int, S: int, H: int, D: int) -> torch.Tensor:

@@ -38,7 +38,9 @@ chunk with batched products and a reverse loop over the chunks for the
 state's gradient.
 
 CPU tensors take the plain PyTorch version; CUDA tensors launch the kernel
-or raise.  Every launch adds one to a thread-safe counter
+or raise.  The launch is the custom op ``torch.ops.repro_torch.ssd``
+(``kernels/ops.py``), with a fake implementation and a FLOP formula (the
+causal pairs of each chunk plus the state carry).  Every launch adds one to a thread-safe counter
 (:func:`launches`), so a run can show that its main path went through the
 kernel.
 """
@@ -46,14 +48,15 @@ kernel.
 from __future__ import annotations
 
 import threading
+from typing import Optional
 
 import torch
 
-from .ops import full_float32_matmul
+from .ops import flop_formula, full_float32_matmul, kernel_op
 from .ref import ssd_chunked_ref
 
-__all__ = ["ssd_forward", "ssd_backward", "SSDFunction", "kernel_chunk_len", "launches",
-           "reset_launches"]
+__all__ = ["ssd_forward", "ssd_backward", "SSDFunction", "kernel_chunk_len", "ssd_flops",
+           "launches", "reset_launches"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -126,8 +129,12 @@ def _check(xh, dt, A, Bm, Cm, chunk, initial_state) -> None:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
 
 
-def _launch(xh, dt, A, Bm, Cm, chunk, initial_state):
-    """The kernel on CUDA tensors: ``(y, final)`` in float32."""
+@kernel_op("ssd")
+def _ssd_op(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+            Cm: torch.Tensor, chunk: int,
+            initial_state: Optional[torch.Tensor]) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's launch on CUDA tensors that :func:`ssd_forward` has
+    checked: new ``(y, final)`` tensors in float32."""
     b, S, H, P = xh.shape
     G, N = Bm.shape[2], Bm.shape[3]
     L = kernel_chunk_len(S, chunk)
@@ -171,6 +178,28 @@ def _launch(xh, dt, A, Bm, Cm, chunk, initial_state):
     return y, final
 
 
+@_ssd_op.register_fake
+def _(xh, dt, A, Bm, Cm, chunk, initial_state):
+    b, S, H, P = xh.shape
+    N = Bm.shape[3]
+    return (xh.new_empty((b, S, H, P), dtype=torch.float32),
+            xh.new_empty((b, H, P, N), dtype=torch.float32))
+
+
+@flop_formula("ssd")
+def ssd_flops(xh_shape, dt_shape, A_shape, Bm_shape, Cm_shape, chunk, initial_state_shape=None,
+              *, out_shape=None, **kwargs) -> int:
+    """Per batch and head, each chunk of ``l`` steps (the kernel's chunks):
+    its ``l (l + 1) / 2`` causal pairs take ``2 N`` FLOPs for ``C_t . B_s``
+    and ``2 P`` for ``M u``; the state's read into ``y`` and its update take
+    ``4 l P N``."""
+    b, S, H, P = xh_shape
+    N = Bm_shape[3]
+    L = kernel_chunk_len(S, chunk)
+    lens = [L] * (S // L) + ([S % L] if S % L else [])
+    return b * H * sum(n * (n + 1) // 2 * (2 * N + 2 * P) + 4 * n * P * N for n in lens)
+
+
 def ssd_forward(
     xh: torch.Tensor,  # [B, S, H, P] float32 / bfloat16, last dim contiguous
     dt: torch.Tensor,  # [B, S, H] float32 (post-softplus), any strides
@@ -188,7 +217,7 @@ def ssd_forward(
     if xh.device.type == "cpu":
         with torch.no_grad():
             return ssd_chunked_ref(xh, dt, A, Bm, Cm, chunk, initial_state)
-    return _launch(xh, dt, A, Bm, Cm, chunk, initial_state)
+    return _ssd_op(xh, dt, A, Bm, Cm, int(chunk), initial_state)
 
 
 def _heads(t: torch.Tensor, n: int, L: int) -> torch.Tensor:

@@ -13,7 +13,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
-__all__ = ["make_production_mesh", "make_host_mesh", "slice_mesh"]
+__all__ = ["PRODUCTION_MESHES", "make_production_mesh", "make_host_mesh", "slice_mesh"]
 
 
 def _world(n: int, what: str) -> None:
@@ -24,16 +24,21 @@ def _world(n: int, what: str) -> None:
                            f"{dist.get_world_size()}")
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
+#: the production meshes: (shape, dim names), single pod and multi-pod
+PRODUCTION_MESHES = {False: ((32, 8), ("data", "model")),
+                     True: ((2, 32, 8), ("pod", "data", "model"))}
+
+
+def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda") -> DeviceMesh:
     """H100 meshes, one rank a card.  Single pod: (32, 8) ("data", "model")
     = 256 cards in 32 nodes, ``"model"`` the 8 NVLink cards of one node.
     Multi-pod: (2, 32, 8) ("pod", "data", "model") = 512 cards; "pod" is a
     batch axis crossing the inter-pod links.  Raises unless the world has
-    that many ranks."""
-    shape = (2, 32, 8) if multi_pod else (32, 8)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    that many ranks.  ``device_type="cpu"`` lays the same mesh over CPU
+    ranks (the dry-run's CPU accounting, ``launch/dryrun.py``)."""
+    shape, axes = PRODUCTION_MESHES[multi_pod]
     _world(math.prod(shape), "the production mesh")
-    return init_device_mesh("cuda", shape, mesh_dim_names=axes)
+    return init_device_mesh(device_type, shape, mesh_dim_names=axes)
 
 
 def make_host_mesh(shape=(2, 2), axes=("data", "model"), device_type: str = "cpu") -> DeviceMesh:

@@ -119,8 +119,7 @@ class Cell:
             if value is None or isinstance(value, int):
                 out.append(value)
             elif isinstance(value, Transformer):
-                dtype = next(abstract.parameters()).dtype
-                value.to(dtype)
+                _cast_params(value, next(abstract.parameters()).dtype)
                 names = dict(value.named_parameters())
                 logical = named_params_logical(value.cfg)
                 sh = {n: logical_to_sharding(logical[n], p.shape, self.mesh, self.rules)
@@ -148,6 +147,18 @@ class Cell:
         p_tree = tree_shardings(abstract_params(cfg), params_logical(cfg), self.mesh, self.rules)
         o_sh = _opt_shardings(state, p_tree, self.mesh)
         return _map(lambda t, pl: distribute(t, self.mesh, pl), state, o_sh)
+
+
+def _cast_params(model: torch.nn.Module, dtype: torch.dtype) -> None:
+    """Each parameter of another dtype replaced by a parameter of its value
+    cast to ``dtype`` (``Module.to`` would swap tensors, which fake tensors
+    refuse); the model has no buffers."""
+    for name, p in list(model.named_parameters()):
+        if p.dtype != dtype:
+            owner, _, leaf = name.rpartition(".")
+            module = model.get_submodule(owner) if owner else model
+            setattr(module, leaf, torch.nn.Parameter(p.detach().to(dtype),
+                                                     requires_grad=p.requires_grad))
 
 
 def _map(fn, tree, other):

@@ -47,6 +47,7 @@ __all__ = [
     "mla_specs",
     "attention_full",
     "attention_decode",
+    "decode_probs",
     "attn_block_full",
     "attn_block_decode",
     "mla_block_full",
@@ -148,17 +149,25 @@ def attention_decode(
     scale = 1.0 / math.sqrt(D)
     qg = q.reshape(B, KV, G, D)
     s = torch.einsum("bkgd,btkd->bkgt", qg.float(), k_cache.float()) * scale
-    k_pos = torch.arange(T, device=q.device)
+    probs = decode_probs(s, index, window, attn_softcap, q.dtype)
+    out_dtype = torch.promote_types(q.dtype, v_cache.dtype)
+    o = torch.einsum("bkgt,btkd->bkgd", probs.float(), v_cache.float()).to(out_dtype)
+    return o.reshape(B, 1, H, D)
+
+
+def decode_probs(s: torch.Tensor, index: int, window: int, attn_softcap, dtype) -> torch.Tensor:
+    """A decode step's probabilities from its float32 scores ``s [..., T]``
+    (already scaled): keys after ``index`` or ``window`` or more positions
+    below it masked at ``-1e30``, the softcap, the softmax, rounded to
+    ``dtype``."""
+    k_pos = torch.arange(s.shape[-1], device=s.device)
     mask = k_pos <= index
     if window > 0:
         mask &= (index - k_pos) < window
     if attn_softcap:
         s = softcap(s, attn_softcap)
-    s = torch.where(mask, s, torch.full((), -1e30, device=q.device))
-    probs = torch.softmax(s, dim=-1).to(q.dtype)
-    out_dtype = torch.promote_types(q.dtype, v_cache.dtype)
-    o = torch.einsum("bkgt,btkd->bkgd", probs.float(), v_cache.float()).to(out_dtype)
-    return o.reshape(B, 1, H, D)
+    s = torch.where(mask, s, torch.full((), -1e30, device=s.device))
+    return torch.softmax(s, dim=-1).to(dtype)
 
 
 # -- block-level wrappers (projections + rope + attention) ------------------------------------

@@ -29,6 +29,7 @@ import threading
 from typing import Any, Callable, Sequence
 
 import torch
+import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 __all__ = [
@@ -207,10 +208,16 @@ def tree_shardings(shape_tree, logical_tree, mesh, rules: ShardingRules):
 
 
 def mesh_device(mesh) -> torch.device:
-    """This rank's device of a ``DeviceMesh`` (its current card, or the CPU)."""
-    if mesh.device_type == "cuda":
-        return torch.device("cuda", torch.cuda.current_device())
-    return torch.device(mesh.device_type)
+    """This rank's device of a ``DeviceMesh``: its current card, or the CPU.
+    In a world of fake ranks (``launch/dryrun.py``: one process stands for
+    every rank and no card need exist) the card is the rank's place among
+    the host's cards, ``rank % device_count`` (``cuda:0`` without one), as
+    ``launch/mesh.py::slice_mesh`` places ranks."""
+    if mesh.device_type != "cuda":
+        return torch.device(mesh.device_type)
+    if dist.get_backend() == "fake":
+        return torch.device("cuda", mesh.get_rank() % max(torch.cuda.device_count(), 1))
+    return torch.device("cuda", torch.cuda.current_device())
 
 
 def local_shard(full: torch.Tensor, mesh, placements: tuple) -> torch.Tensor:

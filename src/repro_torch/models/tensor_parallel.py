@@ -26,10 +26,13 @@ between layers is the caller's (``transformer.forward``); the attention
 block's Megatron layout (q / k / v over heads) and the MoE block's experts
 over ``"model"`` are this module's local layouts.
 
+A KV cache that ``SERVE_RULES`` split along ``head_dim`` (kv heads that do
+not divide ``"model"``) runs the attention block whole on every rank and
+contracts ``head_dim`` across the model axis (:func:`_attn_head_dim`).
+
 Not yet run sharded (each raises ``NotImplementedError``): mLSTM and sLSTM
-blocks, a KV cache sharded over ``head_dim`` (kv heads that do not divide
-``"model"`` under ``SERVE_RULES``), an MLA or a mamba2 block with a cache,
-and the sort dispatch of a MoE block with the batch split.
+blocks, an MLA or a mamba2 block with a cache, a cache split along its
+sequence, and the sort dispatch of a MoE block with the batch split.
 """
 
 from __future__ import annotations
@@ -256,11 +259,114 @@ def _cache_arg(loc, t: DTensor, dims: dict) -> torch.Tensor:
     return t.to_local()
 
 
+def _head_dim_sharded(t: DTensor, mesh, tp_axis) -> bool:
+    """Whether a per-layer KV cache leaf ``[B, T, KV, Dh]`` is split over
+    the model axis along ``head_dim`` (``SERVE_RULES`` when the kv heads do
+    not divide that axis)."""
+    return (tp_axis is not None
+            and t.placements[tuple(mesh.mesh_dim_names).index(tp_axis)] == Shard(t.dim() - 1))
+
+
+def _reduce_partial(loc, local: torch.Tensor, dims: dict, axis: str) -> torch.Tensor:
+    """The sum over ``axis`` of each rank's ``local`` partial sum (an
+    all-reduce), laid out as ``dims`` otherwise."""
+    pl = list(loc.placements(dims))
+    pl[loc.names.index(axis)] = Partial()
+    dt = DTensor.from_local(local, loc.mesh, tuple(pl), run_check=False)
+    return dt.redistribute(loc.mesh, loc.placements(dims)).to_local()
+
+
+def _gather_dim(loc, local: torch.Tensor, dims: dict, axis: str, dim: int) -> torch.Tensor:
+    """The whole of tensor dim ``dim``, whose slices lie over ``axis`` (an
+    all-gather), laid out as ``dims`` otherwise."""
+    dt = DTensor.from_local(local, loc.mesh, loc.placements({**dims, dim: axis}), run_check=False)
+    return dt.redistribute(loc.mesh, loc.placements(dims)).to_local()
+
+
+def _attn_head_dim(bdef, p, x: DTensor, cfg, cache, cache_index, mode, engine, tp_axis) -> DTensor:
+    """ln1 + attention with the KV cache split over the model axis along
+    ``head_dim`` (each rank holds every kv head's slice ``Dh / tp``).  The
+    block runs whole on every rank (its weights gathered, as when the heads
+    do not split): the projections and rope need the whole head, and each
+    rank writes its slice of the roped k and v into its cache shard.
+
+    * Decode contracts ``head_dim``: each rank takes its slice of q against
+      its cache shard, partial scores ``[B, KV, G, T]`` in float32; one
+      all-reduce over the model axis sums them (GSPMD's contraction in the
+      reference).  The softmax then runs whole on every rank, ``P v`` on the
+      local slice of v, and an all-gather over the model axis joins the
+      output's ``[B, 1, H, Dh / tp]`` slices.  That moves ``4 B H T`` bytes
+      a layer (2.4 MB at smollm-135m's 128 x 32k decode on 512 cards) where
+      gathering the layer's cache would move ``2 B T KV Dh`` elements (50 MB
+      in bf16 there).
+    * Prefill attends over the fresh k / v rounded through the cache's dtype,
+      which is what the cache would hand back (a ring cache attends over the
+      fresh k / v, as the one-device block does); rows already in the cache
+      (``cache_index > 0``) are gathered over the model axis first.
+
+    The output is replicated over the model axis, as the block's work is."""
+    mesh, rules = _ctx()
+    B, S = x.shape[0], x.shape[1]
+    loc, baxes = _local(mesh, rules, B, tp_axis, False)
+    bd = {0: baxes} if baxes else {}
+    c = {key: _cache_arg(loc, t, {**bd, 3: tp_axis}) for key, t in cache.items()}
+    xl = loc.arg(x, bd)
+    pa = p.attn
+    pl = SimpleNamespace(wq=loc.arg(pa.wq), wk=loc.arg(pa.wk), wv=loc.arg(pa.wv),
+                         wo=loc.arg(pa.wo))
+    h = rms_norm(xl, loc.arg(p.ln1), cfg.norm_eps)
+    Dl = c["k"].shape[3]
+    lo = loc.coord(tp_axis) * Dl
+    dtype = c["k"].dtype
+    ring = attn._is_ring(bdef, c)
+    ci = cache_index or 0
+    bl = xl.shape[0]
+    if mode == "decode":
+        positions = torch.full((bl, 1), ci, dtype=torch.int32, device=xl.device)
+        q, k, v = attn._project_qkv(pl, h, cfg, positions, h.dtype)
+        slot, window = (ci % c["k"].shape[1], -1) if ring else (ci, bdef.window)
+        c["k"][:, slot] = k[:, 0, :, lo:lo + Dl].to(dtype)
+        c["v"][:, slot] = v[:, 0, :, lo:lo + Dl].to(dtype)
+        H, D = q.shape[2], q.shape[3]
+        KV = c["k"].shape[2]
+        qg = q[..., lo:lo + Dl].reshape(bl, KV, H // KV, Dl)
+        part = torch.einsum("bkgd,btkd->bkgt", qg.float(), c["k"].float())
+        s = _reduce_partial(loc, part, bd, tp_axis) * (1.0 / math.sqrt(D))
+        probs = attn.decode_probs(s, ci, window, cfg.attn_softcap, q.dtype)
+        out_dtype = torch.promote_types(q.dtype, dtype)
+        o = torch.einsum("bkgt,btkd->bkgd", probs.float(), c["v"].float()).to(out_dtype)
+        o = _gather_dim(loc, o.reshape(bl, 1, H, Dl), bd, tp_axis, 3)
+    else:
+        positions = (torch.arange(S, device=xl.device) + ci).expand(bl, S)
+        q, k, v = attn._project_qkv(pl, h, cfg, positions, h.dtype)
+        kw = dict(window=bdef.window, attn_softcap=cfg.attn_softcap, engine=engine,
+                  q_chunk=cfg.q_chunk)
+        if ring:
+            o = attn.attention_full(q, k, v, **kw)
+            W = c["k"].shape[1]
+            take = min(W, S)
+            slots = torch.arange(S - take, S, device=xl.device) % W
+            c["k"][:, slots] = k[:, S - take:, :, lo:lo + Dl].to(dtype)
+            c["v"][:, slots] = v[:, S - take:, :, lo:lo + Dl].to(dtype)
+        else:
+            kc, vc = k.to(dtype), v.to(dtype)
+            c["k"][:, ci:ci + S] = kc[..., lo:lo + Dl]
+            c["v"][:, ci:ci + S] = vc[..., lo:lo + Dl]
+            if ci:
+                kc = torch.cat([_gather_dim(loc, c["k"][:, :ci], bd, tp_axis, 3), kc], dim=1)
+                vc = torch.cat([_gather_dim(loc, c["v"][:, :ci], bd, tp_axis, 3), vc], dim=1)
+            o = attn.attention_full(q, kc, vc, q_offset=ci, kv_len=ci + S, **kw)
+    return loc.out(attn._out_proj(pl, o, xl.dtype), bd)
+
+
 def _attn(bdef, p, x: DTensor, cfg, cache, cache_index, mode, engine) -> DTensor:
     """ln1 + attention over this rank's heads; a partial sum over the model
-    axis (the flash-attention kernel runs on the local heads)."""
+    axis (the flash-attention kernel runs on the local heads).  A cache
+    split along ``head_dim`` takes :func:`_attn_head_dim`."""
     mesh, rules = _ctx()
     tp_axis, tp = _tp(mesh, rules)
+    if cache is not None and _head_dim_sharded(cache["k"], mesh, tp_axis):
+        return _attn_head_dim(bdef, p, x, cfg, cache, cache_index, mode, engine, tp_axis)
     B, S = x.shape[0], x.shape[1]
     H, KV = cfg.n_heads, cfg.n_kv_heads
     split = _split_over(tp_axis, H, tp)

@@ -142,6 +142,9 @@ def _rows(v, i: int, m: int):
     if isinstance(v, DTensor):
         local = v.to_local()
         b = local.shape[0] // m
+        if b == 0:
+            raise NotImplementedError(f"{m} microbatches of a data shard of {local.shape[0]} "
+                                      f"rows")
         return DTensor.from_local(local[i * b:(i + 1) * b], v.device_mesh, v.placements,
                                   run_check=False)
     b = v.shape[0] // m

@@ -166,7 +166,8 @@ def _broad_handlers(path: Path):
      "tune/objective.py", "kernels/ssd.py", "models/mamba2.py", "kernels/slstm.py",
      "models/ssm_xlstm.py", "models/moe.py", "core/distributed.py", "models/sharding.py",
      "models/tensor_parallel.py", "launch/mesh.py", "launch/specs.py", "train/compression.py",
-     "train/pipeline_parallel.py"],
+     "train/pipeline_parallel.py", "launch/op_analysis.py", "launch/roofline.py",
+     "launch/perf_compare.py"],
 )
 def test_sampling_path_has_no_broad_except(rel):
     assert list(_broad_handlers(PORT / rel)) == []
@@ -214,6 +215,47 @@ def test_scheduler_broad_except_is_the_failed_trial():
     assert "self._log('failed', slice_id, trial.number)" in body
     assert not any(isinstance(n, ast.Raise) for n in ast.walk(handler))
     assert all(mod.split(".")[0] != "torch" for mod in _imported_modules(path))
+
+
+#: the launch analysis tooling (the reference's ``launch/`` dry-run modules)
+ANALYSIS_MODULES = ("op_analysis", "dryrun", "roofline", "perf_compare")
+
+
+@pytest.mark.parametrize("name", ANALYSIS_MODULES)
+def test_analysis_modules_are_scanned_and_import_alone(name):
+    """Each analysis module is in the import scan above and imports, and
+    builds what it exports, with ``jax`` and ``repro`` blocked."""
+    scanned = {p.relative_to(PORT).as_posix() for p in _port_files() if PORT in p.parents}
+    assert f"launch/{name}.py" in scanned
+    code = textwrap.dedent(f"""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["repro"] = None
+        import repro_torch.launch.{name} as mod
+        assert not any(m == "jax" or m.startswith(("jax.", "repro.")) for m in sys.modules
+                       if sys.modules[m] is not None)
+        print("ok", mod.__name__)
+    """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok ")
+
+
+def test_dryrun_broad_except_records_the_cell():
+    """The dry-run's one broad handler is ``--all``'s: it records the failing
+    cell with its exception and traceback, the run goes on, and the exit
+    status is 1."""
+    path = PORT / "launch" / "dryrun.py"
+    (line,) = list(_broad_handlers(path))
+    tree = ast.parse(path.read_text())
+    handler = next(n for n in ast.walk(tree)
+                   if isinstance(n, ast.ExceptHandler) and n.lineno == line)
+    body = ast.unparse(handler)
+    assert "ok=False" in body and "traceback.print_exc()" in body
+    assert not any(isinstance(n, ast.Raise) for n in ast.walk(handler))
+    assert "return 1" in path.read_text()
 
 
 def test_import_scan_covers_the_storage_slice():

@@ -31,7 +31,11 @@ eating the suite's limit.  Each test reads its case's result.
   the first logits with a float32 cache within atol 1e-5 / rtol 1e-4 of the
   unsharded prefill step's (a bf16 cache turns float32 differences into
   bf16 roundings of k / v), and with the ``Engine``'s bf16 cache the 8
-  greedy tokens of each of 4 prompts equal to the ``Engine``'s.
+  greedy tokens of each of 4 prompts equal to the ``Engine``'s.  smollm's
+  (3 heads, 3 kv heads: neither divides "model", so the KV cache is split
+  along ``head_dim``): a prefill and 4 decode steps on the (2, 2) mesh and
+  on the (1, 2) halves of a (2, 1, 2) mesh, float32 with a float32 cache,
+  every logit within 1e-5 of the one-process ``Engine``'s.
 * **Sharded init.**  ``make_sharded_init`` gathered is bit for bit
   ``init_model_params`` with the same seed; the optimizer state is zeros
   in its placements.
@@ -176,6 +180,51 @@ def _case_serve(ctx):
             "cache": cache_sharded}
 
 
+def _case_head_dim_cache(ctx):
+    """smollm's smoke config (3 heads, 3 kv heads of 16) under ``SERVE_RULES``:
+    neither head count divides "model", so the KV cache is split along
+    ``head_dim``; a prefill and 4 decode steps (teacher-forced with the
+    ``Engine``'s greedy tokens), float32 with a float32 cache, on the (2, 2)
+    mesh and on the (1, 2) halves of a (2, 1, 2) mesh (two processes each)."""
+    import copy
+
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.launch.specs import build_step
+    from repro_torch.models import init_cache, init_model_params
+    from repro_torch.serve import Engine
+
+    cfg = _cfg("smollm-135m")
+    model = init_model_params(cfg, torch.Generator().manual_seed(11), "cpu")
+    rng = np.random.RandomState(11)
+    tokens = torch.from_numpy(rng.randint(0, cfg.vocab, size=(4, 16))).long()
+    capacity, steps = 32, 4
+    f32_cache = lambda: init_cache(cfg, 4, capacity, torch.float32, device="cpu")  # noqa: E731
+    engine = Engine(cfg, copy.deepcopy(model), capacity=capacity, slots=4, device="cpu")
+    logits, cache = engine._prefill(engine.model, {"tokens": tokens}, f32_cache())
+    want, fed = [logits], []
+    for i in range(steps):
+        fed.append(torch.argmax(logits, dim=-1)[:, :1])
+        logits, cache = engine._decode(engine.model, fed[-1], cache, tokens.shape[1] + i)
+        want.append(logits)
+    halves = init_device_mesh("cpu", (2, 1, 2), mesh_dim_names=("replica", "data", "model"))
+    out = {}
+    for name, mesh in (("(2, 2)", ctx["mesh"]), ("(1, 2)", halves["data", "model"])):
+        prefill = build_step(cfg, "prefill_32k", mesh)
+        decode = build_step(cfg, "decode_32k", mesh)
+        smodel, sbatch, scache = prefill.shard(copy.deepcopy(model), {"tokens": tokens},
+                                               f32_cache())
+        logits, scache = prefill.step(smodel, sbatch, scache)
+        got = [logits.full_tensor()]
+        for i in range(steps):
+            logits, scache = decode.step(smodel, decode.shard(None, fed[i])[1], scache,
+                                         tokens.shape[1] + i)
+            got.append(logits.full_tensor())
+        out[name] = {"worst": max(float((g - w).abs().max()) for g, w in zip(got, want)),
+                     "cache": [str(t.placements) for t in scache["stack"]["0"].values()]}
+    return out
+
+
 def _case_init(ctx):
     from repro_torch.models import init_model_params
     from repro_torch.models.sharding import TRAIN_RULES
@@ -316,7 +365,8 @@ def _case_scheduler(ctx):
 
 CASES = ([(f"train:{a}", _case_train, (a,)) for a in TRAIN_ARCHS]
          + [("train:tinyllama-1.1b:microbatch", _case_train, ("tinyllama-1.1b", 2)),
-            ("serve", _case_serve, ()), ("init", _case_init, ()),
+            ("serve", _case_serve, ()), ("head_dim_cache", _case_head_dim_cache, ()),
+            ("init", _case_init, ()),
             ("compression", _case_compression, ()), ("pipeline", _case_pipeline, ()),
             ("scheduler", _case_scheduler, ())])
 
@@ -417,6 +467,17 @@ def test_sharded_serving_matches_the_engine(results):
     assert v["got"] == v["want"]
     # the stacked [L, B, T, KV, Dh] cache: batch over "data", kv heads over "model"
     assert v["cache"] == ["(Shard(dim=1), Shard(dim=3))"] * 2, v["cache"]
+
+
+@pytest.mark.parametrize("mesh", ["(2, 2)", "(1, 2)"])
+def test_head_dim_cache_matches_the_engine(results, mesh):
+    """The attention block's partial scores over ``head_dim``, summed over
+    "model", give the one-process ``Engine``'s logits within 1e-5 (float32
+    sums in another order)."""
+    v = _value(results, "head_dim_cache")[mesh]
+    assert v["worst"] <= 1e-5, v["worst"]
+    # the stacked [L, B, T, KV, Dh] cache: batch over "data", head_dim over "model"
+    assert v["cache"] == ["(Shard(dim=1), Shard(dim=4))"] * 2, v["cache"]
 
 
 def test_sharded_init_is_the_plain_init(results):
