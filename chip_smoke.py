@@ -272,6 +272,28 @@ Phases, each of which fails the run by raising:
     512 chips, under 80 GB a card, FLOPs counted); (c) tinyllama-1.1b's
     ``train_4k`` cell at full width cut to 6 layers on the 256-rank
     single-pod world, its flash and cross-entropy op counts and FLOP shares.
+33. the sharded serving caches: (a) ``launch.dryrun.run_cell`` on fake CUDA
+    tensors at full width cut to 2 layers (``two_layers``) of gemma2-9b's
+    ``long_500k`` and deepseek-v2-lite-16b's ``prefill_32k`` on 512 ranks
+    and zamba2-1.2b's and musicgen-medium's ``decode_32k`` on 256: memory a
+    card under 80 GB, the flash and SSD op counts (none: decode and MLA
+    blocks launch no kernel), collectives by mesh dim (gemma2's sequence
+    combine on "pod" and "data", zamba2's conv gather on "model"); (b) in
+    phase 31's world, a (1, 2, 2) ("pod", "data", "model") mesh over 4
+    NCCL ranks with 4 cards (batch 1 splits every KV cache's rows over
+    "data"), else a (1, 1, 1) mesh over one (which says that no split path
+    ran), gemma2-9b (one window and one global layer) and zamba2-1.2b (one
+    mamba2 block and the shared attention block) at full width in float32
+    with a float32 cache of ``long_500k``'s 524288 slots: a 4101-token
+    prompt (it crosses the window ring's shard boundary and wraps it) and 4
+    decode steps through ``build_step``'s serving cells, every logit within
+    atol 1e-5 / rtol 1e-4 of the unsharded ``Engine`` on the plain PyTorch
+    versions of the kernels on the same card (so the float32 flash kernel
+    is held to its plain version at head width 256, window 4096 and softcap
+    50, and the SSD kernel from a cached state); the sharded prefill
+    counted by ``op_analysis.analyze_step``: each rank's flash and SSD
+    launches equal to its ops' counts (2 / 0 and 1 / 1), none in the decode
+    steps.
 
 Each phase's wall seconds are printed after it and in a line before the
 total.
@@ -4320,13 +4342,15 @@ def check_sharded(res: dict) -> None:
     assert max(pp["out"], pp["grad_params"], pp["grad_x"]) <= 1e-5, pp
 
 
-def _run_world(world: int, tmp: str) -> dict:
+def _run_world(world: int, tmp: str, rank_fn) -> dict:
+    """``rank_fn(rank, world, store, out_path)`` on every rank of a world of
+    ``world`` (in this process for one, else spawned); rank 0's result."""
     store, out_path = os.path.join(tmp, "store"), os.path.join(tmp, "rank0.json")
     if world == 1:
-        return sharded_rank(0, 1, store, out_path)
+        return rank_fn(0, 1, store, out_path)
     import torch.multiprocessing as mp
 
-    mp.start_processes(sharded_rank, args=(world, store, out_path), nprocs=world,
+    mp.start_processes(rank_fn, args=(world, store, out_path), nprocs=world,
                        start_method="spawn", join=True)
     with open(out_path) as f:
         return json.load(f)
@@ -4371,7 +4395,7 @@ def phase_sharded() -> dict:
     os.makedirs(build, exist_ok=True)
     tmp = tempfile.mkdtemp(prefix="phase31-", dir=build)
     try:
-        res = _run_world(world, tmp)
+        res = _run_world(world, tmp, sharded_rank)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"  {nvidia_smi('name,power.limit')}")
@@ -4629,6 +4653,230 @@ def phase_op_analysis() -> dict:
     return out
 
 
+#: phase 33(a): one dry-run cell for each mechanism of the sharded serving caches, on fake
+#: CUDA tensors at full width, depth cut to 2 layers (``two_layers``)
+SERVE_CACHE_CELLS = (("gemma2-9b", "long_500k", True),
+                     ("deepseek-v2-lite-16b", "prefill_32k", True),
+                     ("zamba2-1.2b", "decode_32k", False),
+                     ("musicgen-medium", "decode_32k", False))
+#: phase 33(b): a batch-1 prompt against a cache of long_500k's capacity that crosses the shard
+#: boundary of gemma2's window ring (4096 slots, 2048 a shard over "data") and wraps it, then
+#: decode steps, float32 with a float32 cache
+SERVE_CACHE_PROMPT, SERVE_CACHE_STEPS = 4101, 4
+
+
+def two_layers(full):
+    """``full`` at its own widths cut to 2 layers: zamba2 to one mamba2
+    block and its shared attention block, deepseek to its dense head block
+    and one MLA / MoE block, gemma2 to one window and one global layer, the
+    others to their first 2 stacked blocks."""
+    if full.has_shared_block:
+        return dataclasses.replace(full, superblock=(full.superblock[0], full.superblock[-1]),
+                                   n_superblocks=1, tail_blocks=(), n_layers=2)
+    return cut_depth(full, 2 // (len(full.head_blocks) + len(full.superblock)))
+
+
+def _serve_cache_cells() -> dict:
+    """Phase 33(a): ``launch.dryrun.run_cell`` of ``SERVE_CACHE_CELLS`` on
+    fake CUDA tensors (the kernels' ops counted): memory a card, the flash
+    and SSD op counts, collectives by mesh dim."""
+    from repro_torch import configs
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.op_analysis import kernel_ops
+    from repro_torch.launch.roofline import HBM_BYTES
+
+    out_dir = os.path.join(ROOT, "build", "phase33_dryrun")
+    out = {}
+    for arch, shape, multi in SERVE_CACHE_CELLS:
+        t0 = time.perf_counter()
+        rec = run_cell(arch, shape, multi, out_dir=out_dir, verbose=False, device="cuda",
+                       cfg=two_layers(configs.get_config(arch)))
+        kops = kernel_ops(rec["op_stats"])
+        row = {"n_chips": rec["n_chips"], "memory": rec["memory"]["per_device_total"],
+               "flash_ops": kops.get("flash_attention", {}).get("count", 0),
+               "ssd_ops": kops.get("ssd", {}).get("count", 0),
+               "collectives_by_dim": rec["op_stats"]["collectives_by_dim"],
+               "seconds": time.perf_counter() - t0}
+        print(f"  (a) {arch} {shape} on {rec['n_chips']} fake ranks, 2 layers: "
+              f"{row['memory'] / 2**30:.3f} GiB a card; flash ops {row['flash_ops']}, SSD ops "
+              f"{row['ssd_ops']} (decode and MLA blocks launch no kernel); collectives "
+              f"{row['collectives_by_dim']}; {row['seconds']:.1f} s")
+        assert row["memory"] < HBM_BYTES, row
+        assert row["flash_ops"] == row["ssd_ops"] == 0, row
+        out[f"{arch}:{shape}:{rec['mesh']}"] = row
+    # batch 1 on 512 cards leaves "pod" x "data" to the rows: the sequence combine over both
+    by_dim = out["gemma2-9b:long_500k:2x32x8"]["collectives_by_dim"]
+    assert by_dim["pod"]["all-reduce"] > 0 and by_dim["data"]["all-reduce"] > 0, by_dim
+    assert "all-gather" in out["zamba2-1.2b:decode_32k:32x8"]["collectives_by_dim"]["model"]
+    return out
+
+
+def _serve_cache_arch(arch: str, mesh) -> dict:
+    """Phase 33(b) for one arch on this rank: the unsharded ``Engine``'s
+    prefill and decode steps on the plain PyTorch versions of the kernels
+    (``engine="torch"``) against ``build_step``'s serving cells on ``mesh``,
+    whose prefill runs the flash and SSD kernels at this path's shapes
+    (gemma2's head width 256, window 4096 and softcap 50 over a 4101-token
+    prompt; zamba2's SSD from the local state shard and its shared
+    attention), float32 with a float32 cache of long_500k's capacity; the
+    sharded prefill counted by ``analyze_step`` (the kernels' ops) with the
+    launch counters set to 0 just before it, the decode steps' launches."""
+    from torch.distributed.tensor import Shard
+
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd
+    from repro_torch.launch.op_analysis import analyze_step, kernel_ops
+    from repro_torch.launch.specs import build_step
+    from repro_torch.models import SHAPES, init_cache, init_model_params
+    from repro_torch.serve import Engine
+
+    cfg = dataclasses.replace(two_layers(configs.get_config(arch)), compute_dtype="float32",
+                              serve_param_dtype="float32")
+    capacity = SHAPES["long_500k"].seq_len
+    rng = np.random.RandomState(33)
+    prompt = torch.from_numpy(rng.randint(0, cfg.vocab, (1, SERVE_CACHE_PROMPT))).cuda()
+    fed = [torch.from_numpy(rng.randint(0, cfg.vocab, (1, 1))).cuda()
+           for _ in range(SERVE_CACHE_STEPS)]
+    gen = lambda: torch.Generator(device="cuda").manual_seed(33)  # noqa: E731
+    f32_cache = lambda: init_cache(cfg, 1, capacity, torch.float32, device="cuda")  # noqa: E731
+    engine = Engine(cfg, init_model_params(cfg, gen(), "cuda"), capacity=capacity, slots=1,
+                    engine="torch")
+    logits, cache = engine._prefill(engine.model, {"tokens": prompt}, f32_cache())
+    want = [logits]
+    for i, tok in enumerate(fed):
+        logits, cache = engine._decode(engine.model, tok, cache, SERVE_CACHE_PROMPT + i)
+        want.append(logits)
+    del engine, cache
+    torch.cuda.empty_cache()
+    prefill = build_step(cfg, "prefill_32k", mesh)
+    decode = build_step(cfg, "decode_32k", mesh)
+    smodel, sbatch, scache = prefill.shard(init_model_params(cfg, gen(), "cuda"),
+                                           {"tokens": prompt}, f32_cache())
+    torch.cuda.empty_cache()
+    held = {}
+    fa.reset_launches()
+    ssd.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = analyze_step(lambda *a: held.setdefault("out", prefill.step(*a)), smodel, sbatch,
+                         scache, mesh=mesh, memory=False)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    launches = {"flash_attention": fa.launches(), "ssd": ssd.launches()}
+    kops = kernel_ops(stats)
+    ops = {k: kops.get(k, {"count": 0})["count"] for k in launches}
+    logits, scache = held["out"]
+    got = [logits.full_tensor()]
+    fa.reset_launches()
+    ssd.reset_launches()
+    t0 = time.perf_counter()
+    for i, tok in enumerate(fed):
+        logits, scache = decode.step(smodel, decode.shard(None, tok)[1], scache,
+                                     SERVE_CACHE_PROMPT + i)
+        got.append(logits.full_tensor())
+    torch.cuda.synchronize()
+    decode_s = (time.perf_counter() - t0) / SERVE_CACHE_STEPS
+    decode_launches = {"flash_attention": fa.launches(), "ssd": ssd.launches()}
+    excess = max(float(((g - w).abs() - (SHARDED_ATOL + SHARDED_RTOL * w.abs())).max())
+                 for g, w in zip(got, want))
+    worst = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    kv = {pos: c for pos, c in scache["stack"].items() if "k" in c}
+    data = mesh.mesh_dim_names.index("data")
+    split = {pos: c["k"].placements[data] == Shard(2) and mesh.size(data) > 1
+             for pos, c in kv.items()}
+    rows = {pos: c["k"].to_local().shape[2] for pos, c in kv.items()}
+    del smodel, scache, held
+    torch.cuda.empty_cache()
+    return {"layers": cfg.n_layers, "capacity": capacity, "prompt": SERVE_CACHE_PROMPT,
+            "excess": excess, "worst_abs": worst, "launches": launches, "ops": ops,
+            "decode_launches": decode_launches, "prefill_s": prefill_s, "decode_s": decode_s,
+            "seq_split": split, "local_rows": rows,
+            "placements": {pos: str(c["k"].placements) for pos, c in kv.items()}}
+
+
+def serve_cache_rank(rank: int, world: int, store: str, out_path: str) -> dict:
+    """Phase 33(b) on one rank (``cuda:rank``), in phase 31's world: a (1, 2,
+    2) ("pod", "data", "model") mesh over 4 NCCL ranks, where batch 1 leaves
+    "data" to the caches' rows, else a (1, 1, 1) mesh over one; rank 0 writes
+    the result to ``out_path``.  Every check raises on this rank."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_host_mesh
+
+    torch.cuda.set_device(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(logging.ERROR)
+    _build.load()
+    dist.init_process_group("nccl", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world)
+    try:
+        shape = (1, 2, 2) if world == 4 else (1, 1, 1)
+        mesh = make_host_mesh(shape, ("pod", "data", "model"), device_type="cuda")
+        res = {"rank": rank, "world": world, "mesh": list(shape)}
+        for arch in ("gemma2-9b", "zamba2-1.2b"):
+            res[arch] = _serve_cache_arch(arch, mesh)
+        every = [None] * world
+        dist.all_gather_object(every, {a: res[a]["launches"] for a in ("gemma2-9b", "zamba2-1.2b")})
+        res["ranks"] = every
+        if rank == 0:  # before the checks, so that a failing run shows its numbers
+            for arch in ("gemma2-9b", "zamba2-1.2b"):
+                print(f"  (b) {arch}: {res[arch]}")
+            print(f"  (b) flash / SSD launches a rank in the sharded prefill: {every}")
+            if world == 1:
+                print("  (b) a world of one: batch 1 takes the size-1 batch axes, so no cache "
+                      "was split along its sequence or over cards; the split paths did not run "
+                      "here (tests/test_torch_serve_sharded.py runs them on 4 CPU ranks)")
+        check_serve_cache(res)
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:
+        with open(out_path, "w") as f:
+            json.dump(res, f)
+    return res
+
+
+def check_serve_cache(res: dict) -> None:
+    """Phase 33(b)'s assertions on one rank's result: the float32 bound of
+    phase 31 against the unsharded ``Engine`` on the plain versions; one
+    flash launch an attention block and one SSD launch a mamba2 block in
+    the prefill, each its op's count, none in decode; on 4 ranks every KV
+    cache split along its sequence over "data"."""
+    for arch, flash, ssd_n in (("gemma2-9b", 2, 0), ("zamba2-1.2b", 1, 1)):
+        r = res[arch]
+        assert r["excess"] <= 0.0, (arch, r["excess"], r["worst_abs"])
+        assert r["launches"] == r["ops"] == {"flash_attention": flash, "ssd": ssd_n}, (arch, r)
+        assert r["decode_launches"] == {"flash_attention": 0, "ssd": 0}, (arch, r)
+        assert all(r["seq_split"].values()) == (res["world"] == 4), (arch, r["seq_split"])
+
+
+def phase_serve_cache() -> dict:
+    """Phase 33: the sharded serving caches: (a) their dry-run cells on fake
+    CUDA tensors, (b) gemma2 and zamba2 served on phase 31's world through
+    the kernels against the unsharded ``Engine`` on their plain versions."""
+    import shutil
+    import tempfile
+
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(logging.ERROR)
+    world, _ = sharded_world()
+    print(f"phase 33: the sharded serving caches; (a) {len(SERVE_CACHE_CELLS)} dry-run cells at "
+          f"full width, 2 layers; (b) gemma2-9b (one window, one global layer) and zamba2-1.2b "
+          f"(one mamba2 and the shared attention block) at full width, a batch-1 prompt of "
+          f"{SERVE_CACHE_PROMPT} tokens and {SERVE_CACHE_STEPS} decode steps against a cache of "
+          f"long_500k's capacity, world {world} ({torch.cuda.device_count()} card(s)); "
+          f"{nvidia_smi('name,power.limit')}")
+    out = {"cells": _serve_cache_cells()}
+    tmp = tempfile.mkdtemp(prefix="phase33-", dir=os.path.join(ROOT, "build"))
+    try:
+        out["served"] = _run_world(world, tmp, serve_cache_rank)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"  {nvidia_smi('name,power.limit')}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every measurement to this JSON file")
@@ -4712,6 +4960,7 @@ def main() -> int:
     tune_slices = timed("30", phase_tune_slices, tune_moe)
     sharded = timed("31", phase_sharded)
     op_analysis = timed("32", phase_op_analysis)
+    serve_cache = timed("33", phase_serve_cache)
 
     shape_rows = optimize_rows + wave_rows
     table = wave_rows[-1]  # the score-table build: the kernel's large shape
@@ -4797,6 +5046,10 @@ def main() -> int:
         "launches_tune_slices": tune_slices["launches"]["flash_attention"],
         "launches_sharded_train": sharded["f32"]["launches"]["flash_attention"],
         "launches_sharded_train_bf16": sharded["bf16"]["launches"]["flash_attention"],
+        "launches_sharded_serve_gemma2": serve_cache["served"]["gemma2-9b"]["launches"][
+            "flash_attention"],
+        "launches_sharded_serve_zamba2": serve_cache["served"]["zamba2-1.2b"]["launches"][
+            "flash_attention"],
         "qwen3_moe_prefill": [{k: r[k] for k in ("B", "Sq", "Skv", "ms", "plain_ms", "bound_ms",
                                                  "bound_by", "max_abs_err")}
                               for r in qwen3["flash_rows"]],
@@ -4859,6 +5112,7 @@ def main() -> int:
         "launches_tune_xlstm": tune_xlstm["launches"]["ssd"],
         "launches_tune_moe": tune_moe["launches"]["ssd"],
         "launches_tune_slices": tune_slices["launches"]["ssd"],
+        "launches_sharded_serve_zamba2": serve_cache["served"]["zamba2-1.2b"]["launches"]["ssd"],
         "max_abs_err": max(r["max_abs_err"] for r in ssd_rows),
         "ms": ssd_main["ms"],
         "card_ms": ssd_main["card_ms"],
@@ -4923,7 +5177,7 @@ def main() -> int:
                        "serve_deepseek": serve_deepseek, "train_deepseek": train_deepseek,
                        "qwen3_moe": qwen3, "tune_moe": tune_moe, "storage": storage,
                        "tune_slices": tune_slices, "sharded": sharded,
-                       "op_analysis": op_analysis,
+                       "op_analysis": op_analysis, "serve_cache": serve_cache,
                        "phase_seconds": phase_s,
                        "kernels": kernels}, f,
                       indent=1)

@@ -135,9 +135,10 @@ class Cell:
                 out.append({k: distribute(v, self.mesh, logical_to_sharding(
                     _batch_logical(k, v.dim()), v.shape, self.mesh, self.rules))
                     for k, v in value.items()})
-            elif isinstance(value, torch.Tensor) and value.dim() == 2:  # decode tokens
+            elif isinstance(value, torch.Tensor) and value.dim() in (2, 3):  # decode tokens
+                # [B, 1], or audio [B, K, 1]: laid out as build_step lays them
                 out.append(distribute(value, self.mesh, logical_to_sharding(
-                    ("batch", None), value.shape, self.mesh, self.rules)))
+                    ("batch", None, None)[:value.dim()], value.shape, self.mesh, self.rules)))
             else:
                 out.append(value)
         return tuple(out)

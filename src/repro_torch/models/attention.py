@@ -48,6 +48,7 @@ __all__ = [
     "attention_full",
     "attention_decode",
     "decode_probs",
+    "decode_scores",
     "attn_block_full",
     "attn_block_decode",
     "mla_block_full",
@@ -160,14 +161,22 @@ def decode_probs(s: torch.Tensor, index: int, window: int, attn_softcap, dtype) 
     (already scaled): keys after ``index`` or ``window`` or more positions
     below it masked at ``-1e30``, the softcap, the softmax, rounded to
     ``dtype``."""
-    k_pos = torch.arange(s.shape[-1], device=s.device)
+    return torch.softmax(decode_scores(s, index, window, attn_softcap), dim=-1).to(dtype)
+
+
+def decode_scores(s: torch.Tensor, index: int, window: int, attn_softcap,
+                  first: int = 0) -> torch.Tensor:
+    """:func:`decode_probs`' scores before the softmax: softcapped, and
+    masked at ``-1e30`` where the key's position (``first`` for the last
+    dim's first entry: a shard of a cache split along its sequence) is after
+    ``index`` or ``window`` or more positions below it."""
+    k_pos = first + torch.arange(s.shape[-1], device=s.device)
     mask = k_pos <= index
     if window > 0:
         mask &= (index - k_pos) < window
     if attn_softcap:
         s = softcap(s, attn_softcap)
-    s = torch.where(mask, s, torch.full((), -1e30, device=s.device))
-    return torch.softmax(s, dim=-1).to(dtype)
+    return torch.where(mask, s, torch.full((), -1e30, device=s.device))
 
 
 # -- block-level wrappers (projections + rope + attention) ------------------------------------
@@ -189,10 +198,11 @@ def _out_proj(p, o, dtype):
     return o.reshape(B, S, H * Dh) @ p.wo.to(dtype).reshape(H * Dh, -1)
 
 
-def _is_ring(bdef, cache) -> bool:
-    """Sliding-window layers keep only a window-sized ring cache (gemma2's
-    local layers: 4096 slots instead of the full context)."""
-    return bdef.window > 0 and cache["k"].shape[1] <= bdef.window
+def _is_ring(bdef, capacity: int) -> bool:
+    """Whether a KV cache of ``capacity`` slots is a ring: sliding-window
+    layers keep only a window-sized ring cache (gemma2's local layers: 4096
+    slots instead of the full context)."""
+    return 0 < bdef.window and capacity <= bdef.window
 
 
 def attn_block_full(p, x, cfg, bdef, positions, cache=None, cache_index=None, engine="auto"):
@@ -200,7 +210,7 @@ def attn_block_full(p, x, cfg, bdef, positions, cache=None, cache_index=None, en
     (when given) is updated in place."""
     B, S, d = x.shape
     q, k, v = _project_qkv(p, x, cfg, positions, x.dtype)
-    if cache is not None and _is_ring(bdef, cache):
+    if cache is not None and _is_ring(bdef, cache["k"].shape[1]):
         # prefill a window ring cache: attend over the fresh k/v, store the
         # last W tokens at slots (pos % W).  (Ring prefill assumes
         # cache_index == 0.)
@@ -229,7 +239,7 @@ def attn_block_decode(p, x, cfg, bdef, cache, index):
     """One-token decode with the cache updated in place.  x: [B, 1, d]."""
     positions = torch.full((x.shape[0], 1), index, dtype=torch.int32, device=x.device)
     q, k, v = _project_qkv(p, x, cfg, positions, x.dtype)
-    if _is_ring(bdef, cache):
+    if _is_ring(bdef, cache["k"].shape[1]):
         # ring slots hold exactly the last W positions (rope was applied at the
         # absolute position before caching); a slot s is filled iff s <= index.
         slot = index % cache["k"].shape[1]

@@ -31,6 +31,7 @@ __all__ = [
     "mamba2_block_decode",
     "empty_mamba2_state",
     "ssd_chunked",
+    "ssd_step",
 ]
 
 
@@ -140,20 +141,26 @@ def mamba2_block_decode(p, x, cfg, bdef, cache, index):
     """One token, ``x`` [B, 1, d]: the O(1) state update, the cache updated
     in place."""
     z, xh, Bm, Cm, dt, A, new_conv = _conv_split(p, x, cfg, cache["conv"])
-    H = xh.shape[2]
-    rep = H // Bm.shape[2]
-    f32 = torch.float32
-    Bh = Bm[:, 0].repeat_interleave(rep, dim=1).to(f32)  # [B, H, N]
-    Ch = Cm[:, 0].repeat_interleave(rep, dim=1).to(f32)
-    dt = dt[:, 0]  # [B, H]
-    dA = torch.exp(dt * A[None, :])
-    x0 = xh[:, 0].to(f32) * dt[..., None]  # [B, H, P]
-    state = cache["state"] * dA[:, :, None, None] + x0[..., :, None] * Bh[..., None, :]
-    y = torch.einsum("bhpn,bhn->bhp", state, Ch)[:, None]  # [B, 1, H, P]
+    y, state = ssd_step(cache["state"], xh[:, 0], dt[:, 0], A, Bm[:, 0], Cm[:, 0])
     out = _mamba_out(p, y, z, xh, cfg, x.dtype)
     cache["conv"].copy_(new_conv)
     cache["state"].copy_(state)
     return out, cache
+
+
+def ssd_step(state, xh, dt, A, Bm, Cm):
+    """One token of the SSD recurrence in float32: ``state`` [B, H, P, N],
+    ``xh`` [B, H, P], ``dt`` [B, H], ``A`` [H], ``Bm`` / ``Cm`` [B, G, N]
+    (each group read by H / G consecutive heads).  Returns ``(y [B, 1, H,
+    P], the new state)``."""
+    f32 = torch.float32
+    rep = xh.shape[1] // Bm.shape[1]
+    Bh = Bm.repeat_interleave(rep, dim=1).to(f32)  # [B, H, N]
+    Ch = Cm.repeat_interleave(rep, dim=1).to(f32)
+    dA = torch.exp(dt * A[None, :])
+    x0 = xh.to(f32) * dt[..., None]  # [B, H, P]
+    state = state * dA[:, :, None, None] + x0[..., :, None] * Bh[..., None, :]
+    return torch.einsum("bhpn,bhn->bhp", state, Ch)[:, None], state
 
 
 def empty_mamba2_state(cfg, batch: int, device=None) -> dict:

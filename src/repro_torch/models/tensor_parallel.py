@@ -26,13 +26,30 @@ between layers is the caller's (``transformer.forward``); the attention
 block's Megatron layout (q / k / v over heads) and the MoE block's experts
 over ``"model"`` are this module's local layouts.
 
-A KV cache that ``SERVE_RULES`` split along ``head_dim`` (kv heads that do
-not divide ``"model"``) runs the attention block whole on every rank and
-contracts ``head_dim`` across the model axis (:func:`_attn_head_dim`).
+The serving caches stay in the layouts ``SERVE_RULES`` give them and are
+written in place on each rank's shard:
 
-Not yet run sharded (each raises ``NotImplementedError``): mLSTM and sLSTM
-blocks, an MLA or a mamba2 block with a cache, a cache split along its
-sequence, and the sort dispatch of a MoE block with the batch split.
+* a KV cache split along ``head_dim`` (kv heads that do not divide
+  ``"model"``) runs the attention block whole on every rank and contracts
+  ``head_dim`` across the model axis (:func:`_attn_head_dim`);
+* a KV or MLA cache split along its sequence (``kv_seq`` over the batch
+  axes the batch leaves free) keeps the reference's layout, the whole
+  sequence on each rank: prefill writes the rows a shard owns, decode
+  combines the shards' softmax with three small all-reduces a layer
+  (:func:`_attend_cache`, :func:`_decode_probs`);
+* the MLA cache's latent and rope columns over ``"model"``: decode contracts
+  them with one all-reduce of the partial scores (:func:`_mla_cache`);
+* the mamba2 SSD state over heads, as the local heads; the conv cache's
+  column shards gathered over ``"model"`` (:func:`_mamba2`);
+* MoE dispatch groups that the batch shards cut (a decode step's few tokens
+  a rank) take the covering groups' choices from every batch shard
+  (:func:`_cut_groups`).
+
+The logits are a local product of the batch rows and the vocabulary shard
+(:func:`logits_from_hidden`).  A cache layout a block cannot serve raises
+``NotImplementedError`` naming the leaf's placements.  Not yet run sharded:
+mLSTM and sLSTM blocks, and the sort dispatch of a MoE block with the batch
+split.
 """
 
 from __future__ import annotations
@@ -47,10 +64,11 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from ..kernels.crossentropy import crossentropy_backward, crossentropy_forward
+from ..kernels.ops import full_float32_matmul
 from ..kernels.ref import crossentropy_lse_ref
 from . import attention as attn
 from . import mamba2 as m2
-from .layers import check_engine, rms_norm
+from .layers import check_engine, rms_norm, softcap
 from .moe import _moe_einsum, _moe_sort, group_size, route
 from .sharding import active, local_shard, logical_to_spec
 
@@ -59,6 +77,7 @@ __all__ = [
     "embed_tokens",
     "rms_norm_rows",
     "cross_entropy",
+    "logits_from_hidden",
 ]
 
 
@@ -255,8 +274,38 @@ def _cache_arg(loc, t: DTensor, dims: dict) -> torch.Tensor:
     the local computation needs."""
     if tuple(t.placements) != loc.placements(dims):
         raise NotImplementedError(f"a cache leaf in {t.placements}: the block needs "
-                                  f"{loc.placements(dims)} (kv heads over the model axis)")
+                                  f"{loc.placements(dims)}")
     return t.to_local()
+
+
+class _Seq:
+    """How a per-layer cache leaf ``[B, T, ...]`` is split along its
+    sequence (``SERVE_RULES``' ``kv_seq``: the batch axes the batch leaves
+    free): the mesh axes its rows lie over (mesh-dim order, the first the
+    major one, as DTensor splits them; ``()`` when whole), the capacity
+    ``total``, the ``rows`` of a shard and this shard's first row ``lo``."""
+
+    def __init__(self, loc, t: DTensor):
+        self.axes = tuple(loc.names[i] for i, p in enumerate(t.placements) if p == Shard(1))
+        n, index = 1, 0
+        for ax in self.axes:
+            size = loc.mesh.size(loc.names.index(ax))
+            n, index = n * size, index * size + loc.coord(ax)
+        self.total = t.shape[1]
+        self.rows = self.total // n
+        self.lo = index * self.rows
+
+    def owns(self, slot: int) -> bool:
+        return self.lo <= slot < self.lo + self.rows
+
+
+def _kv_cache_args(loc, cache: dict, dims: dict) -> "tuple[dict, _Seq]":
+    """The local shards of a KV / MLA cache's leaves ``[B, T, ...]``, laid
+    out as ``dims`` and, along the sequence, as the leaves are (one
+    :class:`_Seq` for all of them)."""
+    seq = _Seq(loc, next(iter(cache.values())))
+    full = {**dims, 1: seq.axes} if seq.axes else dims
+    return {key: _cache_arg(loc, t, full) for key, t in cache.items()}, seq
 
 
 def _head_dim_sharded(t: DTensor, mesh, tp_axis) -> bool:
@@ -267,102 +316,170 @@ def _head_dim_sharded(t: DTensor, mesh, tp_axis) -> bool:
             and t.placements[tuple(mesh.mesh_dim_names).index(tp_axis)] == Shard(t.dim() - 1))
 
 
-def _reduce_partial(loc, local: torch.Tensor, dims: dict, axis: str) -> torch.Tensor:
-    """The sum over ``axis`` of each rank's ``local`` partial sum (an
-    all-reduce), laid out as ``dims`` otherwise."""
-    pl = list(loc.placements(dims))
-    pl[loc.names.index(axis)] = Partial()
-    dt = DTensor.from_local(local, loc.mesh, tuple(pl), run_check=False)
-    return dt.redistribute(loc.mesh, loc.placements(dims)).to_local()
+def _all_reduce(t: torch.Tensor, loc, axes, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """``t`` reduced over the mesh ``axes``, one all-reduce an axis (no
+    gradient: :class:`_AllReduceSum` has one)."""
+    t = t.contiguous()
+    for ax in axes:
+        dist.all_reduce(t, op=op, group=_group(loc.mesh, ax))
+    return t
 
 
-def _gather_dim(loc, local: torch.Tensor, dims: dict, axis: str, dim: int) -> torch.Tensor:
-    """The whole of tensor dim ``dim``, whose slices lie over ``axis`` (an
-    all-gather), laid out as ``dims`` otherwise."""
+def _gather_dim(loc, local: torch.Tensor, dims: dict, axis, dim: int) -> torch.Tensor:
+    """The whole of tensor dim ``dim``, whose slices lie over ``axis`` (a
+    mesh axis, or a tuple of them, the first the major one: an all-gather
+    over each), laid out as ``dims`` otherwise."""
     dt = DTensor.from_local(local, loc.mesh, loc.placements({**dims, dim: axis}), run_check=False)
     return dt.redistribute(loc.mesh, loc.placements(dims)).to_local()
 
 
+def _cache_rows(loc, local: torch.Tensor, dims: dict, seq: _Seq, ci: int,
+                split=None) -> torch.Tensor:
+    """The rows ``0 .. ci`` of a cache leaf whose shard is laid out as
+    ``dims`` besides its sequence, whole along ``dim`` too with ``split =
+    (axis, dim)`` (``dims`` puts ``dim`` over ``axis``): the rows a prefill
+    from ``cache_index = ci`` attends over.  Along the sequence only each
+    shard's first ``min(rows, ci)`` rows are gathered: the rows below ``ci``
+    fill the first shards, and lie in the first one when ``ci`` is below a
+    shard's rows."""
+    if seq.axes:
+        local = _gather_dim(loc, local[:, :min(seq.rows, ci)].contiguous(), dims, seq.axes, 1)
+    if split:
+        axis, dim = split
+        local = _gather_dim(loc, local, {d: a for d, a in dims.items() if d != dim}, axis, dim)
+    return local[:, :ci]
+
+
+def _write_rows(dst: torch.Tensor, src: torch.Tensor, first: int, seq: _Seq) -> None:
+    """``src``'s rows (dim 1), the positions ``first ..``, written into the
+    rows of ``dst`` that this shard owns."""
+    a, z = max(first, seq.lo), min(first + src.shape[1], seq.lo + seq.rows)
+    if a < z:
+        dst[:, a - seq.lo:z - seq.lo] = src[:, a - first:z - first]
+
+
+def _write_ring(dst: torch.Tensor, src: torch.Tensor, seq: _Seq) -> None:
+    """A ring cache's prefill (positions ``0 .. S-1``, the last ``W`` of
+    them at slots ``p % W``, as ``attention.attn_block_full``): the slots
+    this shard owns, each the last position that maps to it."""
+    S, W = src.shape[1], seq.total
+    if S <= W:  # no wrap: slot p holds position p
+        _write_rows(dst, src, 0, seq)
+        return
+    slots = torch.arange(seq.lo, seq.lo + seq.rows, device=dst.device)
+    dst.copy_(src[:, (slots - (S - W)) % W + (S - W)])
+
+
+def _decode_probs(loc, s: torch.Tensor, index: int, window: int, attn_softcap, dtype,
+                  seq: _Seq) -> torch.Tensor:
+    """``attention.decode_probs`` on the scores of this shard's cache rows
+    when the cache is split along its sequence: each row masked at its
+    global position, the max and then the sum of exponentials all-reduced
+    over the sequence's axes, and each shard's normalized probabilities
+    rounded to ``dtype`` (the reference's rounding point: no rescaled
+    flash-decoding sum)."""
+    if not seq.axes:
+        return attn.decode_probs(s, index, window, attn_softcap, dtype)
+    s = attn.decode_scores(s, index, window, attn_softcap, first=seq.lo)
+    m = _all_reduce(s.amax(dim=-1, keepdim=True), loc, seq.axes, dist.ReduceOp.MAX)
+    e = torch.exp(s - m)
+    return (e / _all_reduce(e.sum(dim=-1, keepdim=True), loc, seq.axes)).to(dtype)
+
+
+def _attend_cache(loc, bd: dict, cd: dict, pl, h, cfg, bdef, c: dict, seq: _Seq, ci: int, mode,
+                  engine, hd_axis=None) -> torch.Tensor:
+    """Attention of ``h`` (the normed input, ``[b, S, d]``; q / k / v
+    projected on the heads ``pl`` holds) against a KV cache whose local
+    shards ``c`` (laid out as ``cd`` besides the sequence) are split along
+    the sequence (``seq``) and / or, with ``hd_axis``, along ``head_dim``
+    over that axis (each rank holding every kv head's ``Dh / tp`` columns).
+    Returns ``[b, S, H, Dh]``, whole on every rank of those axes.
+
+    * Prefill runs the flash kernel over the fresh k / v rounded through the
+      cache's dtype, which is what the cache would hand back (a ring cache
+      attends over the fresh k / v, as the one-device block does); each rank
+      writes the rows (ring slots) and ``head_dim`` columns its shard owns.
+      Rows already cached (``cache_index > 0``) are gathered first.
+    * Decode: the owner of the position (or its ring slot) writes the new
+      row.  Each rank scores q against its own rows in float32; a
+      ``head_dim`` split sums the partial scores over its axis (GSPMD's
+      contraction in the reference: ``4 B H T`` bytes a layer, where
+      gathering the layer's cache would move ``2 B T KV Dh`` elements).  The
+      softmax is :func:`_decode_probs`, ``P v`` runs on the local rows and
+      one all-reduce over the sequence's axes sums the shards' ``P v``: three
+      small collectives a layer, the reference's function.  A ``head_dim``
+      split then all-gathers the output's column slices."""
+    bl, S = h.shape[0], h.shape[1]
+    dtype = c["k"].dtype
+    Dl = c["k"].shape[3]
+    lo = loc.coord(hd_axis) * Dl if hd_axis else 0
+    cols = slice(lo, lo + Dl)
+    ring = attn._is_ring(bdef, seq.total)
+    if mode == "decode":
+        positions = torch.full((bl, 1), ci, dtype=torch.int32, device=h.device)
+        q, k, v = attn._project_qkv(pl, h, cfg, positions, h.dtype)
+        slot, window = (ci % seq.total, -1) if ring else (ci, bdef.window)
+        if seq.owns(slot):
+            c["k"][:, slot - seq.lo] = k[:, 0, :, cols].to(dtype)
+            c["v"][:, slot - seq.lo] = v[:, 0, :, cols].to(dtype)
+        H, D = q.shape[2], q.shape[3]
+        KV = c["k"].shape[2]
+        qg = q[..., cols].reshape(bl, KV, H // KV, Dl)
+        s = torch.einsum("bkgd,btkd->bkgt", qg.float(), c["k"].float())
+        if hd_axis:
+            s = _all_reduce(s, loc, (hd_axis,))
+        probs = _decode_probs(loc, s * (1.0 / math.sqrt(D)), ci, window, cfg.attn_softcap,
+                              q.dtype, seq)
+        o = _all_reduce(torch.einsum("bkgt,btkd->bkgd", probs.float(), c["v"].float()), loc,
+                        seq.axes)
+        o = o.to(torch.promote_types(q.dtype, dtype)).reshape(bl, 1, H, Dl)
+        return _gather_dim(loc, o, bd, hd_axis, 3) if hd_axis else o
+    positions = (torch.arange(S, device=h.device) + ci).expand(bl, S)
+    q, k, v = attn._project_qkv(pl, h, cfg, positions, h.dtype)
+    kw = dict(window=bdef.window, attn_softcap=cfg.attn_softcap, engine=engine,
+              q_chunk=cfg.q_chunk)
+    kc, vc = k.to(dtype), v.to(dtype)
+    if ring:  # prefill from 0, as the one-device block
+        _write_ring(c["k"], kc[..., cols], seq)
+        _write_ring(c["v"], vc[..., cols], seq)
+        return attn.attention_full(q, k, v, **kw)
+    _write_rows(c["k"], kc[..., cols], ci, seq)
+    _write_rows(c["v"], vc[..., cols], ci, seq)
+    if ci:
+        split = (hd_axis, 3) if hd_axis else None
+        kc = torch.cat([_cache_rows(loc, c["k"], cd, seq, ci, split), kc], dim=1)
+        vc = torch.cat([_cache_rows(loc, c["v"], cd, seq, ci, split), vc], dim=1)
+    return attn.attention_full(q, kc, vc, q_offset=ci, kv_len=ci + S, **kw)
+
+
 def _attn_head_dim(bdef, p, x: DTensor, cfg, cache, cache_index, mode, engine, tp_axis) -> DTensor:
     """ln1 + attention with the KV cache split over the model axis along
-    ``head_dim`` (each rank holds every kv head's slice ``Dh / tp``).  The
-    block runs whole on every rank (its weights gathered, as when the heads
-    do not split): the projections and rope need the whole head, and each
-    rank writes its slice of the roped k and v into its cache shard.
-
-    * Decode contracts ``head_dim``: each rank takes its slice of q against
-      its cache shard, partial scores ``[B, KV, G, T]`` in float32; one
-      all-reduce over the model axis sums them (GSPMD's contraction in the
-      reference).  The softmax then runs whole on every rank, ``P v`` on the
-      local slice of v, and an all-gather over the model axis joins the
-      output's ``[B, 1, H, Dh / tp]`` slices.  That moves ``4 B H T`` bytes
-      a layer (2.4 MB at smollm-135m's 128 x 32k decode on 512 cards) where
-      gathering the layer's cache would move ``2 B T KV Dh`` elements (50 MB
-      in bf16 there).
-    * Prefill attends over the fresh k / v rounded through the cache's dtype,
-      which is what the cache would hand back (a ring cache attends over the
-      fresh k / v, as the one-device block does); rows already in the cache
-      (``cache_index > 0``) are gathered over the model axis first.
-
-    The output is replicated over the model axis, as the block's work is."""
+    ``head_dim`` (each rank holds every kv head's slice ``Dh / tp``; its rows
+    perhaps split along the sequence too).  The block runs whole on every
+    rank (its weights gathered, as when the heads do not split): the
+    projections and rope need the whole head (:func:`_attend_cache`).  The
+    output is replicated over the model axis, as the block's work is."""
     mesh, rules = _ctx()
-    B, S = x.shape[0], x.shape[1]
+    B = x.shape[0]
     loc, baxes = _local(mesh, rules, B, tp_axis, False)
     bd = {0: baxes} if baxes else {}
-    c = {key: _cache_arg(loc, t, {**bd, 3: tp_axis}) for key, t in cache.items()}
+    cd = {**bd, 3: tp_axis}
+    c, seq = _kv_cache_args(loc, cache, cd)
     xl = loc.arg(x, bd)
     pa = p.attn
     pl = SimpleNamespace(wq=loc.arg(pa.wq), wk=loc.arg(pa.wk), wv=loc.arg(pa.wv),
                          wo=loc.arg(pa.wo))
     h = rms_norm(xl, loc.arg(p.ln1), cfg.norm_eps)
-    Dl = c["k"].shape[3]
-    lo = loc.coord(tp_axis) * Dl
-    dtype = c["k"].dtype
-    ring = attn._is_ring(bdef, c)
-    ci = cache_index or 0
-    bl = xl.shape[0]
-    if mode == "decode":
-        positions = torch.full((bl, 1), ci, dtype=torch.int32, device=xl.device)
-        q, k, v = attn._project_qkv(pl, h, cfg, positions, h.dtype)
-        slot, window = (ci % c["k"].shape[1], -1) if ring else (ci, bdef.window)
-        c["k"][:, slot] = k[:, 0, :, lo:lo + Dl].to(dtype)
-        c["v"][:, slot] = v[:, 0, :, lo:lo + Dl].to(dtype)
-        H, D = q.shape[2], q.shape[3]
-        KV = c["k"].shape[2]
-        qg = q[..., lo:lo + Dl].reshape(bl, KV, H // KV, Dl)
-        part = torch.einsum("bkgd,btkd->bkgt", qg.float(), c["k"].float())
-        s = _reduce_partial(loc, part, bd, tp_axis) * (1.0 / math.sqrt(D))
-        probs = attn.decode_probs(s, ci, window, cfg.attn_softcap, q.dtype)
-        out_dtype = torch.promote_types(q.dtype, dtype)
-        o = torch.einsum("bkgt,btkd->bkgd", probs.float(), c["v"].float()).to(out_dtype)
-        o = _gather_dim(loc, o.reshape(bl, 1, H, Dl), bd, tp_axis, 3)
-    else:
-        positions = (torch.arange(S, device=xl.device) + ci).expand(bl, S)
-        q, k, v = attn._project_qkv(pl, h, cfg, positions, h.dtype)
-        kw = dict(window=bdef.window, attn_softcap=cfg.attn_softcap, engine=engine,
-                  q_chunk=cfg.q_chunk)
-        if ring:
-            o = attn.attention_full(q, k, v, **kw)
-            W = c["k"].shape[1]
-            take = min(W, S)
-            slots = torch.arange(S - take, S, device=xl.device) % W
-            c["k"][:, slots] = k[:, S - take:, :, lo:lo + Dl].to(dtype)
-            c["v"][:, slots] = v[:, S - take:, :, lo:lo + Dl].to(dtype)
-        else:
-            kc, vc = k.to(dtype), v.to(dtype)
-            c["k"][:, ci:ci + S] = kc[..., lo:lo + Dl]
-            c["v"][:, ci:ci + S] = vc[..., lo:lo + Dl]
-            if ci:
-                kc = torch.cat([_gather_dim(loc, c["k"][:, :ci], bd, tp_axis, 3), kc], dim=1)
-                vc = torch.cat([_gather_dim(loc, c["v"][:, :ci], bd, tp_axis, 3), vc], dim=1)
-            o = attn.attention_full(q, kc, vc, q_offset=ci, kv_len=ci + S, **kw)
+    o = _attend_cache(loc, bd, cd, pl, h, cfg, bdef, c, seq, cache_index or 0, mode, engine,
+                      hd_axis=tp_axis)
     return loc.out(attn._out_proj(pl, o, xl.dtype), bd)
 
 
 def _attn(bdef, p, x: DTensor, cfg, cache, cache_index, mode, engine) -> DTensor:
     """ln1 + attention over this rank's heads; a partial sum over the model
     axis (the flash-attention kernel runs on the local heads).  A cache
-    split along ``head_dim`` takes :func:`_attn_head_dim`."""
+    split along ``head_dim`` takes :func:`_attn_head_dim`; one split along
+    its sequence takes :func:`_attend_cache` on the local heads."""
     mesh, rules = _ctx()
     tp_axis, tp = _tp(mesh, rules)
     if cache is not None and _head_dim_sharded(cache["k"], mesh, tp_axis):
@@ -389,10 +506,13 @@ def _attn(bdef, p, x: DTensor, cfg, cache, cache_index, mode, engine) -> DTensor
             cd[2] = tp_axis
         elif split:
             raise NotImplementedError("a KV cache whose kv heads do not divide the model axis")
-        c = {key: _cache_arg(loc, t, cd) for key, t in cache.items()}
+        c, seq = _kv_cache_args(loc, cache, cd)
     h = rms_norm(xl, ln1, cfg.norm_eps)
     pl = SimpleNamespace(wq=wq, wk=wk, wv=wv, wo=wo)
-    if mode == "decode":
+    if c is not None and seq.axes:
+        o = attn._out_proj(pl, _attend_cache(loc, bd, cd, pl, h, cfg, bdef, c, seq,
+                                             cache_index or 0, mode, engine), xl.dtype)
+    elif mode == "decode":
         o, _ = attn.attn_block_decode(pl, h, cfg, bdef, c, cache_index)
     else:
         positions = (torch.arange(S, device=xl.device) + (cache_index or 0)).expand(xl.shape[0], S)
@@ -401,15 +521,14 @@ def _attn(bdef, p, x: DTensor, cfg, cache, cache_index, mode, engine) -> DTensor
     return loc.out(o, bd)
 
 
-def _mla(bdef, p, x: DTensor, cfg, cache, mode) -> DTensor:
+def _mla(bdef, p, x: DTensor, cfg, cache, cache_index, mode) -> DTensor:
     """ln1 + multi-head latent attention over this rank's heads (train
     mode): the latent ``c_kv`` and the shared rope key are computed on
     every rank from the replicated down-projections, the query, ``w_uk``,
     ``w_uv`` and output projections split by heads; a partial sum over the
-    model axis."""
-    if cache is not None or mode == "decode":
-        raise NotImplementedError("a sharded MLA block with a cache (its latent is not split "
-                                  "by heads)")
+    model axis.  With a cache: :func:`_mla_cache`."""
+    if cache is not None:
+        return _mla_cache(bdef, p, x, cfg, cache, cache_index or 0, mode)
     mesh, rules = _ctx()
     tp_axis, tp = _tp(mesh, rules)
     B, S = x.shape[0], x.shape[1]
@@ -428,6 +547,79 @@ def _mla(bdef, p, x: DTensor, cfg, cache, mode) -> DTensor:
     local_cfg = dataclasses.replace(cfg, n_heads=pl.wq.shape[1])
     o, _ = attn.mla_block_full(pl, h, local_cfg, bdef, positions)
     return loc.out(o, bd)
+
+
+def _mla_cache(bdef, p, x: DTensor, cfg, cache, ci: int, mode) -> DTensor:
+    """ln1 + MLA with its cache as ``SERVE_RULES`` lay it out: ``c_kv [B,
+    T, kv_lora]`` and ``k_rope [B, T, rope]`` both split over the model axis
+    along their last dim (or neither), their rows perhaps split along the
+    sequence.  The projections run whole on every rank (the weights
+    gathered, as :func:`_attn_head_dim`'s); each rank writes its latent and
+    rope columns of the rows it owns.
+
+    * Prefill attends over the fresh whole ``c_kv`` / ``k_rope`` (rounded
+      through the cache's dtype) with ``attention._mla_attend``'s ragged
+      query chunks, rows already cached gathered first; the output is
+      replicated over the model axis.
+    * Decode contracts the split dims: ``q_nope @ w_uk`` over this rank's
+      latent rows against its ``c_kv`` columns plus ``q_rope`` against its
+      ``k_rope`` columns, float32 scores of compute-dtype operands (TF32
+      off), one all-reduce over the model axis; the softmax
+      (:func:`_decode_probs`, rounded to the compute dtype before ``P
+      c_kv``); ``P c_kv`` on the local latent columns (summed over the
+      sequence's axes) times the local rows of ``w_uv``: an output that is a
+      partial sum over the model axis."""
+    mesh, rules = _ctx()
+    tp_axis, _ = _tp(mesh, rules)
+    B, S = x.shape[0], x.shape[1]
+    split = tp_axis is not None and cache["c_kv"].placements[
+        tuple(mesh.mesh_dim_names).index(tp_axis)] == Shard(2)
+    loc, baxes = _local(mesh, rules, B, tp_axis, split and mode == "decode")
+    bd = {0: baxes} if baxes else {}
+    cd = {**bd, 2: tp_axis} if split else dict(bd)
+    c, seq = _kv_cache_args(loc, cache, cd)
+    r = loc.coord(tp_axis) if split else 0
+    Ll, Rl = c["c_kv"].shape[2], c["k_rope"].shape[2]
+    lat, rot = slice(r * Ll, (r + 1) * Ll), slice(r * Rl, (r + 1) * Rl)
+    pa = p.attn
+    up = {0: tp_axis} if split and mode == "decode" else {}
+    pl = SimpleNamespace(wq=loc.arg(pa.wq), w_dkv=loc.arg(pa.w_dkv), kv_norm=loc.arg(pa.kv_norm),
+                         w_kr=loc.arg(pa.w_kr), w_uk=loc.arg(pa.w_uk, up),
+                         w_uv=loc.arg(pa.w_uv, up), wo=loc.arg(pa.wo))
+    xl = loc.arg(x, bd)
+    h = rms_norm(xl, loc.arg(p.ln1), cfg.norm_eps)
+    bl, cdt, dtype = xl.shape[0], xl.dtype, c["c_kv"].dtype
+    if mode == "decode":
+        positions = torch.full((bl, 1), ci, dtype=torch.int32, device=xl.device)
+        q_nope, q_rope, c_new, r_new = attn._mla_qkv(pl, h, cfg, positions, cdt)
+        if seq.owns(ci):
+            c["c_kv"][:, ci - seq.lo] = c_new[:, 0, lat].to(dtype)
+            c["k_rope"][:, ci - seq.lo] = r_new[:, 0, rot].to(dtype)
+        ckv, kr = c["c_kv"].to(cdt), c["k_rope"].to(cdt)
+        q_abs = torch.einsum("bshn,lhn->bshl", q_nope, pl.w_uk.to(cdt))
+        with full_float32_matmul():
+            s = torch.einsum("bqhl,btl->bhqt", q_abs.float(), ckv.float())
+            s = s + torch.einsum("bqhk,btk->bhqt", q_rope[..., rot].float(), kr.float())
+        if split:
+            s = _all_reduce(s, loc, (tp_axis,))
+        scale = 1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
+        probs = _decode_probs(loc, s * scale, ci, -1, None, cdt, seq)
+        ctx = _all_reduce(torch.einsum("bhqt,btl->bqhl", probs.float(), ckv.float()), loc,
+                          seq.axes).to(cdt)
+        o = torch.einsum("bqhl,lhv->bqhv", ctx, pl.w_uv.to(cdt))
+        return loc.out(attn._out_proj(pl, o, cdt), bd)
+    positions = (torch.arange(S, device=xl.device) + ci).expand(bl, S)
+    q_nope, q_rope, c_new, r_new = attn._mla_qkv(pl, h, cfg, positions, cdt)
+    ckv, kr = c_new.to(dtype), r_new.to(dtype)
+    _write_rows(c["c_kv"], ckv[..., lat], ci, seq)
+    _write_rows(c["k_rope"], kr[..., rot], ci, seq)
+    if ci:
+        rows = (tp_axis, 2) if split else None
+        ckv = torch.cat([_cache_rows(loc, c["c_kv"], cd, seq, ci, rows), ckv], dim=1)
+        kr = torch.cat([_cache_rows(loc, c["k_rope"], cd, seq, ci, rows), kr], dim=1)
+    o = attn._mla_attend(pl, q_nope, q_rope, ckv, kr, cfg, q_offset=ci, kv_len=ci + S,
+                         compute_dtype=cdt, q_chunk=cfg.prefill_q_chunk)
+    return loc.out(attn._out_proj(pl, o, cdt), bd)
 
 
 def _ffn(bdef, p, x: DTensor, cfg):
@@ -493,21 +685,20 @@ def _moe(p, x: DTensor, cfg, mesh, rules, tp_axis, tp):
         y = _moe_sort(pl, xt, w, idx, cfg)
     else:
         Sg = group_size(T_all, cfg)
-        if xt.shape[0] % Sg:
-            raise NotImplementedError(f"MoE groups of {Sg} tokens straddle the batch shards of "
-                                      f"{xt.shape[0]} tokens")
         experts = None
         if split:
             lo = loc.coord(tp_axis) * (E // tp)
             experts = (lo, lo + E // tp)
-        y = _moe_einsum(pl, xt, w, idx, cfg, experts=experts, group=Sg)
+        if xt.shape[0] % Sg:
+            xp, wp, ip, off = _cut_groups(loc, baxes, xt, w, idx, Sg)
+            y = _moe_einsum(pl, xp, wp, ip, cfg, experts=experts, group=Sg)[off:off + xt.shape[0]]
+        else:
+            y = _moe_einsum(pl, xt, w, idx, cfg, experts=experts, group=Sg)
     if cfg.moe_shared_d_ff:
         col, row = ({1: tp_axis}, {0: tp_axis}) if split else ({}, {})
         sw1, sw3, sw2 = loc.arg(pm.sw1, col), loc.arg(pm.sw3, col), loc.arg(pm.sw2, row)
         y = y + (F.silu(xt @ sw1.to(xt.dtype)) * (xt @ sw3.to(xt.dtype))) @ sw2.to(xt.dtype)
-    counts = F.one_hot(idx[:, 0], E).to(torch.float32).sum(0)
-    for ax in baxes:
-        dist.all_reduce(counts, group=_group(mesh, ax))
+    counts = _all_reduce(F.one_hot(idx[:, 0], E).to(torch.float32).sum(0), loc, baxes)
     load = counts / T_all
     aux = E * torch.sum(load * (probs.sum(0) / T_all))
     if split:
@@ -515,12 +706,48 @@ def _moe(p, x: DTensor, cfg, mesh, rules, tp_axis, tp):
     return loc.out(y.reshape(xl.shape), bd), loc.out(aux)
 
 
-def _mamba2(p, x: DTensor, cfg, engine) -> DTensor:
-    """A mamba2 block over this rank's heads (train mode): the in-projection
-    and conv columns of the local heads and of the B / C groups they read,
-    the SSD kernel on the local heads, the gated RMS norm over all heads
-    (its sum of squares all-reduced over the model axis), the local rows
-    of the out-projection; a partial sum over the model axis."""
+def _cut_groups(loc, baxes, xt, w, idx, Sg: int):
+    """This shard's tokens padded out to the einsum dispatch's groups they
+    fall in, when the batch shards cut a group (a decode step's few tokens
+    a rank).  A token's buffer position counts every earlier choice of its
+    group, so the covering groups' choices are gathered over the batch
+    axes; the other shards' tokens enter as zero rows of zero weight,
+    holding their slots.  Returns ``(x, w, idx, offset of the own rows)``."""
+    axes = sorted(baxes, key=loc.names.index)
+    shard = 0
+    for ax in axes:
+        shard = shard * loc.mesh.size(loc.names.index(ax)) + loc.coord(ax)
+    T = xt.shape[0]
+    first = shard * T
+    g0, g1 = first // Sg, -(-(first + T) // Sg)
+    lo, hi = first - g0 * Sg, g1 * Sg - first - T
+    choices = _gather_dim(loc, idx, {}, tuple(axes), 0)[g0 * Sg:g1 * Sg]
+
+    def pad(t):
+        return torch.cat([t.new_zeros((lo, t.shape[1])), t, t.new_zeros((hi, t.shape[1]))])
+
+    return pad(xt), pad(w), choices, lo
+
+
+def _mamba2(p, x: DTensor, cfg, engine, cache=None, mode="train") -> DTensor:
+    """A mamba2 block over this rank's heads: the in-projection and conv
+    columns of the local heads and of the B / C groups they read, the SSD
+    kernel on the local heads (decode: the recurrent step), the gated RMS
+    norm over all heads (its sum of squares all-reduced over the model
+    axis), the local rows of the out-projection; a partial sum over the
+    model axis.
+
+    A cache (prefill, decode) is ``SERVE_RULES``' layout: the SSD state
+    ``[B, H, P, N]`` with heads over the model axis, contiguous as the
+    local heads are, so the kernel takes the local shard as its initial
+    state and its final state is written back in place.  The conv cache
+    ``[B, K-1, C]`` is split in contiguous columns, which are not the
+    columns the local heads read (their x columns plus their groups' B / C
+    columns): it is gathered over the model axis (``B x (K-1) x C``
+    float32, tiny), the conv runs on the local heads' columns, and each rank
+    writes its own columns of the new window, the last K-1 conv inputs (old
+    rows where the input is shorter), projecting the input's last rows onto
+    them."""
     mesh, rules = _ctx()
     tp_axis, tp = _tp(mesh, rules)
     b, S, d = x.shape
@@ -556,18 +783,38 @@ def _mamba2(p, x: DTensor, cfg, engine) -> DTensor:
                      (di + G * N + gn[0], di + G * N + gn[1]))
     dl, gl = Hl * P, (g_hi - g_lo) * N
     dtype = xl.dtype
+    state = conv = conv_all = None
+    if cache is not None:
+        state = _cache_arg(loc, cache["state"], {**bd, 1: tp_axis} if split else bd)
+        conv_split = (tp_axis is not None and
+                      cache["conv"].placements[loc.names.index(tp_axis)] == Shard(2))
+        conv = _cache_arg(loc, cache["conv"], {**bd, 2: tp_axis} if conv_split else bd)
+        conv_all = _gather_dim(loc, conv, bd, tp_axis, 2) if conv_split else conv
     xn = rms_norm(xl, loc.arg(p.norm), cfg.norm_eps)
     proj = xn @ w_in[:, in_cols].to(dtype)
     z, conv_in, dt_raw = proj[..., :dl], proj[..., dl:2 * dl + 2 * gl], proj[..., 2 * dl + 2 * gl:]
     conved, _ = m2._causal_conv(conv_in, conv_w[:, conv_cols].to(dtype),
-                                conv_b[conv_cols].to(dtype))
+                                conv_b[conv_cols].to(dtype),
+                                None if conv is None else conv_all[..., conv_cols])
     bl = xl.shape[0]
     xh = conved[..., :dl].reshape(bl, S, Hl, P)
     Bm = conved[..., dl:dl + gl].reshape(bl, S, g_hi - g_lo, N)
     Cm = conved[..., dl + gl:].reshape(bl, S, g_hi - g_lo, N)
     dt = F.softplus(dt_raw.to(torch.float32) + dt_bias.to(torch.float32))
     A = -torch.exp(A_log.to(torch.float32))
-    y, _ = m2.ssd_chunked(xh, dt, A, Bm, Cm, chunk=cfg.ssm_chunk, engine=engine)
+    if mode == "decode":  # the recurrent step on the local heads
+        y, new = m2.ssd_step(state, xh[:, 0], dt[:, 0], A, Bm[:, 0], Cm[:, 0])
+        state.copy_(new)
+    else:
+        y, final = m2.ssd_chunked(xh, dt, A, Bm, Cm, chunk=cfg.ssm_chunk, initial_state=state,
+                                  engine=engine)
+        if state is not None:
+            state.copy_(final)
+    if conv is not None:  # this rank's columns of the new window: the last K-1 conv inputs
+        width, K1 = conv.shape[2], conv.shape[1]
+        c0 = loc.coord(tp_axis) * width if conv_split else 0
+        rows = xn[:, max(S - K1, 0):] @ w_in[:, di + c0:di + c0 + width].to(dtype)
+        conv.copy_(torch.cat([conv_all[:, :, c0:c0 + width].to(dtype), rows], dim=1)[:, -K1:])
     y = y + xh.to(torch.float32) * D.to(torch.float32)[:, None]
     y32 = y.reshape(bl, S, dl).to(dtype).to(torch.float32)
     ss = torch.sum(y32 * y32, dim=-1, keepdim=True)
@@ -583,11 +830,10 @@ def apply_block(bdef, p, x: DTensor, cfg, cache, cache_index, mode, engine):
     cache's local shards are updated in place."""
     check_engine(engine, x.device)
     if bdef.kind == "mamba2":
-        if cache is not None or mode == "decode":
-            raise NotImplementedError("a sharded mamba2 block with a cache")
-        return x + _mamba2(p, x, cfg, engine).redistribute(x.device_mesh, x.placements), cache, 0.0
+        o = _mamba2(p, x, cfg, engine, cache, mode)
+        return x + o.redistribute(x.device_mesh, x.placements), cache, 0.0
     if bdef.kind == "mla":
-        o = _mla(bdef, p, x, cfg, cache, mode)
+        o = _mla(bdef, p, x, cfg, cache, cache_index, mode)
     elif bdef.kind == "attn":
         o = _attn(bdef, p, x, cfg, cache, cache_index, mode, engine)
     else:
@@ -673,3 +919,33 @@ def cross_entropy(x: DTensor, w_out: DTensor, labels: DTensor, *, final_softcap=
         m = local_shard(mask, mesh, loc.placements(bd)).reshape(-1).to(torch.float32)
         loss = (nll * m).sum() / torch.clamp(mask.to(torch.float32).sum(), min=1.0)
     return loc.out(loss, reduced=(tp_axis,) if split else ())
+
+
+# -- vocab-parallel logits --------------------------------------------------------------------
+
+
+def logits_from_hidden(model, cfg, x: DTensor) -> DTensor:
+    """``transformer.logits_from_hidden`` under an active mesh, as a local
+    product: this rank's batch rows of ``x`` (whole ``d_model``) times its
+    vocabulary shard of the head (the tied embedding's rows, or ``out``'s
+    columns; per codebook for audio), float32 products of compute-dtype
+    operands (TF32 off: the caller's), then the final softcap.  Returns a DTensor split
+    over the model axis along the vocabulary: no rank holds a global
+    chunk of the logits or of the head."""
+    mesh, rules = _ctx()
+    tp_axis, tp = _tp(mesh, rules)
+    split = _split_over(tp_axis, cfg.vocab, tp)
+    loc, baxes = _local(mesh, rules, x.shape[0], tp_axis, split)
+    bd = {0: baxes} if baxes else {}
+    audio = cfg.modality == "audio"
+    xl = loc.arg(x, bd)
+    if cfg.tie_embeddings:  # the embedding [V, d] ([K, V, d] audio)
+        vdim = 1 if audio else 0
+        w = loc.arg(model.embed, {vdim: tp_axis} if split else {}).transpose(-1, -2)
+    else:  # out [d, V] ([K, d, V] audio)
+        w = loc.arg(model.out, {2 if audio else 1: tp_axis} if split else {})
+    w = w.to(xl.dtype).float()
+    logits = torch.einsum("bsd,kdv->bksv", xl.float(), w) if audio else xl.float() @ w
+    if cfg.final_softcap:
+        logits = softcap(logits, cfg.final_softcap)
+    return loc.out(logits, {**bd, logits.dim() - 1: tp_axis} if split else bd)

@@ -545,8 +545,12 @@ def forward(model: Transformer, batch: dict, cache=None, cache_index: int = 0, m
 def logits_from_hidden(model: Transformer, x: torch.Tensor) -> torch.Tensor:
     """Float32 logits of compute-dtype products, as the reference's
     ``preferred_element_type=float32`` einsum (bfloat16 products are exact
-    in float32; the products run with TF32 off)."""
+    in float32; the products run with TF32 off).  Under an active mesh a
+    local product of the shards (``tensor_parallel.logits_from_hidden``),
+    split over the model axis along the vocabulary."""
     cfg = model.cfg
+    if active() is not None:
+        return tensor_parallel.logits_from_hidden(model, cfg, x)
     w = _out_weight(model, cfg).to(x.dtype).float()
     if cfg.modality == "audio":
         logits = torch.einsum("bsd,kdv->bksv", x.float(), w)

@@ -117,6 +117,91 @@ def test_perf_compare_measures_an_override(smollm_record):
     assert r["t_collective_s"] > 0 and r["mem_per_dev_gib"] < 80
 
 
+# -- the sharded serving caches' cells -----------------------------------------------------------
+
+#: one cell for each mechanism of the sharded serving caches, depth cut to one superblock
+SERVE_CELLS = [("gemma2-9b", "long_500k", True), ("deepseek-v2-lite-16b", "decode_32k", False),
+               ("zamba2-1.2b", "decode_32k", False), ("musicgen-medium", "prefill_32k", False),
+               ("musicgen-medium", "decode_32k", False)]
+
+SERVE_SCRIPT = textwrap.dedent("""
+    import dataclasses, json, logging, sys
+    from repro_torch import configs
+    from repro_torch.launch.dryrun import run_cell
+    import repro_torch.models.mamba2 as m2
+
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(logging.ERROR)
+    calls = []
+    ssd = m2.ssd_chunked
+    m2.ssd_chunked = lambda *a, **k: (calls.append(1), ssd(*a, **k))[1]
+    out = {}
+    for arch, shape, multi in json.loads(sys.argv[1]):
+        full = configs.get_config(arch)
+        layers = len(full.head_blocks) + len(full.superblock) + len(full.tail_blocks)
+        cfg = dataclasses.replace(full, n_superblocks=1, n_layers=layers)
+        calls.clear()
+        rec = run_cell(arch, shape, multi, out_dir=sys.argv[2], verbose=False, device="cpu",
+                       cfg=cfg)
+        out[f"{arch}:{shape}"] = {"n_chips": rec["n_chips"], "ssd_calls": len(calls),
+                                  "memory": rec["memory"]["per_device_total"],
+                                  "by_dim": rec["op_stats"]["collectives_by_dim"]}
+    print(json.dumps(out))
+""")
+
+
+@pytest.fixture(scope="module")
+def serve_cells(tmp_path_factory):
+    out = tmp_path_factory.mktemp("dryrun_serve")
+    return json.loads(_run(["-c", SERVE_SCRIPT, json.dumps(SERVE_CELLS), str(out)],
+                           timeout=240).splitlines()[-1])
+
+
+@pytest.mark.parametrize("arch,shape,multi", SERVE_CELLS)
+def test_serving_cache_cells_run(serve_cells, arch, shape, multi):
+    r = serve_cells[f"{arch}:{shape}"]
+    assert r["n_chips"] == (512 if multi else 256)
+    assert r["memory"] < roofline.HBM_BYTES
+
+
+def test_sequence_split_combines_over_pod_and_data(serve_cells):
+    """gemma2's ``long_500k`` on 512 cards: batch 1 leaves "pod" x "data" to
+    every KV cache's rows.  Each decode layer all-reduces over each of them
+    the max and the sum of exponentials of its ``[1, 1, 2, 1]`` local
+    scores (8 kv heads over "model", 2 query heads each) and the shards'
+    ``P v`` ``[1, 1, 2, 256]``, in float32: 4 x 2 x (1 + 1 + 256) bytes a
+    layer, 2 layers."""
+    by_dim = serve_cells["gemma2-9b:long_500k"]["by_dim"]
+    for ax in ("pod", "data"):
+        assert by_dim[ax] == {"all-reduce": 2 * 4 * 2 * (1 + 1 + 256)}, by_dim
+
+
+def test_latent_contraction_all_reduces_over_model(serve_cells):
+    """deepseek's ``decode_32k`` on 256 cards: the partial scores over the
+    latent's and the rope key's "model" slices, ``[4, 16, 1, 32768]``
+    float32 a layer (128 rows over 32 "data" shards), summed over "model"
+    in each of the 2 MLA layers."""
+    by_dim = serve_cells["deepseek-v2-lite-16b:decode_32k"]["by_dim"]
+    assert by_dim["model"]["all-reduce"] >= 2 * 4 * 16 * 32768 * 4, by_dim
+
+
+def test_mamba2_decode_gathers_the_conv_cache_over_model(serve_cells):
+    """zamba2's ``decode_32k``: the recurrent step, no SSD scan; the conv
+    cache ``[4, 3, 4224]`` float32 gathered over "model" in each of the 8
+    mamba2 blocks (their in-projections are gathered there too)."""
+    r = serve_cells["zamba2-1.2b:decode_32k"]
+    assert r["ssd_calls"] == 0
+    assert r["by_dim"]["model"]["all-gather"] >= 8 * 4 * 3 * 4224 * 4, r
+
+
+def test_audio_head_takes_the_local_vocabulary_shard(serve_cells):
+    """musicgen's ``prefill_32k`` on 256 cards: the audio head's logits are
+    a local product of the batch rows and the vocabulary shard, so nothing
+    moves over the batch axis (DTensor's own einsum over the sharded head
+    cannot run it)."""
+    by_dim = serve_cells["musicgen-medium:prefill_32k"]["by_dim"]
+    assert "data" not in by_dim, by_dim
+
+
 # -- hand counts on fake worlds -----------------------------------------------------------------
 
 HAND_COUNTS = textwrap.dedent("""
