@@ -294,6 +294,26 @@ Phases, each of which fails the run by raising:
     counted by ``op_analysis.analyze_step``: each rank's flash and SSD
     launches equal to its ops' counts (2 / 0 and 1 / 1), none in the decode
     steps.
+34. the xLSTM blocks under a mesh: (a) ``launch.dryrun.run_cell`` of
+    xlstm-1.3b's 8 cells (4 shapes on 256 and 512 fake ranks) at full
+    width cut to one superblock (7 mLSTM + 1 sLSTM), on fake CUDA tensors
+    in two worker processes started after the build (host-bound, no card):
+    memory a card under 80 GB, the roofline's terms and the
+    ``repro_torch::slstm`` op's count (1 a serving step, 2 a train step);
+    (b) in phase 31's world, a (2, 2) ("data", "model") mesh over 4 NCCL
+    ranks with 4 cards (2 of the 4 heads a rank), else a (1, 1) mesh over
+    one, xlstm-1.3b at full width and one superblock in float32 with its
+    float32 caches through ``build_step``'s serving cells: a prefill of 2
+    prompts of 320 tokens and 4 teacher-forced decode steps, every logit
+    within atol 1e-5 / rtol 1e-4 of the unsharded steps, their prefill on
+    the sLSTM kernel and on its plain version (on 4 ranks plus 4 x the
+    model's own float32 sensitivity, ``two_part_sums``: split over "model"
+    the sums run in another order, which the exponential gates amplify),
+    each step counted by ``analyze_step``: one sLSTM launch a prefill and
+    a decode step, each its op's count, every cache leaf over heads; (c) 2
+    sharded float32 train steps of 2 x 512 tokens against the unsharded
+    step on the same card (phase 31's bound), 2 sLSTM and 1 CE launches a
+    step, both step times.
 
 Each phase's wall seconds are printed after it and in a line before the
 total.
@@ -4055,14 +4075,16 @@ def _synced(fn):
     return out, time.perf_counter() - t0
 
 
-def _sharded_train(cfg, mesh, opt, batches, seed: int) -> dict:
+def _sharded_train(cfg, mesh, opt, batches, seed: int,
+                   kernels=("flash_attention", "crossentropy")) -> dict:
     """``SHARDED_STEPS`` steps of the unsharded step and of ``build_step``'s
     sharded step from the same weights (the sharded ones from
     ``make_sharded_init``, the unsharded ones from ``init_model_params``,
-    one seed): losses, times, the kernels' launches during the sharded
-    steps, resident bytes and the steps' peak increment of this rank."""
-    from repro_torch.kernels import crossentropy as ce
-    from repro_torch.kernels import flash_attention as fa
+    one seed): losses, times, the launches of the ``kernels`` (modules of
+    ``repro_torch.kernels``) during the sharded steps, resident bytes and
+    the steps' peak increment of this rank."""
+    import importlib
+
     from repro_torch.launch.specs import build_step
     from repro_torch.models import init_model_params
     from repro_torch.models.sharding import TRAIN_RULES
@@ -4097,8 +4119,9 @@ def _sharded_train(cfg, mesh, opt, batches, seed: int) -> dict:
     out["plain_peak_increment"] = torch.cuda.max_memory_allocated() - base
     sharded_losses, sharded_s, sharded_norms = [], [], []
     sbatches = [cell.shard(None, None, None, b)[3] for b in batches]
-    fa.reset_launches()
-    ce.reset_launches()
+    counters = {k: importlib.import_module(f"repro_torch.kernels.{k}") for k in kernels}
+    for counter in counters.values():
+        counter.reset_launches()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     for i, sb in enumerate(sbatches):
@@ -4107,7 +4130,7 @@ def _sharded_train(cfg, mesh, opt, batches, seed: int) -> dict:
         sharded_norms.append(_scalar(m["grad_norm"]))
         sharded_s.append(s)
     out["sharded_peak_increment"] = torch.cuda.max_memory_allocated() - base
-    out["launches"] = {"flash_attention": fa.launches(), "crossentropy": ce.launches()}
+    out["launches"] = {k: counter.launches() for k, counter in counters.items()}
     out.update(plain_losses=plain_losses, sharded_losses=sharded_losses,
                plain_grad_norms=plain_norms, sharded_grad_norms=sharded_norms,
                plain_step_s=plain_s, sharded_step_s=sharded_s)
@@ -4877,6 +4900,300 @@ def phase_serve_cache() -> dict:
     return out
 
 
+#: phase 34(a): xlstm-1.3b's dry-run cells at full width cut to one superblock (7 mLSTM + 1
+#: sLSTM), on fake CUDA tensors in worker processes started after the build (host-bound: no
+#: card is used), read in phase 34
+XLSTM_CELLS = tuple((shape, multi) for shape in ("train_4k", "prefill_32k", "decode_32k",
+                                                 "long_500k") for multi in (False, True))
+XLSTM_CELL_JOBS = 2
+#: phase 34(b): a batch of 2 prompts, then teacher-forced decode steps, float32 with float32 caches
+XLSTM_SERVE_B, XLSTM_SERVE_S, XLSTM_SERVE_STEPS = 2, 320, 4
+#: phase 34(c): 2 float32 train steps of 2 x 512 tokens
+XLSTM_TRAIN_B, XLSTM_TRAIN_S = 2, 512
+
+
+def xlstm_cell(shape: str, multi: bool) -> dict:
+    """Phase 34(a), one cell in a worker process: ``launch.dryrun.run_cell``
+    of xlstm-1.3b cut to one superblock on fake CUDA tensors; memory a
+    card, the roofline's terms and the ``repro_torch::slstm`` op's count."""
+    from repro_torch import configs
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.op_analysis import kernel_ops
+    from repro_torch.launch.roofline import roofline_row
+
+    torch.set_num_threads(1)
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(logging.ERROR)
+    t0 = time.perf_counter()
+    rec = run_cell("xlstm-1.3b", shape, multi, verbose=False, device="cuda",
+                   out_dir=os.path.join(ROOT, "build", "phase34_dryrun"),
+                   cfg=cut_depth(configs.get_config("xlstm-1.3b"), 1))
+    row = roofline_row(rec)
+    terms = {k: row[f"t_{k}_s"] for k in ("compute", "memory", "collective")}
+    return {"shape": shape, "mesh": rec["mesh"], "n_chips": rec["n_chips"],
+            "memory": rec["memory"]["per_device_total"], "terms_s": terms,
+            "largest": row["bottleneck"],
+            "slstm_ops": kernel_ops(rec["op_stats"]).get("slstm", {}).get("count", 0),
+            "collectives_by_dim": rec["op_stats"]["collectives_by_dim"],
+            "seconds": time.perf_counter() - t0}
+
+
+def start_xlstm_cells():
+    """Phase 34(a)'s cells in ``XLSTM_CELL_JOBS`` spawned processes: ``(pool,
+    pending results)``.  The pool takes no more work, so its processes exit
+    once the cells are done; it is terminated at exit if a phase fails
+    before phase 34 reads it."""
+    import atexit
+    import multiprocessing as mp
+
+    pool = mp.get_context("spawn").Pool(XLSTM_CELL_JOBS)
+    atexit.register(pool.terminate)
+    pending = [pool.apply_async(xlstm_cell, cell) for cell in XLSTM_CELLS]
+    pool.close()
+    return pool, pending
+
+
+def _xlstm_cells(pool, pending) -> dict:
+    """Phase 34(a): the cells' results, each printed."""
+    from repro_torch.launch.roofline import HBM_BYTES
+
+    t0 = time.perf_counter()
+    out = {}
+    for job in pending:
+        row = job.get()
+        out[f"{row['shape']}:{row['mesh']}"] = row
+        terms = ", ".join(f"{k} {v:.4g} s" for k, v in row["terms_s"].items())
+        over = "" if row["memory"] <= HBM_BYTES else " (over 80 GB)"
+        print(f"  (a) xlstm-1.3b {row['shape']} on {row['n_chips']} fake ranks, one superblock: "
+              f"{row['memory'] / 2**30:.3f} GiB a card{over}; largest term {row['largest']} "
+              f"({terms}); slstm ops {row['slstm_ops']}; collectives "
+              f"{row['collectives_by_dim']}; {row['seconds']:.1f} s in its worker")
+    pool.join()
+    print(f"  (a) waited {time.perf_counter() - t0:.1f} s in phase 34 for the cells' workers")
+    for key, row in out.items():
+        assert row["memory"] <= HBM_BYTES, (key, row)
+        # one sLSTM block: a launch a prefill or decode step, two a train step (remat)
+        assert row["slstm_ops"] == (2 if row["shape"] == "train_4k" else 1), (key, row)
+    return out
+
+
+#: phase 34(b) on several ranks: the sharded logits may lie this many times the model's own
+#: float32 sensitivity (``two_part_sums``) beyond atol + rtol from the unsharded steps
+XLSTM_REORDER_FACTOR = 4.0
+
+
+@contextlib.contextmanager
+def two_part_sums():
+    """The one-device mLSTM blocks with their gate and output products each
+    summed in two halves of the inner width, the order in which two
+    model-axis ranks sum them: a float32 reordering whose effect on the
+    logits measures how far the model itself amplifies such a change (the
+    exponential gates over a few hundred steps)."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import ssm_xlstm as xl
+    from repro_torch.models.layers import rms_norm
+
+    qkvif, out = xl._mlstm_qkvif, xl._mlstm_out
+
+    def halves(a, w):
+        k = a.shape[-1] // 2
+        return a[..., :k] @ w[:k] + a[..., k:] @ w[k:]
+
+    def split_qkvif(p, x, cfg, gate_sum=None):
+        xc = (x @ p.w_up.to(x.dtype))[..., :p.wq.shape[0] * p.wq.shape[1]]
+        gates = halves(xc, p.w_if.to(x.dtype))
+        return qkvif(p, x, cfg, gate_sum=lambda _: gates)
+
+    def split_out(p, h, z, cfg, x_dtype):
+        B, S, H, D = h.shape
+        gated = rms_norm(h.reshape(B, S, H * D), p.out_norm, cfg.norm_eps) * F.silu(z)
+        return halves(gated, p.w_down.to(x_dtype))
+
+    xl._mlstm_qkvif, xl._mlstm_out = split_qkvif, split_out
+    try:
+        yield
+    finally:
+        xl._mlstm_qkvif, xl._mlstm_out = qkvif, out
+
+
+def _xlstm_serve(cfg, mesh) -> dict:
+    """Phase 34(b) on this rank: the unsharded prefill on the sLSTM scan's
+    plain PyTorch version (``engine="torch"``) and on the kernel (``"cuda"``)
+    and the unsharded decode steps (the kernel's decode launch, as the
+    ``Engine``'s), once more on the kernel with ``two_part_sums``, then
+    ``build_step``'s serving cells on ``mesh`` through the kernel, each step
+    counted by ``analyze_step`` (the kernel's op) with the launch counter set
+    to 0 just before it."""
+    from repro_torch.kernels import slstm
+    from repro_torch.launch.op_analysis import analyze_step, kernel_ops
+    from repro_torch.launch.specs import build_step
+    from repro_torch.models import init_cache, init_model_params
+    from repro_torch.serve import make_decode_step, make_prefill_step
+
+    B, S, steps = XLSTM_SERVE_B, XLSTM_SERVE_S, XLSTM_SERVE_STEPS
+    rng = np.random.RandomState(34)
+    prompt = torch.from_numpy(rng.randint(0, cfg.vocab, (B, S))).cuda()
+    fed = [torch.from_numpy(rng.randint(0, cfg.vocab, (B, 1))).cuda() for _ in range(steps)]
+    gen = lambda: torch.Generator(device="cuda").manual_seed(34)  # noqa: E731
+    f32_cache = lambda: init_cache(cfg, B, S + steps, torch.float32, device="cuda")  # noqa: E731
+    model = init_model_params(cfg, gen(), "cuda")
+    want = {}
+    for key, eng in (("plain", "torch"), ("kernel", "cuda"), ("two_part", "cuda")):
+        prefill, decode = make_prefill_step(cfg, eng), make_decode_step(cfg)
+        with two_part_sums() if key == "two_part" else contextlib.nullcontext():
+            logits, cache = prefill(model, {"tokens": prompt}, f32_cache())
+            want[key] = [logits]
+            for i, tok in enumerate(fed):
+                logits, cache = decode(model, tok, cache, S + i)
+                want[key].append(logits)
+    del model, cache
+    torch.cuda.empty_cache()
+    prefill = build_step(cfg, "prefill_32k", mesh)
+    decode = build_step(cfg, "decode_32k", mesh)
+    smodel, sbatch, scache = prefill.shard(init_model_params(cfg, gen(), "cuda"),
+                                           {"tokens": prompt}, f32_cache())
+    got, launches, ops, seconds = [], [], [], []
+    for i in range(1 + steps):
+        if i == 0:
+            step, args = prefill.step, (smodel, sbatch, scache)
+        else:
+            step, args = decode.step, (smodel, decode.shard(None, fed[i - 1])[1], scache, S + i - 1)
+        held = {}
+        slstm.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = analyze_step(lambda *a: held.setdefault("out", step(*a)), *args, mesh=mesh,
+                             memory=False)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        launches.append(slstm.launches())
+        ops.append(kernel_ops(stats).get("slstm", {"count": 0})["count"])
+        logits, scache = held["out"]
+        got.append(logits.full_tensor())
+
+    def excess(ref):
+        return max(float(((g - w).abs() - (SHARDED_ATOL + SHARDED_RTOL * w.abs())).max())
+                   for g, w in zip(got, ref))
+
+    def worst(a, b):
+        return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+    model_dim = mesh.mesh_dim_names.index("model")
+    out = {"prompt": [B, S], "decode_steps": steps, "layers": cfg.n_layers,
+           "excess_plain": excess(want["plain"]), "excess_kernel": excess(want["kernel"]),
+           "worst_abs_plain": worst(got, want["plain"]),
+           "worst_abs_kernel": worst(got, want["kernel"]),
+           "unsharded_kernel_vs_plain": worst(want["kernel"], want["plain"]),
+           "reorder_sensitivity": worst(want["two_part"], want["kernel"]),
+           "finite": all(bool(torch.isfinite(g).all()) for g in got),
+           "launches": launches, "ops": ops,
+           "prefill_s_counted": seconds[0], "decode_s_counted": seconds[1:],
+           "placements": {f"{pos}.{k}": str(t.placements[model_dim])
+                          for pos, c in scache["stack"].items() for k, t in c.items()}}
+    del smodel, scache, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def xlstm_rank(rank: int, world: int, store: str, out_path: str) -> dict:
+    """Phase 34(b) and (c) on one rank (``cuda:rank``), in phase 31's world:
+    a (2, 2) ("data", "model") mesh over 4 NCCL ranks with 4 cards (each
+    rank 2 of the 4 heads), else a (1, 1) mesh over one; rank 0 writes the
+    result to ``out_path``.  Every check raises on this rank."""
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train import SyntheticLM, adamw, warmup_cosine
+
+    torch.cuda.set_device(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(logging.ERROR)
+    _build.load()
+    dist.init_process_group("nccl", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world)
+    try:
+        shape = (2, 2) if world == 4 else (1, 1)
+        mesh = make_host_mesh(shape, ("data", "model"), device_type="cuda")
+        cfg = dataclasses.replace(cut_depth(configs.get_config("xlstm-1.3b"), 1),
+                                  compute_dtype="float32", serve_param_dtype="float32")
+        res = {"rank": rank, "world": world, "mesh": list(shape)}
+        res["serve"] = _xlstm_serve(cfg, mesh)
+        data = SyntheticLM(cfg, XLSTM_TRAIN_B, XLSTM_TRAIN_S, seed=34)
+        batches = [{k: v.cuda() for k, v in data.batch_at(i).items()}
+                   for i in range(SHARDED_STEPS)]
+        # AdamW with eps 1e-4 in float32, as phase 31
+        res["train"] = _sharded_train(cfg, mesh, adamw(warmup_cosine(3e-4, 100, 1000), eps=1e-4),
+                                      batches, 34, kernels=("slstm", "crossentropy"))
+        every = [None] * world
+        dist.all_gather_object(every, {"serve": res["serve"]["launches"],
+                                       "train": res["train"]["launches"]})
+        res["ranks"] = every
+        if rank == 0:  # before the checks, so that a failing run shows its numbers
+            print(f"  (b) {res['serve']}")
+            t = res["train"]
+            print(f"  (c) losses sharded {t['sharded_losses']} unsharded {t['plain_losses']}; "
+                  f"params worst excess over atol+rtol {t['param_excess']:.3g} (outside: "
+                  f"{t['params_outside'][:8]}); step s sharded {t['sharded_step_s']} unsharded "
+                  f"{t['plain_step_s']}; steady sharded {t['sharded_steady_s']} unsharded "
+                  f"{t['plain_steady_s']}; launches {t['launches']}; init bitwise "
+                  f"{t['init_bitwise']}")
+            print(f"  (b, c) sLSTM launches of each rank: {every}")
+        check_xlstm(res)
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:
+        with open(out_path, "w") as f:
+            json.dump(res, f)
+    return res
+
+
+def check_xlstm(res: dict) -> None:
+    """Phase 34(b) and (c)'s assertions on one rank's result."""
+    serve = res["serve"]
+    assert serve["finite"], serve
+    # a world of one computes the unsharded operations; split over "model" the float32 sums
+    # run in another order, which the model amplifies (PERF.md, phase 34)
+    allowance = 0.0 if res["world"] == 1 else XLSTM_REORDER_FACTOR * serve["reorder_sensitivity"]
+    assert serve["excess_plain"] <= allowance, (serve["excess_plain"], allowance)
+    assert serve["excess_kernel"] <= allowance, (serve["excess_kernel"], allowance)
+    # one sLSTM block: one launch a prefill and one a decode step, each its op's count
+    assert serve["launches"] == serve["ops"] == [1] * (1 + serve["decode_steps"]), serve
+    assert all(p == "S(2)" for p in serve["placements"].values()), serve["placements"]
+    train = res["train"]
+    assert train["init_bitwise"], "gathered make_sharded_init differs from init_model_params"
+    # remat reruns the superblock's forward: 2 sLSTM launches a step, 1 cross-entropy
+    assert train["launches"] == {"slstm": 2 * SHARDED_STEPS, "crossentropy": SHARDED_STEPS}, train
+    for got, want in zip(train["sharded_losses"], train["plain_losses"]):
+        assert abs(got - want) <= SHARDED_ATOL + SHARDED_RTOL * abs(want), train
+    assert not train["params_outside"], (train["params_outside"][:8], train["param_excess"])
+
+
+def phase_xlstm_sharded(pool, pending) -> dict:
+    """Phase 34: the xLSTM blocks under a mesh: (a) xlstm-1.3b's dry-run
+    cells, (b) served and (c) trained on phase 31's world through the sLSTM
+    kernel against the unsharded steps."""
+    import shutil
+    import tempfile
+
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(logging.ERROR)
+    world, shape = sharded_world()
+    print(f"phase 34: the xLSTM blocks under a mesh; (a) xlstm-1.3b's {len(XLSTM_CELLS)} dry-run "
+          f"cells at full width, one superblock (7 mLSTM + 1 sLSTM); (b) served and (c) trained "
+          f"at full width, one superblock, float32, world {world} in a {shape} ('data', 'model') "
+          f"mesh ({torch.cuda.device_count()} card(s)); {nvidia_smi('name,power.limit')}")
+    out = {"cells": _xlstm_cells(pool, pending)}
+    tmp = tempfile.mkdtemp(prefix="phase34-", dir=os.path.join(ROOT, "build"))
+    try:
+        out["sharded"] = _run_world(world, tmp, xlstm_rank)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"  {nvidia_smi('name,power.limit')}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every measurement to this JSON file")
@@ -4910,6 +5227,7 @@ def main() -> int:
             print(f"  ptxas ssd ({key}): {'; '.join(lines)}")
 
     phase_s = {"1": time.perf_counter() - t_start}
+    xlstm_pool, xlstm_pending = start_xlstm_cells()  # phase 34(a), read there
 
     def timed(phases: str, fn, *args):
         """``fn(*args)``, its wall seconds printed and kept under ``phases``."""
@@ -4961,6 +5279,7 @@ def main() -> int:
     sharded = timed("31", phase_sharded)
     op_analysis = timed("32", phase_op_analysis)
     serve_cache = timed("33", phase_serve_cache)
+    xlstm_sharded = timed("34", phase_xlstm_sharded, xlstm_pool, xlstm_pending)
 
     shape_rows = optimize_rows + wave_rows
     table = wave_rows[-1]  # the score-table build: the kernel's large shape
@@ -5086,6 +5405,8 @@ def main() -> int:
         "launches_tune_slices": tune_slices["launches"]["crossentropy"],
         "launches_sharded_train": sharded["f32"]["launches"]["crossentropy"],
         "launches_sharded_train_bf16": sharded["bf16"]["launches"]["crossentropy"],
+        "launches_sharded_train_xlstm": xlstm_sharded["sharded"]["train"]["launches"][
+            "crossentropy"],
         "max_abs_err": max(r["max_abs_err"] for r in ce_rows),
         "ms": ce_main["ms"],
         "plain_ms": ce_main["plain_ms"],
@@ -5138,6 +5459,9 @@ def main() -> int:
         "launches": serve_xlstm["slstm_launches"],
         "launches_entry_point": serve_xlstm["entry"]["slstm_launches"],
         "launches_train_xlstm": train_xlstm["launches"]["slstm"],
+        "launches_sharded_serve_xlstm": sum(xlstm_sharded["sharded"]["serve"]["launches"]),
+        "launches_sharded_train_xlstm": xlstm_sharded["sharded"]["train"]["launches"]["slstm"],
+        "dryrun_xlstm_ops": {k: r["slstm_ops"] for k, r in xlstm_sharded["cells"].items()},
         "max_abs_err": max(max(r["step_errs"].values()) for r in slstm_rows),
         "ms": slstm_main["ms"],
         "plain_ms": slstm_main["plain_ms"],
@@ -5178,6 +5502,7 @@ def main() -> int:
                        "qwen3_moe": qwen3, "tune_moe": tune_moe, "storage": storage,
                        "tune_slices": tune_slices, "sharded": sharded,
                        "op_analysis": op_analysis, "serve_cache": serve_cache,
+                       "xlstm_sharded": xlstm_sharded,
                        "phase_seconds": phase_s,
                        "kernels": kernels}, f,
                       indent=1)

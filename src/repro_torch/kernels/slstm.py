@@ -275,7 +275,9 @@ def slstm_backward(u, R, c0, n0, h0, m0, h_seq, c_seq, n_seq, m_seq, dh_seq, dfi
     = h_prev @ R`` as one product a head) with the step's coefficients: the
     recurrence of the gradients is linear in ``(dh, dc, dn, dm)``.  The
     reverse loop over time then carries them back one step with a few
-    elementwise operations and ``dgates @ R^T`` a head; ``max`` splits its
+    elementwise operations on stacked carries (a 3 x 3 map a step, each
+    step's slices made before the loop: about ten launches a step) and
+    ``dgates @ R^T`` a head; ``max`` splits its
     gradient evenly at a tie, as ``jnp.maximum``'s does.  ``dR = sum_t
     h_{t-1}^T dgates_t`` is one product at the end.  ``du`` comes back in
     ``u``'s dtype; the float32 products run with TF32 off, the caller's
@@ -304,6 +306,7 @@ def slstm_backward(u, R, c0, n0, h0, m0, h_seq, c_seq, n_seq, m_seq, dh_seq, dfi
     i, f = a[:, :, :, 1], a[:, :, :, 2]
     o = torch.sigmoid(a[:, :, :, 3])
     s1 = f + m_prev
+    del m_prev
     m_new = torch.maximum(s1, i)
     w1 = _tie_weight(s1, i)  # m' = max(f + m, i)
     w2 = 1.0 - w1
@@ -319,36 +322,54 @@ def slstm_backward(u, R, c0, n0, h0, m0, h_seq, c_seq, n_seq, m_seq, dh_seq, dfi
     k1 = o / n_new  # dh' -> dc'
     k2 = -(o * c_new) / (n_new * n_new)  # dh' -> dn'
     k4 = (c_new / n_new) * (o * (1.0 - o))  # dh' -> da_o
-    k3 = ig * (1.0 - z * z)  # dc' -> da_z
-    wqr = (1.0 - wq) * r  # dn' -> dm' through exp(-m')
-    fwq = fg * wq  # dn' -> dn
-    del o, c_new, n_new, r
+    del o, c_new, n_new
+    # A step carries (dc, dn, dm, dh) back linearly.  With e = dh_out + dh,
+    # dc~ = dc + k1 e and dn~ = dn + k2 e, the gates' gradients are
+    #   g_z = ig (1 - z^2) dc~,  g_i = di + w2 dm~,  g_f = dlogf + w1 dm~,  g_o = k4 e,
+    # where di = ig (z dc~ + wq dn~), dlogf = fg (c dc~ + n wq dn~) and
+    # dm~ = dm - wqr dn~ - di - dlogf (wqr = (1 - wq) exp(-m'): n' = max(q,
+    # exp(-m'))); and dc' = fg dc~, dn' = fg wq dn~, dm' = g_f.  So g_z, g_i,
+    # g_f are one [3, 3] map of (dc~, dn~, dm) a step (``G``), which the loop
+    # applies as one product and one sum.
+    a_c = ig * z + fg * c_prev  # dm~'s -coefficients of dc~ and dn~
+    a_n = (1.0 - wq) * r + wq * (ig + fg * n_prev)
+    # [S, H, B, g, t, D]: the gates' rows of the map, of (dc~, dn~, dm)
+    G = torch.zeros((S, H, B, 3, 3, D), dtype=f32, device=u.device)
+    G[:, :, :, 0, 0] = ig * (1.0 - z * z)
+    G[:, :, :, 1, 0] = ig * z - w2 * a_c
+    G[:, :, :, 1, 1] = ig * wq - w2 * a_n
+    G[:, :, :, 1, 2] = w2
+    G[:, :, :, 2, 0] = fg * c_prev - w1 * a_c
+    G[:, :, :, 2, 1] = fg * n_prev * wq - w1 * a_n
+    G[:, :, :, 2, 2] = w1
+    del a_c, a_n, z, ig, c_prev, n_prev, w1, w2, r
+    zero = torch.zeros_like(k1)
+    K = torch.stack([k1, k2, zero], dim=3)  # e's share of (dc~, dn~, dm): [S,H,B,3,D]
+    F_ = torch.stack([fg, fg * wq, zero], dim=3)  # (dc', dn') of (dc~, dn~)
+    del k1, k2, fg, wq, zero
+    k4 = k4[:, :, :, None]  # [S,H,B,1,D]
     RT = R32.permute(1, 0, 3, 2).reshape(H, 4 * D, D)  # [h, (g, e), k]
     dgates = torch.empty((S, H, B, 4, D), dtype=f32, device=u.device)
-    dh_out = seq(dh_seq)
+    dh_out = seq(dh_seq)[:, :, :, None]  # [S,H,B,1,D]
+    # the per-step slices made once: a step then creates only two views
+    steps = [t.unbind(0) for t in (dh_out, K, G, k4, F_, dgates)]
+    only_dm = torch.tensor([0.0, 0.0, 1.0], dtype=f32, device=u.device)[:, None]  # [3, 1]
     zeros = torch.zeros((H, B, D), dtype=f32, device=u.device)
-    carry = [zeros if g is None else g.to(f32).transpose(0, 1)
-             for g in (dfinal if dfinal is not None else (None,) * 4)]
-    dc, dn, dh, dm = carry
+    dc, dn, dh, dm = [zeros if g is None else g.to(f32).transpose(0, 1)
+                      for g in (dfinal if dfinal is not None else (None,) * 4)]
+    P = torch.stack([dc, dn, dm], dim=2)  # (dc, dn, dm): [H,B,3,D]
+    dh = dh[:, :, None]
     for t in range(S - 1, -1, -1):
-        dh = dh_out[t] + dh
-        dc_tot = torch.addcmul(dc, dh, k1[t])
-        dn_tot = torch.addcmul(dn, dh, k2[t])
-        dq = dn_tot * wq[t]
-        dm_tot = dm - dn_tot * wqr[t]
-        di_part = (dc_tot * z[t] + dq) * ig[t]
-        dlogf = (dc_tot * c_prev[t] + dq * n_prev[t]) * fg[t]
-        dm_tot = dm_tot - di_part - dlogf
-        g = dgates[t]
-        torch.mul(dc_tot, k3[t], out=g[:, :, 0])
-        torch.addcmul(di_part, dm_tot, w2[t], out=g[:, :, 1])
-        torch.addcmul(dlogf, dm_tot, w1[t], out=g[:, :, 2])
-        torch.mul(dh, k4[t], out=g[:, :, 3])
-        dh = torch.bmm(g.reshape(H, B, 4 * D), RT)
-        dc = dc_tot * fg[t]
-        dn = dn_tot * fwq[t]
-        dm = g[:, :, 2]  # f and m enter m' and f~ only as f + m
-    del k1, k2, k3, k4, wq, wqr, fwq, w1, w2, z, ig, fg, c_prev, n_prev, m_prev, dh_out
+        dh_t, K_t, G_t, k4_t, F_t, g = (x[t] for x in steps)
+        e = dh_t + dh
+        T = torch.addcmul(P, K_t, e)  # (dc~, dn~, dm)
+        G3 = (G_t * T[:, :, None]).sum(3)
+        torch.cat([G3, k4_t * e], dim=2, out=g)
+        dh = torch.bmm(g.view(H, B, 4 * D), RT)[:, :, None]
+        P = torch.addcmul(F_t * T, G3, only_dm)  # dm' = g_f: f and m enter only as f + m
+    dc, dn, dm = P.unbind(2)
+    dh = dh[:, :, 0]
+    del G, K, F_, k4, dh_out, steps
     dR = torch.bmm(h_prev.transpose(0, 1).reshape(H, S * B, D).transpose(1, 2),
                    dgates.transpose(0, 1).reshape(H, S * B, 4 * D))  # [h, k, (g, e)]
     dR = dR.reshape(H, D, 4, D).permute(2, 0, 1, 3).to(R.dtype)

@@ -98,42 +98,48 @@ def slstm_specs(cfg) -> dict:
 # -- mLSTM ---------------------------------------------------------------------------------
 
 
-def _mlstm_qkvif(p, x, cfg):
-    """Project to per-head q, k, v, and i/f gate logits.  x: [B,S,d]."""
+def _mlstm_qkvif(p, x, cfg, gate_sum=None):
+    """Project to per-head q, k, v, and i/f gate logits.  x: [B,S,d].  The
+    heads are those of ``p.wq`` ``[H, D, D]``: all of them, or a shard's
+    (``p.w_up`` then holds their xc columns, then their z columns, and
+    ``p.w_if`` their xc rows: ``gate_sum`` takes the partial gate products
+    ``[B,S,2 H_all]`` to the whole products of the shard's i and f
+    columns)."""
     B, S, d = x.shape
-    di = cfg.ssm_proj_factor * d
-    H = cfg.n_heads
-    D = di // H
+    H, D = p.wq.shape[0], p.wq.shape[1]
+    di = H * D
     up = x @ p.w_up.to(x.dtype)
     xc, z = up[..., :di], up[..., di:]
     xh = xc.reshape(B, S, H, D)
     q = torch.einsum("bshd,hde->bshe", xh, p.wq.to(x.dtype))
     k = torch.einsum("bshd,hde->bshe", xh, p.wk.to(x.dtype)) / math.sqrt(D)
     v = xh
-    gates = (xc @ p.w_if.to(x.dtype)).to(torch.float32)
+    gates = xc @ p.w_if.to(x.dtype)
+    if gate_sum is not None:
+        gates = gate_sum(gates)
+    gates = gates.to(torch.float32)
     logi = gates[..., :H]
     logf = F.logsigmoid(gates[..., H:] + p.b_f.to(torch.float32))
     return q, k, v, z, logi, logf
 
 
-def _mlstm_chunk(qb, k, v, logi, F_all, Fb, q0: int):
-    """Query rows ``q0 .. q0 + len(qb) - 1`` of the stabilized parallel form,
-    against the keys ``0 .. q0 + len(qb) - 1`` (the later ones are masked)."""
-    qc = qb.shape[1]
+def _mlstm_chunk(qb, kT, vh, lih, Fh, q0: int):
+    """Query rows ``q0 .. q0 + qc - 1`` (``qb`` ``[B,H,qc,D]``) of the
+    stabilized parallel form, against the keys ``0 .. q0 + qc - 1`` (the
+    later ones are masked); ``kT`` ``[B,H,D,S]``, ``vh`` ``[B,H,S,D]``,
+    ``lih`` / ``Fh`` ``[B,H,S]``.  Returns ``[B,H,qc,D]``."""
+    qc = qb.shape[2]
     end = q0 + qc
-    k, v = k[:, :end], v[:, :end]
-    logD = (Fb.transpose(1, 2)[:, :, :, None] - F_all[:, :end].transpose(1, 2)[:, :, None, :]
-            + logi[:, :end].transpose(1, 2)[:, :, None, :])  # [B,H,qc,end]
-    q_pos = torch.arange(q0, end, device=qb.device)
-    k_pos = torch.arange(end, device=qb.device)
-    logD = logD.masked_fill(~(k_pos[None, :] <= q_pos[:, None]), float("-inf"))
+    logD = (Fh[:, :, q0:end, None] - Fh[:, :, None, :end]
+            + lih[:, :, None, :end])  # [B,H,qc,end]
+    later = torch.ones((qc, end), dtype=torch.bool, device=qb.device).triu(q0 + 1)
+    logD = logD.masked_fill(later, float("-inf"))
     m = torch.clamp_min(logD.amax(dim=-1, keepdim=True), -1e30)  # [B,H,qc,1]
     Dmat = torch.exp(logD - m)
-    qk = torch.einsum("bqhd,bshd->bhqs", qb.float(), k.float())
-    w = qk * Dmat
-    numer = torch.einsum("bhqs,bshd->bqhd", w.to(qb.dtype), v)
-    denom = torch.maximum(w.sum(dim=-1).abs(), torch.exp(-m[..., 0]))  # [B,H,qc]
-    return numer / denom.transpose(1, 2)[..., None].to(qb.dtype)
+    w = (qb.float() @ kT[..., :end].float()) * Dmat
+    numer = w.to(qb.dtype) @ vh[:, :, :end]
+    denom = torch.maximum(w.sum(dim=-1, keepdim=True).abs(), torch.exp(-m))  # [B,H,qc,1]
+    return numer / denom.to(qb.dtype)
 
 
 @full_float32_matmul()
@@ -145,22 +151,30 @@ def mlstm_parallel(q, k, v, logi, logf, q_chunk: int = 256):
 
     Queries go in chunks of ``min(q_chunk, S)`` (the last one ragged), each
     recomputed in the backward pass when a gradient is needed (the twin of
-    the reference's ``jax.checkpoint`` on its chunk body)."""
+    the reference's ``jax.checkpoint`` on its chunk body).  The chunks read
+    views of q, k, v with the heads leading."""
     B, S, H, D = q.shape
     F_all = torch.cumsum(logf, dim=1)  # [B,S,H] inclusive
     qc = min(q_chunk, S)
     remat = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, logi, logf))
+    qh, vh, kT = q.transpose(1, 2), v.transpose(1, 2), k.permute(0, 2, 3, 1)  # views
+    lih, Fh = logi.transpose(1, 2), F_all.transpose(1, 2)
     outs = []
     for q0 in range(0, S, qc):
-        args = (q[:, q0:q0 + qc], k, v, logi, F_all, F_all[:, q0:q0 + qc], q0)
+        args = (qh[:, :, q0:q0 + qc], kT, vh, lih, Fh, q0)
         outs.append(checkpoint(_mlstm_chunk, *args, use_reentrant=False) if remat
                     else _mlstm_chunk(*args))
-    return torch.cat(outs, dim=1)
+    return torch.cat([o.transpose(1, 2) for o in outs], dim=1)
 
 
-def mlstm_recurrent_step(state, q, k, v, logi, logf):
+def mlstm_recurrent_step(state, q, k, v, logi, logf, combine=None):
     """One decode step.  state: dict(C [B,H,D,D], n [B,H,D], m [B,H]);
-    q,k,v: [B,1,H,D]; logi/logf: [B,1,H].  Returns ``(new state, h [B,1,H,D])``."""
+    q,k,v: [B,1,H,D]; logi/logf: [B,1,H].  Returns ``(new state, h [B,1,H,D])``.
+
+    With ``combine``, ``C`` / ``n`` hold a slice of the key dims (``C``'s
+    rows) and ``q`` / ``k`` the same slice: ``combine(numer [B,H,D], qn
+    [B,H])`` sums the partial contractions over the slices before the
+    division."""
     C, nvec, m = state["C"], state["n"], state["m"]
     logi = logi[:, 0].to(torch.float32)
     logf = logf[:, 0].to(torch.float32)
@@ -173,8 +187,10 @@ def mlstm_recurrent_step(state, q, k, v, logi, logf):
     n_new = f_ * nvec + i_ * k_
     with full_float32_matmul():
         numer = torch.einsum("bhd,bhde->bhe", q_.float(), C_new)
-    denom = torch.maximum(torch.einsum("bhd,bhd->bh", q_.float(), n_new).abs(),
-                          torch.exp(-m_new))[..., None]
+    qn = torch.einsum("bhd,bhd->bh", q_.float(), n_new)
+    if combine is not None:
+        numer, qn = combine(numer, qn)
+    denom = torch.maximum(qn.abs(), torch.exp(-m_new))[..., None]
     h = (numer / denom)[:, None].to(q.dtype)
     return {"C": C_new, "n": n_new, "m": m_new}, h
 

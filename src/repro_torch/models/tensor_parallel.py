@@ -43,13 +43,18 @@ written in place on each rank's shard:
   column shards gathered over ``"model"`` (:func:`_mamba2`);
 * MoE dispatch groups that the batch shards cut (a decode step's few tokens
   a rank) take the covering groups' choices from every batch shard
-  (:func:`_cut_groups`).
+  (:func:`_cut_groups`);
+* the xLSTM caches: over heads, as the local heads (mLSTM ``C`` / ``n`` /
+  ``m``, sLSTM ``c`` / ``n`` / ``h`` / ``m``); where the heads do not divide
+  the model axis, along ``head_dim``: the mLSTM ``C``'s key rows and ``n``,
+  whose decode contraction sums over the model axis (:func:`_mlstm`), and
+  the sLSTM state, gathered over the model axis for the recurrence, which
+  reads whole heads at every step (:func:`_slstm`).
 
 The logits are a local product of the batch rows and the vocabulary shard
 (:func:`logits_from_hidden`).  A cache layout a block cannot serve raises
 ``NotImplementedError`` naming the leaf's placements.  Not yet run sharded:
-mLSTM and sLSTM blocks, and the sort dispatch of a MoE block with the batch
-split.
+the sort dispatch of a MoE block with the batch split.
 """
 
 from __future__ import annotations
@@ -68,6 +73,7 @@ from ..kernels.ops import full_float32_matmul
 from ..kernels.ref import crossentropy_lse_ref
 from . import attention as attn
 from . import mamba2 as m2
+from . import ssm_xlstm as xl
 from .layers import check_engine, rms_norm, softcap
 from .moe import _moe_einsum, _moe_sort, group_size, route
 from .sharding import active, local_shard, logical_to_spec
@@ -729,6 +735,19 @@ def _cut_groups(loc, baxes, xt, w, idx, Sg: int):
     return pad(xt), pad(w), choices, lo
 
 
+def _norm_split(loc, x: torch.Tensor, scale: torch.Tensor, eps: float, axis,
+                width: int) -> torch.Tensor:
+    """``layers.rms_norm`` of ``x`` whose last dim is a slice of one of
+    ``width`` split over the mesh ``axis`` (``None``: whole): the sum of
+    squares all-reduced there."""
+    x32 = x.to(torch.float32)
+    ss = torch.sum(x32 * x32, dim=-1, keepdim=True)
+    if axis is not None:
+        ss = _AllReduceSum.apply(ss, _group(loc.mesh, axis))
+    y = x32 * torch.rsqrt(ss / width + eps)
+    return (y * (1.0 + scale.to(torch.float32))).to(x.dtype)
+
+
 def _mamba2(p, x: DTensor, cfg, engine, cache=None, mode="train") -> DTensor:
     """A mamba2 block over this rank's heads: the in-projection and conv
     columns of the local heads and of the B / C groups they read, the SSD
@@ -816,21 +835,179 @@ def _mamba2(p, x: DTensor, cfg, engine, cache=None, mode="train") -> DTensor:
         rows = xn[:, max(S - K1, 0):] @ w_in[:, di + c0:di + c0 + width].to(dtype)
         conv.copy_(torch.cat([conv_all[:, :, c0:c0 + width].to(dtype), rows], dim=1)[:, -K1:])
     y = y + xh.to(torch.float32) * D.to(torch.float32)[:, None]
-    y32 = y.reshape(bl, S, dl).to(dtype).to(torch.float32)
-    ss = torch.sum(y32 * y32, dim=-1, keepdim=True)
-    if split:
-        ss = _AllReduceSum.apply(ss, _group(mesh, tp_axis))
-    yn = y32 * torch.rsqrt(ss / di + cfg.norm_eps)
-    yf = (yn * (1.0 + out_norm.to(torch.float32))).to(dtype)
+    yf = _norm_split(loc, y.reshape(bl, S, dl).to(dtype), out_norm, cfg.norm_eps,
+                     tp_axis if split else None, di)
     return loc.out((yf * F.silu(z)) @ w_out.to(dtype), bd)
+
+
+def _sharded_along(t: DTensor, loc, axis, dim: int) -> bool:
+    """Whether ``t`` is split over the mesh ``axis`` along tensor dim ``dim``."""
+    return axis is not None and t.placements[loc.names.index(axis)] == Shard(dim)
+
+
+def _heads(loc, tp_axis, tp: int, H: int, split: bool) -> tuple[int, int]:
+    """The heads ``[lo, hi)`` this rank computes: its shard's, or all."""
+    if not split:
+        return 0, H
+    lo = loc.coord(tp_axis) * (H // tp)
+    return lo, lo + H // tp
+
+
+def _mlstm(p, x: DTensor, cfg, cache, mode) -> DTensor:
+    """An mLSTM block.  Where the heads divide the model axis, over this
+    rank's heads (Megatron): their xc and z columns of ``w_up`` (gathered),
+    their ``wq`` / ``wk`` / ``b_f``, the gates' products over the local xc
+    rows of ``w_if`` summed over the model axis (``B S 2 H`` float32: each
+    head's gates read all of xc) and their i / f columns kept, the parallel
+    form and the fold on the local heads, ``out_norm``'s RMS over
+    all of ``di`` (its sum of squares all-reduced over the model axis), the
+    local rows of ``w_down``; a partial sum over the model axis.  The cache
+    ``C`` / ``n`` / ``m`` is the local heads' shard, written in place.
+
+    Elsewhere the block runs whole on every rank (its weights gathered) and
+    its output is replicated over the model axis.  A cache split along
+    ``head_dim`` (``SERVE_RULES``) stays so: this rank holds the key rows
+    ``[r0, r1)`` of ``C`` (dim 2) and of ``n``, ``m`` whole.  The fold
+    writes them from its slice of ``k`` (no collective); a decode step
+    updates them and all-reduces the partial ``q . C`` and ``q . n`` over
+    the model axis (``B H (D + 1)`` float32) before the division.
+
+    The output of a prefill ignores the incoming state, as the one-device
+    block's (the parallel form over the prompt alone)."""
+    mesh, rules = _ctx()
+    tp_axis, tp = _tp(mesh, rules)
+    B = x.shape[0]
+    H = cfg.n_heads
+    di = cfg.ssm_proj_factor * cfg.d_model
+    D = di // H
+    split = _split_over(tp_axis, H, tp)
+    loc, baxes = _local(mesh, rules, B, tp_axis, split)
+    bd = {0: baxes} if baxes else {}
+    hd = {0: tp_axis} if split else {}
+    lo, hi = _heads(loc, tp_axis, tp, H, split)
+    xl_ = loc.arg(x, bd)
+    w_up = loc.arg(p.w_up)
+    gate_sum = None
+    if split:
+        dev = xl_.device
+        w_up = w_up[:, torch.cat([torch.arange(lo * D, hi * D, device=dev),
+                                  torch.arange(di + lo * D, di + hi * D, device=dev)])]
+
+        def gate_sum(g):  # every head's gates read all of xc: sum the local rows' products
+            g = _AllReduceSum.apply(g.float(), _group(mesh, tp_axis)).to(g.dtype)
+            return torch.cat([g[..., lo:hi], g[..., H + lo:H + hi]], dim=-1)
+
+    pl = SimpleNamespace(w_up=w_up, wq=loc.arg(p.wq, hd), wk=loc.arg(p.wk, hd),
+                         w_if=loc.arg(p.w_if, hd), b_f=loc.arg(p.b_f, hd))
+    state = rows = None
+    if cache is not None:
+        rows = not split and _sharded_along(cache["C"], loc, tp_axis, 2)
+        kd = {**bd, 2: tp_axis} if rows else {**bd, 1: tp_axis} if split else bd
+        state = {"C": _cache_arg(loc, cache["C"], kd), "n": _cache_arg(loc, cache["n"], kd),
+                 "m": _cache_arg(loc, cache["m"], {**bd, 1: tp_axis} if split else bd)}
+    xn = rms_norm(xl_, loc.arg(p.norm), cfg.norm_eps)
+    q, k, v, z, logi, logf = xl._mlstm_qkvif(pl, xn, cfg, gate_sum)
+    keys = slice(None)
+    if rows:
+        Dl = state["C"].shape[2]
+        keys = slice(loc.coord(tp_axis) * Dl, (loc.coord(tp_axis) + 1) * Dl)
+    if mode == "decode":
+        combine = None
+        if rows:
+            def combine(numer, qn):
+                both = _all_reduce(torch.cat([numer, qn[..., None]], dim=-1), loc, (tp_axis,))
+                return both[..., :-1], both[..., -1]
+        new, h = xl.mlstm_recurrent_step(state, q[..., keys], k[..., keys], v, logi, logf,
+                                         combine=combine)
+        xl._write(state, new)
+    else:
+        h = xl.mlstm_parallel(q, k, v, logi, logf, q_chunk=cfg.q_chunk)
+        if state is not None:
+            xl._write(state, xl.mlstm_fold(state, k[..., keys], v, logi, logf))
+    bl, S = h.shape[0], h.shape[1]
+    hf = _norm_split(loc, h.reshape(bl, S, -1), loc.arg(p.out_norm, hd), cfg.norm_eps,
+                     tp_axis if split else None, di)
+    out = (hf * F.silu(z)) @ loc.arg(p.w_down, hd).to(xl_.dtype)
+    return loc.out(out, bd)
+
+
+def _slstm(p, x: DTensor, cfg, cache, engine) -> DTensor:
+    """An sLSTM block (train, prefill, and decode as ``S = 1``).  Where the
+    heads divide the model axis, the sLSTM kernel runs on this rank's heads:
+    their columns of ``w_zifo`` / ``b_zifo`` in each of the 4 gates
+    (gathered, then indexed), ``r_zifo[:, lo:hi]``, the cache's shards over
+    heads as the initial state and the final state written back in place
+    (in training through ``SLSTMFunction``, the kernel forward and its
+    written-out backward); ``out_norm``'s RMS over ``d`` (the sum of squares
+    all-reduced over the model axis) and the local rows of ``w_out``; a
+    partial sum over the model axis.
+
+    Elsewhere the block runs whole on every rank, the kernel on all heads,
+    and its output is replicated over the model axis.  A state split along
+    ``head_dim`` (``SERVE_RULES``) is gathered over the model axis first
+    (``c`` / ``n`` / ``h``, ``B H D`` float32 each; ``m`` is whole): the
+    recurrence's ``h @ R`` reads whole heads at every step, so a split
+    recurrence would cost a collective a step.  This rank's ``head_dim``
+    slice of the final ``c`` / ``n`` / ``h`` and ``m`` whole are written
+    back."""
+    mesh, rules = _ctx()
+    tp_axis, tp = _tp(mesh, rules)
+    B = x.shape[0]
+    d, H = cfg.d_model, cfg.n_heads
+    D = d // H
+    split = _split_over(tp_axis, H, tp)
+    loc, baxes = _local(mesh, rules, B, tp_axis, split)
+    bd = {0: baxes} if baxes else {}
+    lo, hi = _heads(loc, tp_axis, tp, H, split)
+    xl_ = loc.arg(x, bd)
+    w_zifo, b_zifo = loc.arg(p.w_zifo), loc.arg(p.b_zifo)
+    out_norm, w_out = loc.arg(p.out_norm), loc.arg(p.w_out)
+    R = loc.arg(p.r_zifo, {1: tp_axis} if split else {})
+    if split:
+        cols = torch.cat([torch.arange(g * d + lo * D, g * d + hi * D, device=xl_.device)
+                          for g in range(4)])
+        w_zifo, b_zifo = w_zifo[:, cols], b_zifo[cols]
+        out_norm, w_out = out_norm[lo * D:hi * D], w_out[lo * D:hi * D]
+    bl, dt = xl_.shape[0], xl_.dtype
+    local = gathered = None
+    if cache is not None:
+        hd_split = not split and _sharded_along(cache["c"], loc, tp_axis, 2)
+        sd = {**bd, 1: tp_axis} if split else {**bd, 2: tp_axis} if hd_split else bd
+        local = {key: _cache_arg(loc, cache[key], sd) for key in ("c", "n", "h")}
+        local["m"] = _cache_arg(loc, cache["m"], {**bd, 1: tp_axis} if split else bd)
+        state = dict(local)
+        if hd_split:
+            gathered = local["c"].shape[2]
+            state.update({key: _gather_dim(loc, local[key], bd, tp_axis, 2)
+                          for key in ("c", "n", "h")})
+    else:  # the computed heads' empty state (``ssm_xlstm.empty_slstm_state``'s)
+        f32, shape = torch.float32, (bl, hi - lo, D)
+        state = {key: torch.zeros(shape, dtype=f32, device=xl_.device) for key in ("c", "n", "h")}
+        state["m"] = torch.full(shape, -1e30, dtype=f32, device=xl_.device)
+    xn = rms_norm(xl_, loc.arg(p.norm), cfg.norm_eps)
+    zifo = xn @ w_zifo.to(dt) + b_zifo.to(dt)
+    hs, final = xl._slstm_scan(SimpleNamespace(r_zifo=R), zifo, cfg, state, engine)
+    if local is not None:
+        if gathered:
+            r0 = loc.coord(tp_axis) * gathered
+            final = {key: t if key == "m" else t[..., r0:r0 + gathered]
+                     for key, t in final.items()}
+        xl._write(local, final)
+    hn = _norm_split(loc, hs.to(dt), out_norm, cfg.norm_eps, tp_axis if split else None, d)
+    return loc.out(hn @ w_out.to(dt), bd)
 
 
 def apply_block(bdef, p, x: DTensor, cfg, cache, cache_index, mode, engine):
     """``transformer.apply_block`` on shards: ``(x_out, cache, aux)``; the
     cache's local shards are updated in place."""
     check_engine(engine, x.device)
-    if bdef.kind == "mamba2":
-        o = _mamba2(p, x, cfg, engine, cache, mode)
+    if bdef.kind in ("mamba2", "mlstm", "slstm"):
+        if bdef.kind == "mamba2":
+            o = _mamba2(p, x, cfg, engine, cache, mode)
+        elif bdef.kind == "mlstm":
+            o = _mlstm(p, x, cfg, cache, mode)
+        else:
+            o = _slstm(p, x, cfg, cache, engine)
         return x + o.redistribute(x.device_mesh, x.placements), cache, 0.0
     if bdef.kind == "mla":
         o = _mla(bdef, p, x, cfg, cache, cache_index, mode)

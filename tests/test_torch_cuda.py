@@ -1079,6 +1079,81 @@ def test_slstm_cuda_tensors_of_the_wrong_kind_raise(cuda_device):
     assert slstm.launches() == 0
 
 
+def test_slstm_kernel_on_a_shard_of_the_heads(cuda_device):
+    """The sharded sLSTM block's call where the heads divide the model axis:
+    2 of xlstm-1.3b's 4 heads of 512 (each gate's columns of those heads),
+    ``r_zifo[:, 2:4]`` and the state a strided slice of ``[B, 4, 512]``
+    leaves; held to the plain version in float64 at the kernel's tolerance."""
+    from repro_torch.kernels import slstm
+    from repro_torch.kernels.ref import slstm_scan_ref
+
+    B, S, H, D = 2, 40, 4, 512
+    u, R, state = _slstm_inputs(cuda_device, B, S, H, D, torch.float32, True, 12)
+    u_l = u.reshape(B, S, 4, H, D)[:, :, :, 2:4].reshape(B, S, 4 * 2 * D)
+    R_l = R[:, 2:4]
+    st_l = tuple(t[:, 2:4] for t in state)
+    assert not st_l[0].is_contiguous()
+    slstm.reset_launches()
+    hs, fin = slstm.slstm_forward(u_l, R_l, *st_l)
+    torch.cuda.synchronize()
+    assert slstm.launches() == 1
+    want_hs, want_fin = slstm_scan_ref(u_l, R_l, *st_l, compute_dtype=torch.float64)
+    for got, want in ((hs, want_hs), *zip(fin, want_fin)):
+        torch.testing.assert_close(got.double(), want, atol=SLSTM_TOL, rtol=SLSTM_TOL)
+
+
+def test_sharded_xlstm_in_a_world_of_one_goes_through_the_slstm_kernel(cuda_device, tmp_path):
+    """xlstm-smoke in float32 through ``build_step``'s serving cells on a (1,
+    1) mesh over one NCCL rank: a prefill and 2 decode steps, every logit
+    within 1e-5 of the unsharded ``Engine`` on the kernels, one sLSTM launch
+    a block and step."""
+    import copy
+
+    import torch.distributed as dist
+
+    from repro_torch.kernels import slstm
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.specs import build_step
+    from repro_torch.models import init_cache
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(configs.get_smoke_config("xlstm-1.3b"), compute_dtype="float32",
+                              serve_param_dtype="float32")
+    model = init_model_params(cfg, torch.Generator(device="cuda").manual_seed(5), "cuda")
+    rng = np.random.RandomState(5)
+    prompt = torch.from_numpy(rng.randint(0, cfg.vocab, (2, 14))).cuda()
+    fed = [torch.from_numpy(rng.randint(0, cfg.vocab, (2, 1))).cuda() for _ in range(2)]
+    cache = lambda: init_cache(cfg, 2, 32, torch.float32, device="cuda")  # noqa: E731
+    engine = Engine(cfg, copy.deepcopy(model), capacity=32, slots=2, engine="cuda")
+    logits, c = engine._prefill(engine.model, {"tokens": prompt}, cache())
+    want = [logits]
+    for i, tok in enumerate(fed):
+        logits, c = engine._decode(engine.model, tok, c, 14 + i)
+        want.append(logits)
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_host_mesh((1, 1), ("data", "model"), device_type="cuda")
+        prefill, decode = build_step(cfg, "prefill_32k", mesh), build_step(cfg, "decode_32k", mesh)
+        smodel, sbatch, scache = prefill.shard(model, {"tokens": prompt}, cache())
+        launches, got = [], []
+        for i in range(3):
+            slstm.reset_launches()
+            if i == 0:
+                logits, scache = prefill.step(smodel, sbatch, scache)
+            else:
+                logits, scache = decode.step(smodel, decode.shard(None, fed[i - 1])[1], scache,
+                                             13 + i)
+            torch.cuda.synchronize()
+            launches.append(slstm.launches())
+            got.append(logits.full_tensor())
+    finally:
+        dist.destroy_process_group()
+    assert launches == [_n_slstm(cfg)] * 3
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= 1e-5
+
+
 def _n_slstm(cfg):
     return sum(b.kind == "slstm" for b in cfg.superblock) * cfg.n_superblocks
 

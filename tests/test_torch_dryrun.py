@@ -19,6 +19,12 @@ and the kernels' custom ops.
   smoke config, a train step on a (1, 1) mesh) counted on real CPU tensors
   in a gloo world of one and on fake ones in a fake world of one gives
   equal FLOPs, bytes, per-op counts and peak memory.
+* **xlstm's cells.**  xlstm-1.3b's 8 cells (4 shapes on 256 and 512 fake
+  ranks) at one superblock, the 4 heads not dividing the 8-way "model"
+  axis: each runs under 80 GB a card, every mLSTM block takes its ``C``
+  split along ``head_dim``, the ``repro_torch::slstm`` op counts one a
+  serving step and two a train step, and a decode step all-reduces its
+  partial ``q . C`` over "model".
 * **Custom ops.**  Each kernel's op called directly on fake CPU tensors:
   its outputs' shapes, dtypes and strides, and its FLOP formula against a
   hand count; a real CPU tensor never reaches it (the op has a CUDA kernel
@@ -199,6 +205,109 @@ def test_audio_head_takes_the_local_vocabulary_shard(serve_cells):
     moves over the batch axis (DTensor's own einsum over the sharded head
     cannot run it)."""
     by_dim = serve_cells["musicgen-medium:prefill_32k"]["by_dim"]
+    assert "data" not in by_dim, by_dim
+
+
+# -- xlstm's cells ------------------------------------------------------------------------------
+
+XLSTM_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+XLSTM_CELLS = [(shape, multi) for multi in (False, True) for shape in XLSTM_SHAPES]
+
+XLSTM_SCRIPT = textwrap.dedent("""
+    import dataclasses, json, logging, sys
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import slstm
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.op_analysis import kernel_ops
+    from repro_torch.models import tensor_parallel
+
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(logging.ERROR)
+
+    def op_scan(u, R, c0, n0, h0, m0, states=False):
+        seqs, final = torch.ops.repro_torch.slstm(u, R, c0, n0, h0, m0, states)
+        final = tuple(final.unbind(0))
+        return (seqs[0], final, tuple(seqs[1:].unbind(0))) if states else (seqs[0], final)
+
+    slstm.slstm_scan_ref = op_scan  # the sLSTM forward as the op, as on the card
+    seen = []
+    mlstm = tensor_parallel._mlstm
+
+    def recorded(p, x, cfg, cache, mode):
+        if cache is not None:
+            C = cache["C"]
+            seen.append(str(C.placements[C.device_mesh.mesh_dim_names.index("model")]))
+        return mlstm(p, x, cfg, cache, mode)
+
+    tensor_parallel._mlstm = recorded
+    full = configs.get_config("xlstm-1.3b")
+    cfg = dataclasses.replace(full, n_superblocks=1, n_layers=len(full.superblock))
+    multi = json.loads(sys.argv[1])
+    out = {}
+    for shape in json.loads(sys.argv[2]):
+        seen.clear()
+        rec = run_cell("xlstm-1.3b", shape, multi, out_dir=sys.argv[3], verbose=False,
+                       device="cpu", cfg=cfg)
+        out[shape] = {"n_chips": rec["n_chips"], "memory": rec["memory"]["per_device_total"],
+                      "slstm": kernel_ops(rec["op_stats"]).get("slstm", {}).get("count", 0),
+                      "C": sorted(set(seen)), "by_dim": rec["op_stats"]["collectives_by_dim"]}
+    print(json.dumps(out))
+""")
+
+
+@pytest.fixture(scope="module")
+def xlstm_cells(tmp_path_factory):
+    """xlstm-1.3b's cells at one superblock (7 mLSTM + 1 sLSTM blocks), on
+    CPU ranks: one subprocess a production mesh, the two at once.  The CPU
+    ranks take the sLSTM scan's plain version, a Python loop of up to 32768
+    steps on fake tensors; the script routes its forward through the
+    kernel's custom op (its fake implementation, counted as the card's step
+    counts it), while the written-out backward runs as it does on the card."""
+    out_dir = tmp_path_factory.mktemp("dryrun_xlstm")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    procs = {multi: subprocess.Popen([sys.executable, "-c", XLSTM_SCRIPT, json.dumps(multi),
+                                      json.dumps(XLSTM_SHAPES), str(out_dir)],
+                                     stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                     env=env, cwd=str(ROOT))
+             for multi in (False, True)}
+    out = {}
+    try:
+        for multi, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=600)
+            assert proc.returncode == 0, stderr[-4000:]
+            out[multi] = json.loads(stdout.splitlines()[-1])
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    return out
+
+
+@pytest.mark.parametrize("shape,multi", XLSTM_CELLS)
+def test_xlstm_cells_run_under_the_production_meshes(xlstm_cells, shape, multi):
+    r = xlstm_cells[multi][shape]
+    assert r["n_chips"] == (512 if multi else 256)
+    assert 0 < r["memory"] < roofline.HBM_BYTES
+    # one sLSTM block: its kernel's op once a prefill or decode step, twice a train step (the
+    # backward recomputes the superblock's forward)
+    assert r["slstm"] == (2 if shape == "train_4k" else 1), r
+
+
+@pytest.mark.parametrize("shape,multi", [c for c in XLSTM_CELLS if c[0] != "train_4k"])
+def test_xlstm_serving_cells_keep_c_along_head_dim(xlstm_cells, shape, multi):
+    """4 heads do not divide the 8-way "model" axis: ``SERVE_RULES`` split
+    each mLSTM block's ``C [B, 4, 1024, 1024]`` along ``head_dim`` (its dim
+    2, the key rows), and the blocks take it so."""
+    assert xlstm_cells[multi][shape]["C"] == ["S(2)"], xlstm_cells[multi][shape]
+
+
+def test_xlstm_decode_contracts_c_over_model(xlstm_cells):
+    """``decode_32k`` on 256 cards: each of the 7 mLSTM blocks all-reduces
+    its partial ``q . C`` and ``q . n`` over "model", ``[4, 4, 1024 + 1]``
+    float32 (128 rows over 32 "data" shards), and never gathers ``C``."""
+    by_dim = xlstm_cells[False]["decode_32k"]["by_dim"]
+    assert by_dim["model"]["all-reduce"] >= 7 * 4 * 4 * 1025 * 4, by_dim
     assert "data" not in by_dim, by_dim
 
 
