@@ -5194,6 +5194,460 @@ def phase_xlstm_sharded(pool, pending) -> dict:
     return out
 
 
+#: phase 35: qwen3-moe-235b-a22b at full width under phase 31's world.  (a) the sharded init at
+#: this depth: its peak over the resident parameters and state within one layer slice of the
+#: largest leaf (128 x 4096 x 1536 float32, 3.22 GB) plus this share
+MOE_INIT_LAYERS = 4
+MOE_INIT_SLACK = 0.10
+#: (b) the sort dispatch, float32, one layer: 8 x 512 tokens in 8 microbatches of one row, at a
+#: capacity factor of 0.5: a microbatch's 4096 (token, choice) pairs meet 128 experts x 16
+#: slots, so at least half of them drop
+MOE_SORT_B, MOE_SORT_S, MOE_SORT_M, MOE_SORT_CAPACITY = 8, 512, 8, 0.5
+#: (b), (c): SGD without momentum or clipping at this constant rate, so that each step moves
+#: the parameters by the rate times that step's gradients.  What changes is held leaf by leaf:
+#: each step's gradients within MOE_GRAD_TOL of the leaf's largest |gradient| (the second step's
+#: at the weights the first one wrote).  With Adafactor (qwen3-moe's own) on four cards (c)'s
+#: first gradients agreed within 7.9e-6 of each leaf's largest, but at step 2 one token of 2048
+#: chose another expert and five parameters ended past atol + rtol (PERF.md, PR 27;
+#: scripts/phase35_world.py --adafactor)
+MOE_SGD_LR = 1e-2
+MOE_GRAD_TOL = 1e-5
+#: (c) with 4 cards: 4 rows in 4 microbatches, one row each; the two "data" shards run two of
+#: them side by side, 2 iterations a step
+MOE_THIN_B, MOE_THIN_M = 4, 4
+#: (b) served: 2 prompts, then teacher-forced decode steps, float32 with float32 caches
+MOE_SERVE_B, MOE_SERVE_S, MOE_SERVE_STEPS = 2, 256, 2
+#: the checksum's chunk of elements, and the gradient check's
+CHECKSUM_CHUNK = 1 << 26
+
+
+def moe_thin_cell() -> dict:
+    """Phase 35(d) in a worker process: qwen3-moe's ``train_4k`` on the
+    multi-pod fake world ((2, 32, 8), 512 ranks; 8 microbatches of 32 rows,
+    two side by side) at ``OPS_DRYRUN_LAYERS`` layers on fake CUDA tensors:
+    memory a card, the roofline's terms, the kernels' op counts."""
+    from repro_torch import configs
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.op_analysis import kernel_ops
+    from repro_torch.launch.roofline import roofline_row
+
+    torch.set_num_threads(1)
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(logging.ERROR)
+    t0 = time.perf_counter()
+    rec = run_cell("qwen3-moe-235b-a22b", "train_4k", True, verbose=False, device="cuda",
+                   out_dir=os.path.join(ROOT, "build", "phase35_dryrun"),
+                   cfg=cut_depth(configs.get_config("qwen3-moe-235b-a22b"), OPS_DRYRUN_LAYERS))
+    row = roofline_row(rec)
+    kops = kernel_ops(rec["op_stats"])
+    return {"n_chips": rec["n_chips"], "layers": OPS_DRYRUN_LAYERS,
+            "memory": rec["memory"]["per_device_total"],
+            "terms_s": {k: row[f"t_{k}_s"] for k in ("compute", "memory", "collective")},
+            "largest": row["bottleneck"],
+            "ops": {k: kops.get(k, {}).get("count", 0) for k in ("flash_attention", "crossentropy")},
+            "collectives_by_dim": rec["op_stats"]["collectives_by_dim"],
+            "seconds": time.perf_counter() - t0}
+
+
+def start_moe_cell():
+    """Phase 35(d)'s cell in a spawned process: ``(pool, pending result)``;
+    the pool is terminated at exit if a phase fails before phase 35."""
+    import atexit
+    import multiprocessing as mp
+
+    pool = mp.get_context("spawn").Pool(1)
+    atexit.register(pool.terminate)
+    pending = pool.apply_async(moe_thin_cell)
+    pool.close()
+    return pool, pending
+
+
+def _bits_checksum(t: torch.Tensor) -> tuple:
+    """Two 64-bit sums of a float32 tensor's bits, the second weighting
+    element ``i`` by the odd ``2 i K + 1``: equal bits give equal sums, and
+    a single element's change changes the second.  Two models of 45 GB do
+    not fit one card together, so phase 35(a) compares these."""
+    bits = t.detach().reshape(-1).view(torch.int32)
+    total = weighted = 0
+    for i in range(0, bits.numel(), CHECKSUM_CHUNK):
+        b = bits[i:i + CHECKSUM_CHUNK].to(torch.int64)
+        pos = torch.arange(i, i + b.numel(), dtype=torch.int64, device=b.device)
+        total += int(b.sum())
+        weighted += int((b * (pos * 5283711997 + 1)).sum())
+    return total % 2**64, weighted % 2**64
+
+
+def _moe_init(full, mesh, layers: int, bitwise: bool) -> dict:
+    """Phase 35(a) on this rank: ``make_sharded_init`` of ``full`` at
+    ``layers`` layers; its peak over the resident shards, and with
+    ``bitwise`` the gathered parameters' checksums against
+    ``init_model_params``' with the same seed."""
+    from repro_torch.models import init_model_params
+    from repro_torch.models.sharding import TRAIN_RULES
+    from repro_torch.train import TrainConfig
+    from repro_torch.train.train_loop import make_optimizer_for, make_sharded_init
+
+    cfg = cut_depth(full, layers)
+    opt = make_optimizer_for(cfg, TrainConfig())
+    init, _, _ = make_sharded_init(cfg, opt, mesh, TRAIN_RULES)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    (model, state), seconds = _synced(lambda: init(torch.Generator(device="cuda").manual_seed(35)))
+    resident = _resident_bytes(list(model.parameters()) + list(_tree_leaves(state)))
+    peak = torch.cuda.max_memory_allocated() - base
+    slice_bytes = cfg.moe_experts * cfg.d_model * cfg.moe_d_ff * 4
+    out = {"layers": layers, "seconds": seconds, "resident": resident, "peak": peak,
+           "over_resident": peak - resident, "slice_bytes": slice_bytes,
+           "leaf_bytes": slice_bytes * layers,
+           "card_bytes": torch.cuda.get_device_properties(torch.cuda.current_device()).total_memory}
+    if bitwise:
+        sums = {n: _bits_checksum(p.full_tensor()) for n, p in model.named_parameters()}
+    del model, state
+    torch.cuda.empty_cache()
+    if bitwise:
+        plain = init_model_params(cfg, torch.Generator(device="cuda").manual_seed(35), "cuda")
+        out["init_bitwise"] = all([sums[n] == _bits_checksum(p)
+                                   for n, p in plain.named_parameters()])
+        del plain
+        torch.cuda.empty_cache()
+    return out
+
+
+def _with_grads(opt, hook):
+    """``opt`` whose update first hands the step's gradients (before any
+    clipping) to ``hook(step, grads)``."""
+    def update(grads, state, params, step):
+        hook(step, grads)
+        return opt.update(grads, state, params, step)
+
+    return dataclasses.replace(opt, update=update)
+
+
+def _moe_train(cfg, mesh, B: int, m: int, opt=None, keep: bool = False) -> dict:
+    """Phase 35(b) / (c) on this rank: ``SHARDED_STEPS`` float32 steps of
+    the unsharded step, then of ``build_step``'s sharded step from the same
+    weights (``make_sharded_init``), with ``m`` microbatches of ``B`` x
+    ``MOE_SORT_S``, by default SGD at ``MOE_SGD_LR``.  The unsharded step's
+    parameters and gradients wait on the host (the two models and their
+    steps' gradients do not fit one card together); the sharded step's
+    gradients are gathered a leaf at a time and held to them (``grads``:
+    each step's worst ``|difference| / the leaf's largest |gradient|``, the
+    leaves past ``MOE_GRAD_TOL``; the copies and checks are not in the step
+    times).  The first
+    sharded step is counted by ``analyze_step`` with the launch counters set
+    to 0 just before it.  With ``keep``, ``"kept"`` also holds the unsharded
+    gradients, the differences and the masks of the parameters' entries past
+    atol + rtol (host tensors, not JSON)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.kernels import crossentropy as ce
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.op_analysis import analyze_step, kernel_ops
+    from repro_torch.launch.specs import build_step
+    from repro_torch.models import init_model_params
+    from repro_torch.models.sharding import TRAIN_RULES
+    from repro_torch.train import SyntheticLM, constant_schedule, make_train_step, sgd
+    from repro_torch.train.train_loop import make_sharded_init
+
+    cfg = dataclasses.replace(cfg, train_microbatch=m)
+    data = SyntheticLM(cfg, B, MOE_SORT_S, seed=35)
+    batches = [{k: v.cuda() for k, v in data.batch_at(i).items()} for i in range(SHARDED_STEPS)]
+    opt = opt or sgd(constant_schedule(MOE_SGD_LR), momentum=0.0, clip_norm=math.inf)
+    plain_grads, diffs = [], []
+    grads = {"worst": [], "outside": [], "check_s": [], "host_s": []}
+
+    def to_host(step, g):
+        t0 = time.perf_counter()
+        plain_grads.append({n: t.detach().to("cpu", copy=True) for n, t in g.items()})
+        grads["host_s"].append(time.perf_counter() - t0)
+
+    def check(step, g):
+        t0 = time.perf_counter()
+        worst, outside, diff = 0.0, [], {}
+        for n, t in g.items():
+            got = (t.full_tensor() if isinstance(t, DTensor) else t).reshape(-1)
+            want = plain_grads[step][n].reshape(-1)
+            err = top = 0.0
+            parts = []
+            for a in range(0, want.numel(), CHECKSUM_CHUNK):  # a chunk on the card at a time
+                w = want[a:a + CHECKSUM_CHUNK].cuda()
+                d = got[a:a + CHECKSUM_CHUNK] - w
+                err = max(err, float(torch.linalg.vector_norm(d, math.inf)))
+                top = max(top, float(torch.linalg.vector_norm(w, math.inf)))
+                if keep:
+                    parts.append(d.cpu())
+            worst = max(worst, err / top if top else (0.0 if err == 0 else math.inf))
+            if err > MOE_GRAD_TOL * top:
+                outside.append(n)
+            if keep:
+                diff[n] = torch.cat(parts).view(t.shape)
+            del got, want, parts
+        diffs.append(diff)
+        grads["worst"].append(worst)
+        grads["outside"].append(outside)
+        grads["check_s"].append(time.perf_counter() - t0)
+
+    gen = lambda: torch.Generator(device="cuda").manual_seed(35)  # noqa: E731
+    plain = init_model_params(cfg, gen(), "cuda")
+    plain_opt = _with_grads(opt, to_host)
+    plain_state = plain_opt.init(dict(plain.named_parameters()))
+    plain_step = make_train_step(cfg, plain_opt, m)
+    plain_losses, plain_norms, plain_s = [], [], []
+    for i, batch in enumerate(batches):
+        (plain, plain_state, met), s = _synced(lambda: plain_step(plain, plain_state, i, batch))
+        plain_losses.append(float(met["loss"]))
+        plain_norms.append(_scalar(met["grad_norm"]))
+        plain_s.append(s - grads["host_s"][i])
+    want = {n: p.detach().cpu() for n, p in plain.named_parameters()}
+    del plain, plain_state
+    torch.cuda.empty_cache()
+    sopt = _with_grads(opt, check)
+    init, _, _ = make_sharded_init(cfg, sopt, mesh, TRAIN_RULES)
+    smodel, sstate = init(gen())
+    cell = build_step(cfg, "train_4k", mesh, opt=sopt)
+    sbatches = [cell.shard(None, None, None, b)[3] for b in batches]
+    losses, norms, seconds = [], [], []
+    for i, sb in enumerate(sbatches):
+        held = {}
+        fa.reset_launches()
+        ce.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == 0:
+            stats = analyze_step(lambda *a: held.setdefault("out", cell.step(*a)), smodel, sstate,
+                                 i, sb, mesh=mesh, memory=False)
+            launches = {"flash_attention": fa.launches(), "crossentropy": ce.launches()}
+            kops = kernel_ops(stats)
+            ops = {k: kops.get(k, {"count": 0})["count"] for k in launches}
+            smodel, sstate, met = held["out"]
+        else:
+            smodel, sstate, met = cell.step(smodel, sstate, i, sb)
+        losses.append(float(met["loss"]))
+        norms.append(_scalar(met["grad_norm"]))
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0 - grads["check_s"][i])
+    worst, bad, masks = -1.0, [], {}
+    with torch.no_grad():
+        for name, p in smodel.named_parameters():
+            got, w = p.full_tensor(), want[name].cuda()
+            past = (got - w).abs() - (SHARDED_ATOL + SHARDED_RTOL * w.abs())
+            excess = float(past.max())
+            worst = max(worst, excess)
+            if excess > 0:
+                bad.append(name)
+                if keep:
+                    masks[name] = (past > 0).cpu()
+    del smodel, sstate, want
+    torch.cuda.empty_cache()
+    out = {"B": B, "S": MOE_SORT_S, "microbatch": m, "optimizer": opt.name,
+           "plain_losses": plain_losses, "sharded_losses": losses,
+           "plain_grad_norms": plain_norms, "sharded_grad_norms": norms,
+           "grad_worst_rel": grads["worst"], "grads_outside": grads["outside"],
+           "grad_check_s": grads["check_s"], "grad_to_host_s": grads["host_s"],
+           "plain_step_s": plain_s, "sharded_step_s": seconds,
+           "launches": launches, "ops": ops, "param_excess": worst, "params_outside": bad}
+    if keep:
+        out["kept"] = {"plain_grads": plain_grads, "diffs": diffs, "outside": masks}
+    return out
+
+
+def _moe_serve(cfg, mesh) -> dict:
+    """Phase 35(b) served on this rank: the unsharded ``Engine``'s prefill
+    and decode steps on the plain versions (``engine="torch"``) against
+    ``build_step``'s serving cells on ``mesh`` through the flash kernel,
+    float32 with float32 caches; the sharded prefill counted by
+    ``analyze_step`` with the launch counter set to 0 just before it."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.op_analysis import analyze_step, kernel_ops
+    from repro_torch.launch.specs import build_step
+    from repro_torch.models import init_cache, init_model_params
+    from repro_torch.serve import Engine
+
+    B, S, steps = MOE_SERVE_B, MOE_SERVE_S, MOE_SERVE_STEPS
+    rng = np.random.RandomState(35)
+    prompt = torch.from_numpy(rng.randint(0, cfg.vocab, (B, S))).cuda()
+    fed = [torch.from_numpy(rng.randint(0, cfg.vocab, (B, 1))).cuda() for _ in range(steps)]
+    gen = lambda: torch.Generator(device="cuda").manual_seed(35)  # noqa: E731
+    f32_cache = lambda: init_cache(cfg, B, S + steps, torch.float32, device="cuda")  # noqa: E731
+    engine = Engine(cfg, init_model_params(cfg, gen(), "cuda"), capacity=S + steps, slots=B,
+                    engine="torch")
+    logits, cache = engine._prefill(engine.model, {"tokens": prompt}, f32_cache())
+    want = [logits]
+    for i, tok in enumerate(fed):
+        logits, cache = engine._decode(engine.model, tok, cache, S + i)
+        want.append(logits)
+    del engine, cache
+    torch.cuda.empty_cache()
+    prefill = build_step(cfg, "prefill_32k", mesh)
+    decode = build_step(cfg, "decode_32k", mesh)
+    smodel, sbatch, scache = prefill.shard(init_model_params(cfg, gen(), "cuda"),
+                                           {"tokens": prompt}, f32_cache())
+    held = {}
+    fa.reset_launches()
+    stats = analyze_step(lambda *a: held.setdefault("out", prefill.step(*a)), smodel, sbatch,
+                         scache, mesh=mesh, memory=False)
+    launches = fa.launches()
+    ops = kernel_ops(stats).get("flash_attention", {"count": 0})["count"]
+    logits, scache = held["out"]
+    again = prefill.step(smodel, sbatch, prefill.shard(None, None, f32_cache())[2])[0]
+    got = [logits.full_tensor()]
+    same_bits = torch.equal(got[0], again.full_tensor())
+    for i, tok in enumerate(fed):
+        logits, scache = decode.step(smodel, decode.shard(None, tok)[1], scache, S + i)
+        got.append(logits.full_tensor())
+    excess = max(float(((g - w).abs() - (SHARDED_ATOL + SHARDED_RTOL * w.abs())).max())
+                 for g, w in zip(got, want))
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    del smodel, scache, held, again
+    torch.cuda.empty_cache()
+    return {"prompt": [B, S], "decode_steps": steps, "excess": excess, "finite": finite,
+            "same_bits": same_bits, "launches": launches, "ops": ops}
+
+
+def moe_rank(rank: int, world: int, store: str, out_path: str) -> dict:
+    """Phase 35(a)-(c) on one rank (``cuda:rank``), in phase 31's world: a
+    (2, 2) ("data", "model") mesh over 4 NCCL ranks with 4 cards (the batch
+    over "data", 64 experts a rank), else a (1, 1) mesh over one; rank 0
+    writes the result to ``out_path``.  Every check raises on this rank."""
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_host_mesh
+
+    torch.cuda.set_device(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(logging.ERROR)
+    _build.load()
+    dist.init_process_group("nccl", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world)
+    try:
+        shape = (2, 2) if world == 4 else (1, 1)
+        mesh = make_host_mesh(shape, ("data", "model"), device_type="cuda")
+        full = configs.get_config("qwen3-moe-235b-a22b")
+        res = {"rank": rank, "world": world, "mesh": list(shape)}
+        res["init"] = _moe_init(full, mesh, MOE_INIT_LAYERS, bitwise=True)
+        if world == 4:  # the least depth at which one stacked expert leaf outgrows a card
+            card = res["init"]["card_bytes"]
+            res["init_large"] = _moe_init(full, mesh, card // res["init"]["slice_bytes"] + 1,
+                                          bitwise=False)
+        cfg = dataclasses.replace(cut_depth(full, 1), compute_dtype="float32",
+                                  serve_param_dtype="float32", moe_dispatch="sort",
+                                  moe_capacity=MOE_SORT_CAPACITY)
+        res["train"] = _moe_train(cfg, mesh, MOE_SORT_B, MOE_SORT_M)
+        if world == 4:
+            res["thin"] = _moe_train(cfg, mesh, MOE_THIN_B, MOE_THIN_M)
+        res["serve"] = _moe_serve(cfg, mesh)
+        every = [None] * world
+        dist.all_gather_object(every, {"train": res["train"]["launches"],
+                                       "serve": res["serve"]["launches"]})
+        res["ranks"] = every
+        if rank == 0:  # before the checks, so that a failing run shows its numbers
+            gib = 2.0**30
+            for key in ("init", "init_large"):
+                if key in res:
+                    r = res[key]
+                    print(f"  (a) {r['layers']} layers: make_sharded_init {r['seconds']:.2f} s; "
+                          f"rank 0 resident {r['resident'] / gib:.3f} GiB, peak "
+                          f"{r['peak'] / gib:.3f} GiB, over the resident "
+                          f"{r['over_resident'] / gib:.3f} GiB against one layer slice "
+                          f"{r['slice_bytes'] / gib:.3f} GiB (a stacked expert leaf "
+                          f"{r['leaf_bytes'] / gib:.3f} GiB, the card "
+                          f"{r['card_bytes'] / gib:.3f} GiB); gathered checksums equal "
+                          f"init_model_params': {r.get('init_bitwise', 'not checked')}")
+            for key in ("train", "thin"):
+                if key in res:
+                    print(f"  ({'b' if key == 'train' else 'c'}) {res[key]}")
+            print(f"  (b) served: {res['serve']}")
+            print(f"  (b) flash / CE launches a rank: {every}")
+        check_moe(res)
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:
+        with open(out_path, "w") as f:
+            json.dump(res, f)
+    return res
+
+
+def check_moe(res: dict) -> None:
+    """Phase 35(a)-(c)'s assertions on one rank's result."""
+    for key in ("init", "init_large"):
+        if key in res:
+            r = res[key]
+            assert r["over_resident"] <= (1 + MOE_INIT_SLACK) * r["slice_bytes"], (key, r)
+    assert res["init"]["init_bitwise"], res["init"]
+    if "init_large" in res:
+        assert res["init_large"]["leaf_bytes"] > res["init_large"]["card_bytes"], res["init_large"]
+    data = res["mesh"][0]
+    for key in ("train", "thin"):
+        if key not in res:
+            continue
+        r = res[key]
+        for got, want in zip(r["sharded_losses"] + r["sharded_grad_norms"],
+                             r["plain_losses"] + r["plain_grad_norms"]):
+            assert abs(got - want) <= SHARDED_ATOL + SHARDED_RTOL * abs(want), (key, r)
+        assert not any(r["grads_outside"]), (key, r["grads_outside"], r["grad_worst_rel"])
+        assert not r["params_outside"], (key, r["params_outside"][:8], r["param_excess"])
+        # the rows of a microbatch over the "data" shards, or one microbatch a shard side by
+        # side (train_loop._rows); one layer: 2 flash launches an iteration (remat), 1 CE
+        side = 1 if (r["B"] // r["microbatch"]) % data == 0 else data
+        iterations = r["microbatch"] // side
+        assert r["launches"] == r["ops"] == {"flash_attention": 2 * iterations,
+                                             "crossentropy": iterations}, (key, r)
+    serve = res["serve"]
+    assert serve["finite"] and serve["same_bits"], serve
+    assert serve["excess"] <= 0.0, serve
+    assert serve["launches"] == serve["ops"] == 1, serve  # one attention layer a prefill
+
+
+def _moe_cell(pool, pending) -> dict:
+    """Phase 35(d): the 512-card cell's result, printed and checked."""
+    from repro_torch.launch.roofline import HBM_BYTES
+
+    t0 = time.perf_counter()
+    row = pending.get()
+    pool.join()
+    terms = ", ".join(f"{k} {v:.4g} s" for k, v in row["terms_s"].items())
+    print(f"  (d) qwen3-moe-235b-a22b train_4k on {row['n_chips']} fake ranks (2, 32, 8), "
+          f"{row['layers']} layers: {row['memory'] / 2**30:.3f} GiB a card; largest term "
+          f"{row['largest']} ({terms}); kernel ops {row['ops']}; collectives "
+          f"{row['collectives_by_dim']}; {row['seconds']:.1f} s in its worker, waited "
+          f"{time.perf_counter() - t0:.1f} s")
+    assert row["memory"] < HBM_BYTES, row
+    # 8 microbatches, 2 side by side: 4 iterations, a loss and 2 flash launches a layer each
+    assert row["ops"] == {"flash_attention": 2 * row["layers"] * 4, "crossentropy": 4}, row
+    return row
+
+
+def phase_moe_sharded(pool, pending) -> dict:
+    """Phase 35: MoE training under a mesh at qwen3-moe-235b-a22b's full
+    width: (a) the born-sharded init's peak, (b) the sort dispatch trained
+    (8 microbatches) and served on phase 31's world against the unsharded
+    steps, (c) with 4 cards thin microbatches side by side, (d) the
+    512-card train cell on fake ranks."""
+    import shutil
+    import tempfile
+
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(logging.ERROR)
+    world, shape = sharded_world()
+    print(f"phase 35: qwen3-moe-235b-a22b under a mesh at full width; (a) make_sharded_init at "
+          f"{MOE_INIT_LAYERS} layers; (b) the sort dispatch at capacity {MOE_SORT_CAPACITY}, one "
+          f"layer, float32: {SHARDED_STEPS} SGD steps of {MOE_SORT_B} x {MOE_SORT_S} in "
+          f"{MOE_SORT_M} microbatches, a prefill of {MOE_SERVE_B} x {MOE_SERVE_S} and "
+          f"{MOE_SERVE_STEPS} decode steps; world {world} in a {shape} ('data', 'model') mesh "
+          f"({torch.cuda.device_count()} card(s)); (d) train_4k on 512 fake ranks at "
+          f"{OPS_DRYRUN_LAYERS} layers; {nvidia_smi('name,power.limit')}")
+    tmp = tempfile.mkdtemp(prefix="phase35-", dir=os.path.join(ROOT, "build"))
+    try:
+        out = {"sharded": _run_world(world, tmp, moe_rank)}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["cell"] = _moe_cell(pool, pending)
+    print(f"  {nvidia_smi('name,power.limit')}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every measurement to this JSON file")
@@ -5228,6 +5682,7 @@ def main() -> int:
 
     phase_s = {"1": time.perf_counter() - t_start}
     xlstm_pool, xlstm_pending = start_xlstm_cells()  # phase 34(a), read there
+    moe_pool, moe_pending = start_moe_cell()  # phase 35(d), read there
 
     def timed(phases: str, fn, *args):
         """``fn(*args)``, its wall seconds printed and kept under ``phases``."""
@@ -5280,6 +5735,7 @@ def main() -> int:
     op_analysis = timed("32", phase_op_analysis)
     serve_cache = timed("33", phase_serve_cache)
     xlstm_sharded = timed("34", phase_xlstm_sharded, xlstm_pool, xlstm_pending)
+    moe_sharded = timed("35", phase_moe_sharded, moe_pool, moe_pending)
 
     shape_rows = optimize_rows + wave_rows
     table = wave_rows[-1]  # the score-table build: the kernel's large shape
@@ -5369,6 +5825,10 @@ def main() -> int:
             "flash_attention"],
         "launches_sharded_serve_zamba2": serve_cache["served"]["zamba2-1.2b"]["launches"][
             "flash_attention"],
+        "launches_sharded_train_moe_sort": moe_sharded["sharded"]["train"]["launches"][
+            "flash_attention"],
+        "launches_sharded_serve_moe_sort": moe_sharded["sharded"]["serve"]["launches"],
+        "dryrun_qwen3_moe_512": moe_sharded["cell"]["ops"]["flash_attention"],
         "qwen3_moe_prefill": [{k: r[k] for k in ("B", "Sq", "Skv", "ms", "plain_ms", "bound_ms",
                                                  "bound_by", "max_abs_err")}
                               for r in qwen3["flash_rows"]],
@@ -5407,6 +5867,9 @@ def main() -> int:
         "launches_sharded_train_bf16": sharded["bf16"]["launches"]["crossentropy"],
         "launches_sharded_train_xlstm": xlstm_sharded["sharded"]["train"]["launches"][
             "crossentropy"],
+        "launches_sharded_train_moe_sort": moe_sharded["sharded"]["train"]["launches"][
+            "crossentropy"],
+        "dryrun_qwen3_moe_512": moe_sharded["cell"]["ops"]["crossentropy"],
         "max_abs_err": max(r["max_abs_err"] for r in ce_rows),
         "ms": ce_main["ms"],
         "plain_ms": ce_main["plain_ms"],
@@ -5502,7 +5965,7 @@ def main() -> int:
                        "qwen3_moe": qwen3, "tune_moe": tune_moe, "storage": storage,
                        "tune_slices": tune_slices, "sharded": sharded,
                        "op_analysis": op_analysis, "serve_cache": serve_cache,
-                       "xlstm_sharded": xlstm_sharded,
+                       "xlstm_sharded": xlstm_sharded, "moe_sharded": moe_sharded,
                        "phase_seconds": phase_s,
                        "kernels": kernels}, f,
                       indent=1)

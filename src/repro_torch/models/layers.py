@@ -109,22 +109,24 @@ def spec_logical(tree) -> Any:
     return spec_map(lambda s: s.logical, tree)
 
 
-def init_tensor(s: Spec, generator: torch.Generator, device) -> torch.Tensor:
+def init_tensor(s: Spec, generator: torch.Generator, device, shape=None) -> torch.Tensor:
     """One float32 parameter by the reference's rules: zeros / ones, or a
     normal draw times ``std`` (``1/sqrt(fan_in)`` by default, 0.02 for
     embeddings).  The draw is made on the generator's device and moved to
-    ``device``."""
+    ``device``.  ``shape`` (default ``s.shape``) draws a slice of the leaf
+    with the leaf's ``std``: one layer of a stacked leaf."""
     device = torch.device(device)
+    shape = s.shape if shape is None else tuple(shape)
     if s.init == "zeros":
-        return torch.zeros(s.shape, device=device)
+        return torch.zeros(shape, device=device)
     if s.init == "ones":
-        return torch.ones(s.shape, device=device)
+        return torch.ones(shape, device=device)
     std = s.std
     if std is None:
         std = s._default_std() if s.init == "normal" else 0.02
     if s.init == "embed":
         std = 0.02 if s.std is None else s.std
-    out = torch.randn(s.shape, generator=generator, device=generator.device)
+    out = torch.randn(shape, generator=generator, device=generator.device)
     return out.mul_(std).to(device)
 
 

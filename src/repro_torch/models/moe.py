@@ -191,7 +191,7 @@ def _moe_einsum(p, xt, w, idx, cfg, experts=None, group=None):
 # -- sort-based dispatch ------------------------------------------------------------------------
 
 
-def _moe_sort(p, xt, w, idx, cfg):
+def _moe_sort(p, xt, w, idx, cfg, experts=None, before=None, tokens=None):
     """Sort-based dispatch without [T, E, C] one-hots.
 
     1. flatten (token, choice) pairs token-major, sort by expert id (stable),
@@ -200,10 +200,23 @@ def _moe_sort(p, xt, w, idx, cfg):
        dropped pair adds an exact 0 to the last slot), run the experts,
     4. gather back and combine each token's k terms in ascending expert
        order, one compute-dtype rounding per add.
+
+    Under a mesh (``models/tensor_parallel.py``) ``xt`` is one batch shard's
+    tokens of a microbatch of ``tokens`` tokens, the shards in token order:
+    ``before`` [E] counts each expert's pairs on the earlier shards, so a
+    pair's rank within its expert is its rank here plus that count, held to
+    the microbatch's one capacity; the buffers hold this shard's kept pairs
+    only (at most one a token an expert: ``min(C, T)`` rows an expert).
+    ``experts = (lo, hi)`` names the experts whose weights ``p`` holds: the
+    other experts' pairs add nothing here, and the result is these experts'
+    part of the sum over experts.
     """
     T, d = xt.shape
     E, k = cfg.moe_experts, cfg.moe_top_k
-    C = _capacity(T, cfg)
+    C = _capacity(T if tokens is None else tokens, cfg)
+    rows = C if before is None else min(C, T)
+    lo, hi = experts or (0, E)
+    ne = hi - lo
     dev = xt.device
 
     flat_e = idx.reshape(-1)  # [T*k]
@@ -220,13 +233,15 @@ def _moe_sort(p, xt, w, idx, cfg):
         0, flat_e, torch.ones_like(flat_e))
     starts = torch.cumsum(counts, 0) - counts
     ranks = torch.arange(T * k, device=dev) - starts[se]
-    keep = ranks < C
-    slot = se * C + torch.clamp(ranks, max=C - 1)
+    keep = ranks < C if before is None else ranks + before[se] < C
+    if experts is not None:
+        keep = keep & (se >= lo) & (se < hi)
+    slot = torch.clamp((se - lo) * rows + torch.clamp(ranks, max=rows - 1), 0, ne * rows - 1)
 
     keep_x = keep[:, None].to(xt.dtype)
-    buf = torch.zeros((E * C, d), dtype=xt.dtype, device=dev).index_add(
-        0, torch.where(keep, slot, E * C - 1), xt[stok] * keep_x)
-    o = _experts(p, buf.view(E, C, d), xt.dtype).view(E * C, d)
+    buf = torch.zeros((ne * rows, d), dtype=xt.dtype, device=dev).index_add(
+        0, torch.where(keep, slot, ne * rows - 1), xt[stok] * keep_x)
+    o = _experts(p, buf.view(ne, rows, d), xt.dtype).view(ne * rows, d)
 
     terms = o[slot] * keep_x * sw[:, None].to(xt.dtype)  # [T*k, d], sorted order
     # back to token-major, then each token's terms in ascending expert order

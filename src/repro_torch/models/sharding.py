@@ -50,6 +50,9 @@ __all__ = [
     "with_logical_constraint",
     "activation_sharding",
     "active",
+    "side_by_side",
+    "side_by_side_layout",
+    "carry_context",
     "constrain",
     "wrap_with_sharding_ctx",
 ]
@@ -316,6 +319,56 @@ def active() -> "tuple | None":
     """The innermost active ``(mesh, rules)`` of this thread, or ``None``."""
     stack = _stack()
     return stack[-1] if stack else None
+
+
+class side_by_side:
+    """Marks a call whose batch holds ``k`` microbatches side by side
+    (``train.train_loop._rows``): the batch is ``k`` microbatches'
+    consecutive rows, laid over the batch axes as any batch is, so that the
+    outer batch axes (the product of their sizes ``k``) tell the
+    microbatches apart and each microbatch's rows lie over the inner ones,
+    ``axes`` (mesh names, in mesh order).  The blocks take every reduction
+    that defines a microbatch's function (the loss's mean, the MoE means,
+    groups and capacity counts) over its own axes
+    (``models/tensor_parallel.py``)."""
+
+    def __init__(self, k: int, axes: Sequence[str] = ()):
+        self.k, self.axes = int(k), tuple(axes)
+
+    def __enter__(self):
+        _sides().append(self)
+        return self
+
+    def __exit__(self, *exc):
+        _sides().pop()
+        return False
+
+
+def _sides() -> list:
+    if not hasattr(_LOCAL, "sides"):
+        _LOCAL.sides = []
+    return _LOCAL.sides
+
+
+def side_by_side_layout() -> "side_by_side | None":
+    """This thread's current :class:`side_by_side` layout (``None`` outside
+    one)."""
+    sides = _sides()
+    return sides[-1] if sides else None
+
+
+def carry_context(fn: Callable) -> Callable:
+    """``fn`` run under this thread's current activation context (the
+    active ``(mesh, rules)`` and the microbatches side by side) on whatever
+    thread calls it: a remat recomputation runs on the autograd engine's
+    thread, whose own context is empty."""
+    pair, layout = active(), side_by_side_layout() or side_by_side(1)
+
+    def wrapped(*args, **kwargs):
+        with activation_sharding(*pair), layout:
+            return fn(*args, **kwargs)
+
+    return wrapped
 
 
 def constrain(x, logical: Sequence[str | None]):

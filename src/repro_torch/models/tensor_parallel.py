@@ -43,7 +43,8 @@ written in place on each rank's shard:
   column shards gathered over ``"model"`` (:func:`_mamba2`);
 * MoE dispatch groups that the batch shards cut (a decode step's few tokens
   a rank) take the covering groups' choices from every batch shard
-  (:func:`_cut_groups`);
+  (:func:`_cut_groups`); the sort dispatch counts the earlier shards' pairs
+  of each expert (:func:`_moe`);
 * the xLSTM caches: over heads, as the local heads (mLSTM ``C`` / ``n`` /
   ``m``, sLSTM ``c`` / ``n`` / ``h`` / ``m``); where the heads do not divide
   the model axis, along ``head_dim``: the mLSTM ``C``'s key rows and ``n``,
@@ -53,8 +54,12 @@ written in place on each rank's shard:
 
 The logits are a local product of the batch rows and the vocabulary shard
 (:func:`logits_from_hidden`).  A cache layout a block cannot serve raises
-``NotImplementedError`` naming the leaf's placements.  Not yet run sharded:
-the sort dispatch of a MoE block with the batch split.
+``NotImplementedError`` naming the leaf's placements.
+
+A train step's microbatches may run side by side (``sharding.side_by_side``,
+``train.train_loop._rows``): the loss's mean and the MoE block's means,
+groups and capacity counts are then each microbatch's, over its own batch
+axes (:func:`_microbatch_axes`).
 """
 
 from __future__ import annotations
@@ -76,7 +81,7 @@ from . import mamba2 as m2
 from . import ssm_xlstm as xl
 from .layers import check_engine, rms_norm, softcap
 from .moe import _moe_einsum, _moe_sort, group_size, route
-from .sharding import active, local_shard, logical_to_spec
+from .sharding import active, local_shard, logical_to_spec, side_by_side_layout
 
 __all__ = [
     "apply_block",
@@ -657,15 +662,36 @@ def _ffn(bdef, p, x: DTensor, cfg):
 
 
 def _moe(p, x: DTensor, cfg, mesh, rules, tp_axis, tp):
-    """ln2 + a MoE FFN with this rank's experts (the einsum dispatch over
-    the whole batch's groups, only the local experts' buffers filled).
+    """ln2 + a MoE FFN with this rank's experts.
 
-    The Switch aux loss ``E * sum_e load_e * importance_e`` takes both
-    means over the whole batch: the first-choice counts are summed over
-    the batch axes (no gradient), and each rank returns its tokens' part of
-    the importance term, divided by the model axis's size because every
-    rank of it computes the same term — a partial sum over every splitting
-    dim, whose gradient is then the whole one."""
+    The function is the one-device ``moe_ffn`` of each microbatch: the
+    batch, or under ``sharding.side_by_side`` each of the microbatches it
+    holds, whose tokens lie over its own batch axes
+    (:func:`_microbatch_axes`).  Every reduction that defines it runs over
+    those axes only:
+
+    * the Switch aux loss ``E * sum_e load_e * importance_e`` takes both
+      means over the microbatch's tokens: the first-choice counts are summed
+      over its axes (no gradient), and each rank returns its tokens' part of
+      the importance term, divided by the model axis's size because every
+      rank of it computes the same term — a partial sum over every
+      splitting dim, whose gradient is then the whole one, and whose sum
+      over the ranks is the sum of the side-by-side microbatches' terms;
+    * the einsum dispatch runs the microbatch's groups, only the local
+      experts' buffers filled; a group that the batch shards cut takes its
+      choices from the microbatch's other shards (:func:`_cut_groups`);
+    * the sort dispatch ranks each (token, choice) pair within its expert in
+      the microbatch's token-major order against one capacity over its
+      tokens: a pair's rank is its rank on this shard plus the pairs of its
+      expert on the earlier shards, an exclusive scan of one ``[E]`` count
+      vector a shard over the microbatch's axes (no token vector or routing
+      choice moves).  The expert FFN is row-wise, so each rank runs its
+      local experts on its own kept pairs only.  Each token combines its
+      local experts' terms in ascending expert order, as ``_moe_sort`` does
+      (two calls give the same bits); over the model axis the ranks'
+      partial sums are then added by the collective that reduces the
+      block's output, in its own order, so that the sum is held to the
+      one-device path by tolerance."""
     B, S, d = x.shape
     E = cfg.moe_experts
     pm = p.moe
@@ -673,9 +699,7 @@ def _moe(p, x: DTensor, cfg, mesh, rules, tp_axis, tp):
     if cfg.moe_shared_d_ff and split and cfg.moe_shared_d_ff % tp:
         raise NotImplementedError(f"shared experts of width {cfg.moe_shared_d_ff} over {tp} ranks")
     loc, baxes = _local(mesh, rules, B, tp_axis, split)
-    if baxes and cfg.moe_dispatch == "sort":
-        raise NotImplementedError("the sort dispatch with the batch split (one capacity over "
-                                  "all tokens)")
+    maxes, k = _microbatch_axes(loc, baxes)
     bd = {0: baxes} if baxes else {}
     xl = loc.arg(x, bd)
     h = rms_norm(xl, loc.arg(p.ln2), cfg.norm_eps)
@@ -683,20 +707,24 @@ def _moe(p, x: DTensor, cfg, mesh, rules, tp_axis, tp):
     pl = SimpleNamespace(router=loc.arg(pm.router), w1=loc.arg(pm.w1, ex), w3=loc.arg(pm.w3, ex),
                          w2=loc.arg(pm.w2, ex))
     xt = h.reshape(-1, d)
-    T_all = B * S
+    T = B * S // k  # the microbatch's tokens
     probs, w, idx = route(pl, xt, cfg)
-    if cfg.moe_dispatch == "sort":  # the batch is whole here
-        if split:
-            raise NotImplementedError("the sort dispatch with experts over the model axis")
-        y = _moe_sort(pl, xt, w, idx, cfg)
+    experts = None
+    if split:
+        lo = loc.coord(tp_axis) * (E // tp)
+        experts = (lo, lo + E // tp)
+    if cfg.moe_dispatch == "sort":
+        before = None
+        if maxes:
+            counts = torch.zeros(E, dtype=torch.int64, device=xt.device).index_add_(
+                0, idx.reshape(-1), torch.ones_like(idx.reshape(-1)))
+            every = _gather_dim(loc, counts[None], {}, maxes, 0)  # [shards, E]
+            before = every[:_shard_index(loc, maxes)].sum(0)
+        y = _moe_sort(pl, xt, w, idx, cfg, experts=experts, before=before, tokens=T)
     else:
-        Sg = group_size(T_all, cfg)
-        experts = None
-        if split:
-            lo = loc.coord(tp_axis) * (E // tp)
-            experts = (lo, lo + E // tp)
+        Sg = group_size(T, cfg)
         if xt.shape[0] % Sg:
-            xp, wp, ip, off = _cut_groups(loc, baxes, xt, w, idx, Sg)
+            xp, wp, ip, off = _cut_groups(loc, maxes, xt, w, idx, Sg)
             y = _moe_einsum(pl, xp, wp, ip, cfg, experts=experts, group=Sg)[off:off + xt.shape[0]]
         else:
             y = _moe_einsum(pl, xt, w, idx, cfg, experts=experts, group=Sg)
@@ -704,30 +732,48 @@ def _moe(p, x: DTensor, cfg, mesh, rules, tp_axis, tp):
         col, row = ({1: tp_axis}, {0: tp_axis}) if split else ({}, {})
         sw1, sw3, sw2 = loc.arg(pm.sw1, col), loc.arg(pm.sw3, col), loc.arg(pm.sw2, row)
         y = y + (F.silu(xt @ sw1.to(xt.dtype)) * (xt @ sw3.to(xt.dtype))) @ sw2.to(xt.dtype)
-    counts = _all_reduce(F.one_hot(idx[:, 0], E).to(torch.float32).sum(0), loc, baxes)
-    load = counts / T_all
-    aux = E * torch.sum(load * (probs.sum(0) / T_all))
+    counts = _all_reduce(F.one_hot(idx[:, 0], E).to(torch.float32).sum(0), loc, maxes)
+    load = counts / T
+    aux = E * torch.sum(load * (probs.sum(0) / T))
     if split:
         aux = aux / tp
     return loc.out(y.reshape(xl.shape), bd), loc.out(aux)
 
 
-def _cut_groups(loc, baxes, xt, w, idx, Sg: int):
+def _microbatch_axes(loc, baxes) -> "tuple[tuple, int]":
+    """``(the batch axes one microbatch's rows lie over, in mesh order; the
+    microbatches side by side)``: every batch axis for one microbatch, else
+    the axes ``sharding.side_by_side`` carries (``train_loop._rows``' layout
+    rule)."""
+    layout = side_by_side_layout()
+    if layout is None or layout.k == 1:
+        return tuple(sorted(baxes, key=loc.names.index)), 1
+    return layout.axes, layout.k
+
+
+def _shard_index(loc, axes) -> int:
+    """This rank's place among the shards over the mesh ``axes`` (in mesh
+    order, the first the major one: DTensor's order of a dim's shards)."""
+    shard = 0
+    for ax in sorted(axes, key=loc.names.index):
+        shard = shard * loc.mesh.size(loc.names.index(ax)) + loc.coord(ax)
+    return shard
+
+
+def _cut_groups(loc, axes, xt, w, idx, Sg: int):
     """This shard's tokens padded out to the einsum dispatch's groups they
     fall in, when the batch shards cut a group (a decode step's few tokens
     a rank).  A token's buffer position counts every earlier choice of its
-    group, so the covering groups' choices are gathered over the batch
-    axes; the other shards' tokens enter as zero rows of zero weight,
-    holding their slots.  Returns ``(x, w, idx, offset of the own rows)``."""
-    axes = sorted(baxes, key=loc.names.index)
-    shard = 0
-    for ax in axes:
-        shard = shard * loc.mesh.size(loc.names.index(ax)) + loc.coord(ax)
+    group, so the covering groups' choices are gathered over the
+    microbatch's batch ``axes``; the other shards' tokens enter as zero rows
+    of zero weight, holding their slots.  Returns ``(x, w, idx, offset of
+    the own rows)``."""
+    axes = tuple(sorted(axes, key=loc.names.index))
     T = xt.shape[0]
-    first = shard * T
+    first = _shard_index(loc, axes) * T
     g0, g1 = first // Sg, -(-(first + T) // Sg)
     lo, hi = first - g0 * Sg, g1 * Sg - first - T
-    choices = _gather_dim(loc, idx, {}, tuple(axes), 0)[g0 * Sg:g1 * Sg]
+    choices = _gather_dim(loc, idx, {}, axes, 0)[g0 * Sg:g1 * Sg]
 
     def pad(t):
         return torch.cat([t.new_zeros((lo, t.shape[1])), t, t.new_zeros((hi, t.shape[1]))])
@@ -1071,7 +1117,10 @@ def cross_entropy(x: DTensor, w_out: DTensor, labels: DTensor, *, final_softcap=
                   mask=None, engine: str = "auto") -> DTensor:
     """``layers.cross_entropy_chunked`` under an active mesh: the mean
     token NLL with the vocabulary split over the model axis
-    (:class:`_VocabParallelCE`); a partial sum over the batch axes."""
+    (:class:`_VocabParallelCE`); a partial sum over the batch axes.  Under
+    ``sharding.side_by_side`` each microbatch's mean is over its own
+    tokens, and the sum over the ranks is the sum of the microbatches'
+    losses."""
     mesh, rules = _ctx()
     check_engine(engine, x.device)
     B, S, D = x.shape
@@ -1090,10 +1139,14 @@ def cross_entropy(x: DTensor, w_out: DTensor, labels: DTensor, *, final_softcap=
     group = _group(mesh, tp_axis) if split else None
     nll = _VocabParallelCE.apply(xl, wl, lab, float(final_softcap or 0.0), group,
                                  engine == "torch")
+    maxes, k = _microbatch_axes(loc, baxes)
     if mask is None:
-        loss = nll.sum() / max(B * S, 1)
+        loss = nll.sum() / max(B // k * S, 1)
     else:  # a plain [B, S] mask, the same on every rank: this shard's rows of it
         m = local_shard(mask, mesh, loc.placements(bd)).reshape(-1).to(torch.float32)
+        if k > 1:  # the rows of this rank's microbatch: the outer axes tell them apart
+            j = _shard_index(loc, [a for a in baxes if a not in maxes])
+            mask = mask[j * (B // k):(j + 1) * (B // k)]
         loss = (nll * m).sum() / torch.clamp(mask.to(torch.float32).sum(), min=1.0)
     return loc.out(loss, reduced=(tp_axis,) if split else ())
 

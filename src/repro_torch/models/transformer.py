@@ -56,7 +56,7 @@ from .layers import (
 )
 from . import tensor_parallel
 from .moe import moe_ffn, moe_specs
-from .sharding import active, constrain, wrap_with_sharding_ctx
+from .sharding import active, carry_context, constrain
 
 __all__ = [
     "Transformer",
@@ -70,6 +70,7 @@ __all__ = [
     "count_params",
     "count_active_params",
     "state_items",
+    "init_items",
     "forward",
     "apply_block",
     "embed_tokens",
@@ -287,18 +288,32 @@ def state_items(path: tuple, value) -> Iterator[tuple[str, object]]:
         yield ".".join(path), value
 
 
+def init_items(cfg: ModelConfig, generator: torch.Generator,
+               device) -> Iterator[tuple[str, torch.Tensor]]:
+    """``(module-state name, float32 value)`` of every parameter, drawn from
+    ``generator`` by the reference's rules (``layers.init_tensor``) leaf by
+    leaf in ``spec_leaves`` order, a ``stack`` leaf one layer slice at a
+    time (one draw a slice, layer order), so that no draw is larger than one
+    layer of a leaf.  On a CPU generator a slice of a multiple of 16
+    elements takes the bits of the whole leaf's draw (its normal fill works
+    in blocks of 16); a CUDA generator's bits follow each draw's shape."""
+    for path, s in spec_leaves(param_specs(cfg)):
+        if path[0] == "stack":
+            rest = ".".join(path[1:])
+            for layer in range(s.shape[0]):
+                yield f"stack.{layer}.{rest}", init_tensor(s, generator, device, s.shape[1:])
+        else:
+            yield ".".join(path), init_tensor(s, generator, device)
+
+
 def init_model_params(cfg: ModelConfig, generator: torch.Generator, device=None) -> Transformer:
-    """A :class:`Transformer` with random float32 weights by the reference's
-    rules (``layers.init_tensor``), drawn leaf by leaf from ``generator``
-    (a stacked leaf in one draw, so layer ``l`` is index ``l`` of it).
-    ``device`` defaults to the generator's."""
+    """A :class:`Transformer` with random float32 weights drawn by
+    :func:`init_items`.  ``device`` defaults to the generator's."""
     device = generator.device if device is None else torch.device(device)
     model = Transformer(cfg, device=device)
     with torch.no_grad():
-        for path, s in spec_leaves(param_specs(cfg)):
-            value = init_tensor(s, generator, device)
-            for name, part in state_items(path, value):
-                model.get_parameter(name).copy_(part)
+        for name, value in init_items(cfg, generator, device):
+            model.get_parameter(name).copy_(value)
     return model
 
 
@@ -514,8 +529,8 @@ def forward(model: Transformer, batch: dict, cache=None, cache_index: int = 0, m
     remat = mode == "train" and cfg.remat != "none" and torch.is_grad_enabled()
     superblock = _superblock
     if remat and active() is not None:
-        # the recomputation may run on the autograd engine's thread: carry the mesh there
-        superblock = wrap_with_sharding_ctx(_superblock, *active())
+        # the recomputation may run on the autograd engine's thread: carry the context there
+        superblock = carry_context(_superblock)
     aux_total = 0.0
     for seg, pos, layer, bdef, p in model.blocks():
         if remat and seg == "stack":

@@ -27,7 +27,7 @@ import signal
 from typing import Callable
 
 import torch
-from torch.distributed.tensor import DTensor, Shard
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..kernels import ops
 from ..models import (
@@ -39,18 +39,19 @@ from ..models import (
     named_params_logical,
     params_logical,
 )
-from ..models.layers import init_tensor, spec_leaves
 from ..models.sharding import (
     ShardingRules,
     axis_sizes,
     dim_names,
     distribute,
+    local_shard,
     sharded_zeros,
+    side_by_side,
     spec_to_placements,
     tree_shardings,
 )
 from ..models.transfer import load_params_tree, params_tree
-from ..models.transformer import param_specs, state_items
+from ..models.transformer import init_items
 from .checkpoint import CheckpointManager
 from .optimizer import Optimizer, make_optimizer, warmup_cosine
 
@@ -108,9 +109,10 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, microbatch: int = 0) -> Ca
             # grad accumulation over microbatch slices of the batch dim
             loss_sum = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
             grad_sum = {n: torch.zeros_like(p, dtype=torch.float32) for n, p in named.items()}
-            for i in range(microbatch):
-                part = {k: _rows(v, i, microbatch) for k, v in batch.items()}
-                loss, _, grads = grads_of(model, names, leaves, part)
+            parts, layout = _rows(batch, microbatch)
+            for part in parts:
+                with layout:  # the loss: the sum of the layout's k microbatches' losses
+                    loss, _, grads = grads_of(model, names, leaves, part)
                 loss_sum += loss
                 for n, g in grads.items():
                     grad_sum[n] += g
@@ -134,21 +136,56 @@ def _placed_like(g, p):
     return g
 
 
-def _rows(v, i: int, m: int):
-    """Microbatch ``i`` of ``m`` along the batch dim.  A DTensor batch is
-    sliced on each rank's shard: microbatch ``i`` holds the ``i``-th slice
-    of every data shard (the same rows in all, grouped otherwise than the
-    unsharded step's contiguous slices)."""
-    if isinstance(v, DTensor):
-        local = v.to_local()
-        b = local.shape[0] // m
-        if b == 0:
-            raise NotImplementedError(f"{m} microbatches of a data shard of {local.shape[0]} "
-                                      f"rows")
-        return DTensor.from_local(local[i * b:(i + 1) * b], v.device_mesh, v.placements,
-                                  run_check=False)
-    b = v.shape[0] // m
-    return v[i * b:(i + 1) * b]
+def _rows(batch: dict, m: int) -> tuple[list[dict], side_by_side]:
+    """The step's ``m`` microbatches, microbatch ``i`` the batch's rows
+    ``[i B/m, (i+1) B/m)`` as in the reference, in ``m / k`` iterations of
+    ``k`` consecutive microbatches side by side: ``(iterations, layout)``,
+    ``layout`` the ``sharding.side_by_side`` each iteration runs under.
+
+    A plain batch runs one microbatch an iteration (``k = 1``).  A DTensor
+    batch (its rows over the batch axes in contiguous blocks, the first mesh
+    dim the major one) is gathered along its rows once, before the loop
+    (token ids, labels and image rows: nothing the loop computes), and each
+    iteration keeps this rank's block of the iteration's rows, sharded as
+    the batch is.  The layout rule: a microbatch's rows lie over the
+    innermost batch axes whose sizes' product divides them (the layout's
+    ``axes``), and the outer batch axes, ``k`` ranks' worth by the product
+    of their sizes, run ``k`` different microbatches side by side (under the
+    layout each microbatch's reductions run over its own axes).  With rows
+    enough for every batch shard ``k`` is 1; with 32 rows a microbatch over
+    ("pod", "data") = (2, 32), each microbatch lies over "data" and the two
+    pods run one each.  Raises ``NotImplementedError`` where ``k`` does not
+    divide ``m``: no iteration then holds whole microbatches (2 rows a
+    microbatch over 4 "data" shards, ``m`` = 2)."""
+    first = next(iter(batch.values()))
+    if not isinstance(first, DTensor):
+        b = first.shape[0] // m
+        return ([{key: v[i * b:(i + 1) * b] for key, v in batch.items()} for i in range(m)],
+                side_by_side(1))
+    mesh = first.device_mesh
+    rows = first.shape[0] // m
+    k, inner, axes = 1, 1, []
+    for dim in reversed([i for i, p in enumerate(first.placements) if p == Shard(0)]):
+        if k == 1 and rows % (inner * mesh.size(dim)) == 0:
+            inner *= mesh.size(dim)
+            axes.insert(0, mesh.mesh_dim_names[dim])
+        else:
+            k *= mesh.size(dim)
+    if m % k:
+        raise NotImplementedError(f"{m} microbatches of {rows} rows: their rows divide "
+                                  f"{inner} of the batch shards, and the other {k} ranks' "
+                                  f"worth of microbatches side by side does not divide {m}")
+    per = k * rows
+    out: list[dict] = [{} for _ in range(m // k)]
+    for key, v in batch.items():
+        pl = tuple(v.placements)
+        whole = v.redistribute(mesh, tuple(Replicate() if p == Shard(0) else p for p in pl))
+        whole = whole.to_local()
+        rows_only = tuple(p if p == Shard(0) else Replicate() for p in pl)
+        for t, part in enumerate(out):
+            local = local_shard(whole[t * per:(t + 1) * per], mesh, rows_only).contiguous()
+            part[key] = DTensor.from_local(local, mesh, pl, run_check=False)
+    return out, side_by_side(k, axes)
 
 
 def _meta_params(cfg: ModelConfig) -> dict:
@@ -161,15 +198,14 @@ def make_sharded_init(cfg: ModelConfig, opt: Optimizer, mesh, rules: ShardingRul
     placements}``), ``o_sh`` the optimizer state's (the state's tree), and
     ``init(generator) -> (model, opt_state)``.
 
-    ``init`` draws each leaf of the reference's parameter tree in turn from
-    ``generator`` (on every rank the same seed), as ``init_model_params``
-    draws them, keeps this rank's shard of it on the mesh's device and drops
-    the rest before the next leaf: no rank ever holds the whole model, and
+    ``init`` draws every parameter from ``generator`` (on every rank the
+    same seed) as ``init_model_params`` draws it (``init_items``: a stacked
+    leaf one layer slice at a time), keeps this rank's shard of it on the
+    mesh's device and drops the rest before the next draw: no rank holds
+    more than one layer slice of a leaf beyond its own shards (3.22 GB of
+    qwen3-moe-235b's stacked expert weights, not the whole 300 GB leaf), and
     gathered the parameters are bit for bit ``init_model_params`` with the
-    same seed.  A stacked leaf is drawn whole (its layers are one draw, as
-    in ``init_model_params``), so the largest leaf must fit one device:
-    qwen3-moe-235b's stacked expert weights (about 300 GB in float32) do
-    not.  The optimizer state is zeros (every state leaf of the port's
+    same seed.  The optimizer state is zeros (every state leaf of the port's
     optimizers starts at zero), each rank allocating its shard."""
     p_sh = tree_shardings(_meta_params(cfg), named_params_logical(cfg), mesh, rules)
     tree_sh = tree_shardings(abstract_params(cfg), params_logical(cfg), mesh, rules)
@@ -178,13 +214,11 @@ def make_sharded_init(cfg: ModelConfig, opt: Optimizer, mesh, rules: ShardingRul
 
     def init(generator: torch.Generator):
         model = Transformer(cfg, device="meta")
-        for path, s in spec_leaves(param_specs(cfg)):
-            value = init_tensor(s, generator, generator.device)
-            for name, part in state_items(path, value):
-                owner, _, leaf = name.rpartition(".")
-                module = model.get_submodule(owner) if owner else model
-                setattr(module, leaf, torch.nn.Parameter(distribute(part, mesh, p_sh[name]),
-                                                         requires_grad=False))
+        for name, value in init_items(cfg, generator, generator.device):
+            owner, _, leaf = name.rpartition(".")
+            module = model.get_submodule(owner) if owner else model
+            setattr(module, leaf, torch.nn.Parameter(distribute(value, mesh, p_sh[name]),
+                                                     requires_grad=False))
             del value
         state = _map_tree(lambda a, pl: sharded_zeros(a.shape, a.dtype, mesh, pl), opt_abs, o_sh)
         return model, state

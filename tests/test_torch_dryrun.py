@@ -25,6 +25,9 @@ and the kernels' custom ops.
   split along ``head_dim``, the ``repro_torch::slstm`` op counts one a
   serving step and two a train step, and a decode step all-reduces its
   partial ``q . C`` over "model".
+* **Thin microbatches.**  qwen3-moe-235b's ``train_4k`` cell on 512 fake
+  ranks at one layer: its 8 microbatches of 32 rows run 2 side by side, 4
+  iterations a step, under 80 GB a card.
 * **Custom ops.**  Each kernel's op called directly on fake CPU tensors:
   its outputs' shapes, dtypes and strides, and its FLOP formula against a
   hand count; a real CPU tensor never reaches it (the op has a CUDA kernel
@@ -130,25 +133,34 @@ SERVE_CELLS = [("gemma2-9b", "long_500k", True), ("deepseek-v2-lite-16b", "decod
                ("zamba2-1.2b", "decode_32k", False), ("musicgen-medium", "prefill_32k", False),
                ("musicgen-medium", "decode_32k", False)]
 
+#: qwen3-moe's train cell on 512 cards (8 microbatches of 32 rows over "pod" x "data" = 2 x
+#: 32), depth cut to one superblock, in the same subprocess
+THIN_CELL = ("qwen3-moe-235b-a22b", "train_4k", True)
+
 SERVE_SCRIPT = textwrap.dedent("""
     import dataclasses, json, logging, sys
     from repro_torch import configs
     from repro_torch.launch.dryrun import run_cell
     import repro_torch.models.mamba2 as m2
+    from repro_torch.models import tensor_parallel
 
     logging.getLogger("torch.distributed.tensor._redistribute").setLevel(logging.ERROR)
-    calls = []
+    calls, losses = [], []
     ssd = m2.ssd_chunked
     m2.ssd_chunked = lambda *a, **k: (calls.append(1), ssd(*a, **k))[1]
+    ce = tensor_parallel.cross_entropy
+    tensor_parallel.cross_entropy = lambda *a, **k: (losses.append(1), ce(*a, **k))[1]
     out = {}
     for arch, shape, multi in json.loads(sys.argv[1]):
         full = configs.get_config(arch)
         layers = len(full.head_blocks) + len(full.superblock) + len(full.tail_blocks)
         cfg = dataclasses.replace(full, n_superblocks=1, n_layers=layers)
         calls.clear()
+        losses.clear()
         rec = run_cell(arch, shape, multi, out_dir=sys.argv[2], verbose=False, device="cpu",
                        cfg=cfg)
         out[f"{arch}:{shape}"] = {"n_chips": rec["n_chips"], "ssd_calls": len(calls),
+                                  "loss_calls": len(losses),
                                   "memory": rec["memory"]["per_device_total"],
                                   "by_dim": rec["op_stats"]["collectives_by_dim"]}
     print(json.dumps(out))
@@ -158,7 +170,7 @@ SERVE_SCRIPT = textwrap.dedent("""
 @pytest.fixture(scope="module")
 def serve_cells(tmp_path_factory):
     out = tmp_path_factory.mktemp("dryrun_serve")
-    return json.loads(_run(["-c", SERVE_SCRIPT, json.dumps(SERVE_CELLS), str(out)],
+    return json.loads(_run(["-c", SERVE_SCRIPT, json.dumps(SERVE_CELLS + [THIN_CELL]), str(out)],
                            timeout=240).splitlines()[-1])
 
 
@@ -167,6 +179,17 @@ def test_serving_cache_cells_run(serve_cells, arch, shape, multi):
     r = serve_cells[f"{arch}:{shape}"]
     assert r["n_chips"] == (512 if multi else 256)
     assert r["memory"] < roofline.HBM_BYTES
+
+
+def test_thin_microbatches_run_side_by_side_on_512_cards(serve_cells):
+    """qwen3-moe's ``train_4k`` on (2, 32, 8): 256 rows in 8 microbatches of
+    32, fewer rows than the 64 batch shards.  Each microbatch lies over
+    "data", the two pods run one each, so the step takes 4 iterations of
+    one row a rank (one loss call each) and runs under 80 GB a card."""
+    r = serve_cells["qwen3-moe-235b-a22b:train_4k"]
+    assert r["n_chips"] == 512
+    assert 0 < r["memory"] < roofline.HBM_BYTES
+    assert r["loss_calls"] == 4, r
 
 
 def test_sequence_split_combines_over_pod_and_data(serve_cells):

@@ -18,10 +18,10 @@ eating the suite's limit.  Each test reads its case's result.
   softcaps, sandwich norms), deepseek-v2-lite (MLA over heads, shared
   experts), musicgen (audio codebooks) and llava (the image embeddings, the
   masked loss; these four from the port's own seeded init), and tinyllama
-  with 2 microbatches (each the matching slice of every data shard: the
-  same rows, grouped otherwise than the one-process step's contiguous
-  slices, which a dense model's summed gradient does not see), in float32
-  compute: the loss and every gathered
+  with 2 microbatches (each the batch's contiguous rows, as in the
+  one-process step, laid over the data shards by ``train_loop._rows``; a
+  MoE model's microbatches are ``tests/test_torch_moe_sharded.py``'s), in
+  float32 compute: the loss and every gathered
   parameter within atol 1e-5 / rtol 1e-4 of the one-process port step from
   the same weights and batches (the tolerance of ``test_torch_train.py``:
   float32 sums in another order — partial sums over heads, the
