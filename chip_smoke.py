@@ -314,6 +314,37 @@ Phases, each of which fails the run by raising:
     sharded float32 train steps of 2 x 512 tokens against the unsharded
     step on the same card (phase 31's bound), 2 sLSTM and 1 CE launches a
     step, both step times.
+35. MoE training under a mesh at qwen3-moe-235b-a22b's full width: (a) the
+    born-sharded init's peak over the resident shards; (b) the sort
+    dispatch at capacity 0.5, one layer, float32, 2 SGD steps of 8 x 512 in
+    8 microbatches, each step's gradients held leaf by leaf against the
+    unsharded step's (within 1e-5 of the leaf's largest on one card, within
+    4 x the model's own float32 sensitivity, ``moe_two_part_sums``, on
+    several; that sensitivity under a fixed ceiling), and served; (c) with 4 cards thin microbatches side by side;
+    (d) ``train_4k`` on 512 fake ranks at 6 layers.
+36. a prefill's rows in chunks by the memory rule of ``launch.specs.
+    build_step``: (a) llava-next-34b's ``prefill_32k`` on 512 fake ranks at
+    full width and depth in a worker process started after the build: the
+    row chunks, memory a card under 80 GB, the rule's estimate no lower than
+    the measured peak and at most 1.5 x it, one flash op a layer a chunk;
+    (b) in phase 31's world ((1, 2, 2) over 4 NCCL ranks with 4 cards, else
+    (1, 1, 1)), llava at full width, 2 layers, float32, 4 rows of 1152 image
+    embeddings and 2944 tokens through the flash kernel with each rank's
+    rows in one chunk and in two: logits and KV cache within atol 1e-5 /
+    rtol 1e-4 of the unsharded ``Engine`` on the plain versions plus 4 x
+    the unsharded model's own distance between the kernel and the plain
+    versions (that distance under a fixed ceiling), on one rank within the
+    bound of the ``Engine`` on the kernel, one flash launch a layer a
+    chunk, each its op's count, ``max_memory_allocated`` of both; (c) with
+    4 cards, xlstm-1.3b's regime (B) on 3 ranks ((1, 3): 4 heads do not
+    divide 3) served and trained as phase 34(b), (c), and gemma2-9b at 2
+    layers with a 524288-row cache of seeded values split over "data": 8
+    tokens prefilled from cache index 262136, then 16 decode steps across
+    row 262144, each step's logits within phase 33's bound of the unsharded
+    ``Engine``'s model on the plain versions plus 4 x that step's own such
+    distance (under a fixed ceiling), and the KV rows written, each rank's
+    shard of them on both sides of the boundary, within the bound of the
+    plain ``Engine``'s cache.
 
 Each phase's wall seconds are printed after it and in a line before the
 total.
@@ -5095,11 +5126,18 @@ def _xlstm_serve(cfg, mesh) -> dict:
     return out
 
 
+#: phase 34's ("data", "model") mesh by the world's ranks: 2 of the 4 heads a rank on 4 (regime
+#: A); on 3 (phase 36(c)) the heads do not divide "model" (regime B: each block whole on every
+#: rank, the dims that do not divide 3 left whole, as logical_to_spec leaves them)
+XLSTM_MESHES = {4: (2, 2), 3: (1, 3), 1: (1, 1)}
+
+
 def xlstm_rank(rank: int, world: int, store: str, out_path: str) -> dict:
     """Phase 34(b) and (c) on one rank (``cuda:rank``), in phase 31's world:
     a (2, 2) ("data", "model") mesh over 4 NCCL ranks with 4 cards (each
-    rank 2 of the 4 heads), else a (1, 1) mesh over one; rank 0 writes the
-    result to ``out_path``.  Every check raises on this rank."""
+    rank 2 of the 4 heads), else a (1, 1) mesh over one; on 3 ranks (phase
+    36(c)) a (1, 3) mesh.  Rank 0 writes the result to ``out_path``.  Every
+    check raises on this rank."""
     import torch.distributed as dist
 
     from repro_torch import configs
@@ -5115,7 +5153,7 @@ def xlstm_rank(rank: int, world: int, store: str, out_path: str) -> dict:
     dist.init_process_group("nccl", store=dist.FileStore(store, world), rank=rank,
                             world_size=world)
     try:
-        shape = (2, 2) if world == 4 else (1, 1)
+        shape = XLSTM_MESHES[world]
         mesh = make_host_mesh(shape, ("data", "model"), device_type="cuda")
         cfg = dataclasses.replace(cut_depth(configs.get_config("xlstm-1.3b"), 1),
                                   compute_dtype="float32", serve_param_dtype="float32")
@@ -5161,7 +5199,9 @@ def check_xlstm(res: dict) -> None:
     assert serve["excess_kernel"] <= allowance, (serve["excess_kernel"], allowance)
     # one sLSTM block: one launch a prefill and one a decode step, each its op's count
     assert serve["launches"] == serve["ops"] == [1] * (1 + serve["decode_steps"]), serve
-    assert all(p == "S(2)" for p in serve["placements"].values()), serve["placements"]
+    # over heads where the 4 heads divide "model" (regime A), else never (regime B)
+    heads = 4 % res["mesh"][1] == 0
+    assert all((p == "S(2)") == heads for p in serve["placements"].values()), serve["placements"]
     train = res["train"]
     assert train["init_bitwise"], "gathered make_sharded_init differs from init_model_params"
     # remat reruns the superblock's forward: 2 sLSTM launches a step, 1 cross-entropy
@@ -5205,13 +5245,20 @@ MOE_INIT_SLACK = 0.10
 MOE_SORT_B, MOE_SORT_S, MOE_SORT_M, MOE_SORT_CAPACITY = 8, 512, 8, 0.5
 #: (b), (c): SGD without momentum or clipping at this constant rate, so that each step moves
 #: the parameters by the rate times that step's gradients.  What changes is held leaf by leaf:
-#: each step's gradients within MOE_GRAD_TOL of the leaf's largest |gradient| (the second step's
-#: at the weights the first one wrote).  With Adafactor (qwen3-moe's own) on four cards (c)'s
-#: first gradients agreed within 7.9e-6 of each leaf's largest, but at step 2 one token of 2048
-#: chose another expert and five parameters ended past atol + rtol (PERF.md, PR 27;
-#: scripts/phase35_world.py --adafactor)
+#: each step's gradients, over the leaf's largest |gradient| (the second step's at the weights
+#: the first one wrote), within MOE_GRAD_TOL on one card; on several, within MOE_REORDER_FACTOR
+#: times the model's own float32 sensitivity at that step (``moe_two_part_sums``: the unsharded
+#: step with the sums that two model-axis ranks split taken in two parts and its microbatches in
+#: reverse order, leaf by leaf against the unsharded gradients; the same factor as phase 34's).  With
+#: Adafactor (qwen3-moe's own) on four cards (c)'s first gradients agreed within 7.9e-6 of each
+#: leaf's largest, but at step 2 one token of 2048 chose another expert and five parameters
+#: ended past atol + rtol (PERF.md; scripts/phase35_world.py --adafactor)
 MOE_SGD_LR = 1e-2
 MOE_GRAD_TOL = 1e-5
+MOE_REORDER_FACTOR = XLSTM_REORDER_FACTOR
+#: the measured sensitivity may not pass this, twice the largest of (b)'s readings on an H100
+#: (9.223e-6 at step 2): a drift in the step fails the check instead of widening its bound
+MOE_SENSITIVITY_CEILING = 2 * 9.223e-6
 #: (c) with 4 cards: 4 rows in 4 microbatches, one row each; the two "data" shards run two of
 #: them side by side, 2 iterations a step
 MOE_THIN_B, MOE_THIN_M = 4, 4
@@ -5313,6 +5360,98 @@ def _moe_init(full, mesh, layers: int, bitwise: bool) -> dict:
     return out
 
 
+class _HalvesCE(torch.autograd.Function):
+    """Per-token NLL over two halves of the vocabulary: the cross-entropy
+    kernel on each half, the halves' ``lse`` combined by max and sum of
+    exponentials and the label's logit taken from its half, the backward
+    the written-out one of each half with the combined ``lse`` (dx summed,
+    dW joined): the arithmetic of two model-axis ranks
+    (``tensor_parallel._VocabParallelCE``) on one device."""
+
+    @staticmethod
+    def _halves(w, labels):
+        V = w.shape[1]
+        for lo, hi in ((0, V // 2), (V // 2, V)):
+            lab = labels - lo
+            yield w[:, lo:hi], torch.where((lab >= 0) & (lab < hi - lo), lab,
+                                           torch.full_like(lab, -1))
+
+    @staticmethod
+    def forward(ctx, x, w, labels, cap):
+        from repro_torch.kernels.crossentropy import crossentropy_forward
+
+        nll, lse = zip(*(crossentropy_forward(x, wh, lab, cap)
+                         for wh, lab in _HalvesCE._halves(w, labels)))
+        m = torch.maximum(*lse)
+        total = m + torch.log(torch.exp(lse[0] - m) + torch.exp(lse[1] - m))
+        ctx.save_for_backward(x, w, labels, total)
+        ctx.cap = cap
+        return total - ((lse[0] - nll[0]) + (lse[1] - nll[1]))
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.kernels.crossentropy import crossentropy_backward
+
+        x, w, labels, total = ctx.saved_tensors
+        dx, dw = zip(*(crossentropy_backward(x, wh, lab, total, g, ctx.cap)
+                       for wh, lab in _HalvesCE._halves(w, labels)))
+        return dx[0] + dx[1], torch.cat(dw, dim=1), None, None
+
+
+@contextlib.contextmanager
+def moe_two_part_sums():
+    """The one-device train step of a GQA + MoE model (qwen3-moe) with the
+    sums that two model-axis ranks split taken in two parts: each attention
+    block as two blocks over halves of its heads (q / k / v, flash and the
+    output projection on each half, the outputs added), the MoE output over
+    two halves of the experts (each half combined in ascending expert order,
+    as a rank combines its experts), and the loss over two halves of the
+    vocabulary (:class:`_HalvesCE`); their gradients follow by autograd.  A
+    float32 reordering whose effect on the gradients measures how far the
+    model itself amplifies such a change."""
+    from types import SimpleNamespace
+
+    from repro_torch.models import attention, moe, transformer
+
+    block, sort, ce = attention.attn_block_full, moe._moe_sort, transformer.cross_entropy_chunked
+
+    # halves by ``chunk``: its backward joins the halves' gradients in one buffer
+    def split_attn(p, h, cfg, bdef, positions, cache=None, cache_index=None, engine="auto"):
+        heads = zip(p.wq.chunk(2, 1), p.wk.chunk(2, 1), p.wv.chunk(2, 1), p.wo.chunk(2))
+        return sum(block(SimpleNamespace(wq=q, wk=k, wv=v, wo=o), h, cfg, bdef, positions,
+                         cache=cache, cache_index=cache_index, engine=engine)[0]
+                   for q, k, v, o in heads), cache
+
+    def split_sort(p, xt, w, idx, c, **kw):
+        half = c.moe_experts // 2
+        spans = ((0, half), (half, c.moe_experts))
+        experts = zip(p.w1.chunk(2), p.w3.chunk(2), p.w2.chunk(2), spans)
+        return sum(sort(SimpleNamespace(w1=w1, w3=w3, w2=w2), xt, w, idx, c, experts=span, **kw)
+                   for w1, w3, w2, span in experts)
+
+    def split_ce(x, w_out, labels, *, chunk=256, final_softcap=None, mask=None, engine="auto"):
+        B, S, D = x.shape
+        nll = _HalvesCE.apply(x.reshape(B * S, D), w_out, labels.reshape(B * S),
+                              float(final_softcap or 0.0))
+        if mask is None:
+            return nll.sum() / max(B * S, 1)
+        m = mask.reshape(B * S).to(torch.float32)
+        return (nll * m).sum() / torch.clamp(m.sum(), min=1.0)
+
+    attention.attn_block_full, moe._moe_sort, transformer.cross_entropy_chunked = (
+        split_attn, split_sort, split_ce)
+    try:
+        yield
+    finally:
+        attention.attn_block_full, moe._moe_sort, transformer.cross_entropy_chunked = block, sort, ce
+
+
+def _reversed_microbatches(batch: dict, m: int) -> dict:
+    """``batch`` with its ``m`` microbatches (contiguous rows) in reverse
+    order: the same step, its microbatches' gradients summed the other way."""
+    return {k: v.reshape(m, -1, *v.shape[1:]).flip(0).reshape(v.shape) for k, v in batch.items()}
+
+
 def _with_grads(opt, hook):
     """``opt`` whose update first hands the step's gradients (before any
     clipping) to ``hook(step, grads)``."""
@@ -5337,7 +5476,10 @@ def _moe_train(cfg, mesh, B: int, m: int, opt=None, keep: bool = False) -> dict:
     sharded step is counted by ``analyze_step`` with the launch counters set
     to 0 just before it.  With ``keep``, ``"kept"`` also holds the unsharded
     gradients, the differences and the masks of the parameters' entries past
-    atol + rtol (host tensors, not JSON)."""
+    atol + rtol (host tensors, not JSON).  Between the two, the unsharded
+    step once more under ``moe_two_part_sums`` with its microbatches in
+    reverse order, its gradients held to the first run's the same way:
+    ``sensitivity``, each step's worst over the leaves."""
     from torch.distributed.tensor import DTensor
 
     from repro_torch.kernels import crossentropy as ce
@@ -5354,16 +5496,17 @@ def _moe_train(cfg, mesh, B: int, m: int, opt=None, keep: bool = False) -> dict:
     batches = [{k: v.cuda() for k, v in data.batch_at(i).items()} for i in range(SHARDED_STEPS)]
     opt = opt or sgd(constant_schedule(MOE_SGD_LR), momentum=0.0, clip_norm=math.inf)
     plain_grads, diffs = [], []
-    grads = {"worst": [], "outside": [], "check_s": [], "host_s": []}
+    grads = {"rel": [], "check_s": [], "host_s": []}
+    reordered = []
 
     def to_host(step, g):
         t0 = time.perf_counter()
         plain_grads.append({n: t.detach().to("cpu", copy=True) for n, t in g.items()})
         grads["host_s"].append(time.perf_counter() - t0)
 
-    def check(step, g):
-        t0 = time.perf_counter()
-        worst, outside, diff = 0.0, [], {}
+    def relative(step, g, kept: bool) -> tuple:
+        """``({leaf: max |g - unsharded| / max |unsharded|}, {leaf: difference} with kept)``."""
+        rel, diff = {}, {}
         for n, t in g.items():
             got = (t.full_tensor() if isinstance(t, DTensor) else t).reshape(-1)
             want = plain_grads[step][n].reshape(-1)
@@ -5374,18 +5517,23 @@ def _moe_train(cfg, mesh, B: int, m: int, opt=None, keep: bool = False) -> dict:
                 d = got[a:a + CHECKSUM_CHUNK] - w
                 err = max(err, float(torch.linalg.vector_norm(d, math.inf)))
                 top = max(top, float(torch.linalg.vector_norm(w, math.inf)))
-                if keep:
+                if kept:
                     parts.append(d.cpu())
-            worst = max(worst, err / top if top else (0.0 if err == 0 else math.inf))
-            if err > MOE_GRAD_TOL * top:
-                outside.append(n)
-            if keep:
+            rel[n] = err / top if top else (0.0 if err == 0 else math.inf)
+            if kept:
                 diff[n] = torch.cat(parts).view(t.shape)
             del got, want, parts
+        return rel, diff
+
+    def check(step, g):
+        t0 = time.perf_counter()
+        rel, diff = relative(step, g, keep)
         diffs.append(diff)
-        grads["worst"].append(worst)
-        grads["outside"].append(outside)
+        grads["rel"].append(rel)
         grads["check_s"].append(time.perf_counter() - t0)
+
+    def reorder(step, g):
+        reordered.append(relative(step, g, False)[0])
 
     gen = lambda: torch.Generator(device="cuda").manual_seed(35)  # noqa: E731
     plain = init_model_params(cfg, gen(), "cuda")
@@ -5400,6 +5548,18 @@ def _moe_train(cfg, mesh, B: int, m: int, opt=None, keep: bool = False) -> dict:
         plain_s.append(s - grads["host_s"][i])
     want = {n: p.detach().cpu() for n, p in plain.named_parameters()}
     del plain, plain_state
+    torch.cuda.empty_cache()
+    other = init_model_params(cfg, gen(), "cuda")
+    other_opt = _with_grads(opt, reorder)
+    other_state = other_opt.init(dict(other.named_parameters()))
+    other_step = make_train_step(cfg, other_opt, m)
+    t0 = time.perf_counter()
+    with moe_two_part_sums():
+        for i, batch in enumerate(batches):
+            other, other_state, _ = other_step(other, other_state, i,
+                                               _reversed_microbatches(batch, m))
+    reorder_s = time.perf_counter() - t0
+    del other, other_state
     torch.cuda.empty_cache()
     sopt = _with_grads(opt, check)
     init, _, _ = make_sharded_init(cfg, sopt, mesh, TRAIN_RULES)
@@ -5442,7 +5602,9 @@ def _moe_train(cfg, mesh, B: int, m: int, opt=None, keep: bool = False) -> dict:
     out = {"B": B, "S": MOE_SORT_S, "microbatch": m, "optimizer": opt.name,
            "plain_losses": plain_losses, "sharded_losses": losses,
            "plain_grad_norms": plain_norms, "sharded_grad_norms": norms,
-           "grad_worst_rel": grads["worst"], "grads_outside": grads["outside"],
+           "grad_rel": grads["rel"], "grad_worst_rel": [max(r.values()) for r in grads["rel"]],
+           "sensitivity": [max(r.values()) for r in reordered], "sensitivity_rel": reordered,
+           "sensitivity_s": reorder_s,
            "grad_check_s": grads["check_s"], "grad_to_host_s": grads["host_s"],
            "plain_step_s": plain_s, "sharded_step_s": seconds,
            "launches": launches, "ops": ops, "param_excess": worst, "params_outside": bad}
@@ -5570,6 +5732,24 @@ def moe_rank(rank: int, world: int, store: str, out_path: str) -> dict:
     return res
 
 
+def grad_bounds(r: dict, world: int) -> list:
+    """Each step's bound on a leaf's gradient gap over its largest
+    |gradient|: ``MOE_GRAD_TOL`` in a world of one (the same operations
+    in another order), else ``MOE_REORDER_FACTOR`` x the step's measured
+    sensitivity.  A sensitivity past ``MOE_SENSITIVITY_CEILING`` fails."""
+    assert max(r["sensitivity"]) <= MOE_SENSITIVITY_CEILING, (r["sensitivity"],
+                                                              MOE_SENSITIVITY_CEILING)
+    if world == 1:
+        return [MOE_GRAD_TOL] * len(r["grad_rel"])
+    return [MOE_REORDER_FACTOR * s for s in r["sensitivity"]]
+
+
+def grads_outside(r: dict, world: int) -> list:
+    """Each step's leaves whose gradient gap is past :func:`grad_bounds`."""
+    return [sorted(n for n, v in rel.items() if v > bound)
+            for rel, bound in zip(r["grad_rel"], grad_bounds(r, world))]
+
+
 def check_moe(res: dict) -> None:
     """Phase 35(a)-(c)'s assertions on one rank's result."""
     for key in ("init", "init_large"):
@@ -5587,7 +5767,8 @@ def check_moe(res: dict) -> None:
         for got, want in zip(r["sharded_losses"] + r["sharded_grad_norms"],
                              r["plain_losses"] + r["plain_grad_norms"]):
             assert abs(got - want) <= SHARDED_ATOL + SHARDED_RTOL * abs(want), (key, r)
-        assert not any(r["grads_outside"]), (key, r["grads_outside"], r["grad_worst_rel"])
+        outside = grads_outside(r, res["world"])
+        assert not any(outside), (key, outside, r["grad_worst_rel"], r["sensitivity"])
         assert not r["params_outside"], (key, r["params_outside"][:8], r["param_excess"])
         # the rows of a microbatch over the "data" shards, or one microbatch a shard side by
         # side (train_loop._rows); one layer: 2 flash launches an iteration (remat), 1 CE
@@ -5648,6 +5829,481 @@ def phase_moe_sharded(pool, pending) -> dict:
     return out
 
 
+#: phase 36(a): llava-next-34b's prefill_32k on (2, 32, 8) = 512 fake ranks at full width and
+#: depth on fake CUDA tensors, in a worker process started after the build (host-bound, no card):
+#: the batch of 32 divides "pod" but not "pod" x "data", so a rank holds 16 rows of 32768
+#: positions; the memory rule's estimate at the chosen row chunks no lower than the measured
+#: peak and at most this many times it
+ROWS_RULE_SLACK = 1.5
+#: phase 36(b): llava at full width cut to 2 layers, float32 weights, compute and cache: 4 rows
+#: of 4096 positions (the config's 1152 image embeddings and 2944 tokens), each rank's rows in
+#: 2 chunks (a memory budget that asks for 2) and in one
+ROWS_LAYERS, ROWS_B, ROWS_S, ROWS_CHUNKS = 2, 4, 4096, 2
+#: phase 36(b), (c): the float32 flash kernel sums a row's keys in its own order, so the
+#: unsharded model on the kernels lies a measured distance from it on the plain versions (its
+#: float32 sensitivity to that order); the sharded steps may lie this many times that distance
+#: beyond phase 31's bound from the plain versions (the factor of phases 34 and 35)
+ROWS_REORDER_FACTOR = XLSTM_REORDER_FACTOR
+#: (b): that distance may not pass this, twice the larger of its readings on an H100 (logits
+#: 2.4766e-5, cache 2.4796e-5): a drift fails the check instead of widening its bound
+ROWS_SENSITIVITY_CEILING = 2 * 2.4796e-5
+#: phase 36(c), with 4 cards: gemma2-9b at 2 layers with a long_500k cache of 524288 rows split
+#: over "data" (262144 a shard) on (1, 2, 2): a prefill of this many tokens ending at the shard
+#: boundary, then decode steps past it
+BOUNDARY_PROMPT, BOUNDARY_STEPS = 8, 16
+#: (c): each step's distance between the kernels and the plain versions may not pass twice its
+#: largest reading on an H100: the prefill's 2.5392e-5, a decode step's 2.1458e-6
+BOUNDARY_SENSITIVITY_CEILING = (2 * 2.5392e-5, 2 * 2.1458e-6)
+
+
+def llava_rows_cell() -> dict:
+    """Phase 36(a) in a worker process: ``launch.dryrun.run_cell`` of
+    llava-next-34b's ``prefill_32k`` on the multi-pod fake world at full
+    width and depth on fake CUDA tensors: the rows' chunks, memory a card
+    and the memory rule's estimate, the flash op's count, the roofline's
+    terms, collective bytes by mesh dim."""
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.op_analysis import kernel_ops
+    from repro_torch.launch.roofline import roofline_row
+
+    torch.set_num_threads(1)
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(logging.ERROR)
+    t0 = time.perf_counter()
+    rec = run_cell("llava-next-34b", "prefill_32k", True, verbose=False, device="cuda",
+                   out_dir=os.path.join(ROOT, "build", "phase36_dryrun"))
+    row = roofline_row(rec)
+    return {"n_chips": rec["n_chips"], "row_chunks": rec["row_chunks"],
+            "memory": rec["memory"]["per_device_total"], "memory_rule": rec["memory_rule"],
+            "terms_s": {k: row[f"t_{k}_s"] for k in ("compute", "memory", "collective")},
+            "largest": row["bottleneck"],
+            "flash_ops": kernel_ops(rec["op_stats"]).get("flash_attention", {}).get("count", 0),
+            "collective_bytes": rec["op_stats"]["collective_bytes"],
+            "collectives_by_dim": rec["op_stats"]["collectives_by_dim"],
+            "seconds": time.perf_counter() - t0}
+
+
+def start_llava_rows_cell():
+    """Phase 36(a)'s cell in a spawned process: ``(pool, pending result)``;
+    the pool is terminated at exit if a phase fails before phase 36."""
+    import atexit
+    import multiprocessing as mp
+
+    pool = mp.get_context("spawn").Pool(1)
+    atexit.register(pool.terminate)
+    pending = pool.apply_async(llava_rows_cell)
+    pool.close()
+    return pool, pending
+
+
+def _llava_rows_cell(pool, pending) -> dict:
+    """Phase 36(a): the 512-card prefill cell's result, printed and checked."""
+    from repro_torch import configs
+    from repro_torch.launch.roofline import HBM_BYTES
+
+    t0 = time.perf_counter()
+    row = pending.get()
+    pool.join()
+    gib = 2.0**30
+    terms = ", ".join(f"{k} {v:.4g} s" for k, v in row["terms_s"].items())
+    print(f"  (a) llava-next-34b prefill_32k on {row['n_chips']} fake ranks (2, 32, 8), 60 layers: "
+          f"{row['row_chunks']} row chunks a rank; per_device_total {row['memory']:.0f} B "
+          f"({row['memory'] / gib:.2f} GiB) against {HBM_BYTES:.0f}; the rule's estimate "
+          f"{row['memory_rule']:.0f} B ({row['memory_rule'] / gib:.2f} GiB, "
+          f"{row['memory_rule'] / row['memory']:.3f}x the measured peak); flash ops "
+          f"{row['flash_ops']}; largest term {row['largest']} ({terms}); collective bytes "
+          f"{row['collective_bytes']:.6g} {row['collectives_by_dim']}; {row['seconds']:.1f} s in "
+          f"its worker, waited {time.perf_counter() - t0:.1f} s")
+    assert row["row_chunks"] >= 2, row
+    assert row["memory"] <= HBM_BYTES, row  # fits
+    assert row["memory"] <= row["memory_rule"] <= ROWS_RULE_SLACK * row["memory"], row
+    # one flash launch a layer a chunk
+    layers = configs.get_config("llava-next-34b").n_layers
+    assert row["flash_ops"] == layers * row["row_chunks"], row
+    return row
+
+
+def _past(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest ``|got - want|`` beyond phase 31's float32 bound."""
+    return float(((got - want).abs() - (SHARDED_ATOL + SHARDED_RTOL * want.abs())).max())
+
+
+def _llava_rows(cfg, mesh) -> dict:
+    """Phase 36(b) on this rank: ``build_step``'s prefill cell on ``mesh``
+    through the flash kernel, with each rank's rows in one chunk and in
+    ``ROWS_CHUNKS`` (``memory_budget`` set to the rule's estimate for this
+    batch at that count), float32 with a float32 cache, against the
+    unsharded ``Engine``'s prefill on the plain versions (``engine="torch"``)
+    and on the kernels (``"cuda"``), whose distance is the model's own
+    float32 sensitivity to the kernel's order of the attention's sums; each
+    sharded step counted by ``analyze_step`` with the launch counter set to
+    0 just before it, and its ``max_memory_allocated`` over the memory held
+    before it."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.op_analysis import analyze_step, kernel_ops
+    from repro_torch.launch.roofline import HBM_BYTES
+    from repro_torch.launch.specs import build_step, prefill_peak_bytes
+    from repro_torch.models import init_cache, init_model_params
+    from repro_torch.serve import Engine
+
+    B, S = ROWS_B, ROWS_S
+    rng = np.random.RandomState(36)
+    batch = {"tokens": torch.from_numpy(rng.randint(0, cfg.vocab, (B, S - cfg.img_tokens))).cuda(),
+             "image_embeds": torch.from_numpy(rng.standard_normal(
+                 (B, cfg.img_tokens, cfg.d_model)).astype(np.float32)).cuda()}
+    gen = lambda: torch.Generator(device="cuda").manual_seed(36)  # noqa: E731
+    f32_cache = lambda: init_cache(cfg, B, S, torch.float32, device="cuda")  # noqa: E731
+
+    def kv_leaves(cache):
+        return [t.full_tensor() if hasattr(t, "full_tensor") else t.clone()
+                for c in cache["stack"].values() for t in c.values()]
+
+    ref = {}
+    for key in ("torch", "cuda"):
+        engine = Engine(cfg, init_model_params(cfg, gen(), "cuda"), capacity=S, slots=B,
+                        engine=key)
+        logits, cache = engine._prefill(engine.model, batch, f32_cache())
+        ref[key] = (logits, kv_leaves(cache))
+        del engine, cache
+        torch.cuda.empty_cache()
+    (want, want_kv), (kernel, kernel_kv) = ref["torch"], ref["cuda"]
+    plain = build_step(cfg, "prefill_32k", mesh)
+    budget = prefill_peak_bytes(cfg, (B, S), mesh, plain.rules, ROWS_CHUNKS)
+    smodel = None
+    out = {"layers": cfg.n_layers, "rows": [B, S], "image_embeds": cfg.img_tokens,
+           "sensitivity": float((kernel - want).abs().max()),
+           "cache_sensitivity": max(float((k - w).abs().max())
+                                    for k, w in zip(kernel_kv, want_kv)),
+           "kernel_engine_excess": _past(kernel, want)}
+    for cell, limit in ((plain, HBM_BYTES), (build_step(cfg, "prefill_32k", mesh,
+                                                        memory_budget=budget), budget)):
+        if smodel is None:
+            smodel, sbatch, _ = cell.shard(init_model_params(cfg, gen(), "cuda"), batch, None)
+        scache = cell.shard(None, None, f32_cache())[2]
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        held = {}
+        fa.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = analyze_step(lambda *a: held.setdefault("out", cell.step(*a)), smodel, sbatch,
+                             scache, mesh=mesh, memory=False)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        logits, scache = held["out"]
+        got, got_kv = logits.full_tensor(), kv_leaves(scache)
+        chunks, rule = cell.plans[B, S]  # the step's own decision
+        out[f"R{chunks}"] = {
+            "row_chunks": chunks, "budget": limit, "rule": rule,
+            "local_rows": sbatch["tokens"].to_local().shape[0],
+            "launches": fa.launches(),
+            "ops": kernel_ops(stats).get("flash_attention", {"count": 0})["count"],
+            "excess": _past(got, want), "worst_abs": float((got - want).abs().max()),
+            "cache_excess": max(_past(g, w) for g, w in zip(got_kv, want_kv)),
+            "kernel_excess": _past(got, kernel),
+            "kernel_worst_abs": float((got - kernel).abs().max()),
+            "kernel_cache_excess": max(_past(g, w) for g, w in zip(got_kv, kernel_kv)),
+            "finite": bool(torch.isfinite(got).all()),
+            "peak_bytes": peak, "peak_over_held": peak - base, "seconds": seconds}
+        del held, logits, scache, got, got_kv
+    del smodel, sbatch
+    torch.cuda.empty_cache()
+    return out
+
+
+def rows_rank(rank: int, world: int, store: str, out_path: str) -> dict:
+    """Phase 36(b) on one rank (``cuda:rank``), in phase 31's world: a (1, 2,
+    2) ("pod", "data", "model") mesh over 4 NCCL ranks with 4 cards (the 4
+    rows over "data", 2 a rank), else a (1, 1, 1) mesh over one; rank 0
+    writes the result to ``out_path``.  Every check raises on this rank."""
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_host_mesh
+
+    torch.cuda.set_device(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(logging.ERROR)
+    _build.load()
+    dist.init_process_group("nccl", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world)
+    try:
+        shape = (1, 2, 2) if world == 4 else (1, 1, 1)
+        mesh = make_host_mesh(shape, ("pod", "data", "model"), device_type="cuda")
+        cfg = dataclasses.replace(cut_depth(configs.get_config("llava-next-34b"), ROWS_LAYERS),
+                                  compute_dtype="float32", serve_param_dtype="float32")
+        res = {"rank": rank, "world": world, "mesh": list(shape), "rows": _llava_rows(cfg, mesh)}
+        every = [None] * world
+        dist.all_gather_object(every, {k: {"launches": v["launches"], "ops": v["ops"],
+                                           "peak_bytes": v["peak_bytes"]}
+                                       for k, v in res["rows"].items() if k.startswith("R")})
+        res["ranks"] = every
+        if rank == 0:  # before the checks, so that a failing run shows its numbers
+            gib = 2.0**30
+            for key, r in res["rows"].items():
+                if key.startswith("R"):
+                    print(f"  (b) {key}: {r}; peak {r['peak_bytes'] / gib:.3f} GiB "
+                          f"({r['peak_over_held'] / gib:.3f} over the memory held before the step)")
+            print(f"  (b) flash launches and peaks of each rank: {every}")
+        check_rows(res)
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:
+        with open(out_path, "w") as f:
+            json.dump(res, f)
+    return res
+
+
+def check_rows(res: dict) -> None:
+    """Phase 36(b)'s assertions on one rank's result, for both chunkings:
+    logits and every KV cache leaf within phase 31's float32 bound of the
+    unsharded ``Engine`` on the plain versions plus ``ROWS_REORDER_FACTOR``
+    times the model's own sensitivity, and on a world of one (the same
+    operations) within the bound of the ``Engine`` on the kernels; one
+    flash launch a layer a chunk, each its op's count; the chunked step's
+    peak below the unchunked one's; the sensitivity under
+    ``ROWS_SENSITIVITY_CEILING``."""
+    r = res["rows"]
+    one, more = r["R1"], r[f"R{ROWS_CHUNKS}"]
+    assert max(r["sensitivity"], r["cache_sensitivity"]) <= ROWS_SENSITIVITY_CEILING, r
+    allow, allow_kv = (ROWS_REORDER_FACTOR * r[k] for k in ("sensitivity", "cache_sensitivity"))
+    for got in (one, more):
+        assert got["finite"] and got["excess"] <= allow and got["cache_excess"] <= allow_kv, (
+            got, allow, allow_kv)
+        if res["world"] == 1:
+            assert got["kernel_excess"] <= 0.0 and got["kernel_cache_excess"] <= 0.0, got
+        assert got["launches"] == got["ops"] == r["layers"] * got["row_chunks"], got
+    assert more["local_rows"] % ROWS_CHUNKS == 0, more
+    assert more["peak_over_held"] < one["peak_over_held"], (one, more)
+
+
+def _gemma2_boundary(mesh) -> dict:
+    """Phase 36(c) on this rank: gemma2-9b (one window and one global layer)
+    with a float32 cache of long_500k's 524288 rows filled with seeded
+    values, the prompt prefilled from cache index 262136 and then decode
+    steps across row 262144 (the "data" shard boundary); the sharded steps
+    through the flash kernel against the unsharded ``Engine``'s model and
+    decode step on the plain versions and on the kernels (their distance the
+    model's own float32 sensitivity to the kernel's order), step by step;
+    and the KV rows (ring slots) of the positions written, each rank's
+    shard of them against the plain ``Engine``'s cache.  The window
+    layer's ring is prefilled as from index 0, in all three (the one-device
+    block's rule)."""
+    from torch.distributed.tensor import Shard
+
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.specs import build_step
+    from repro_torch.models import (SHAPES, forward, init_cache, init_model_params,
+                                    logits_from_hidden)
+    from repro_torch.models.sharding import wrap_with_sharding_ctx
+    from repro_torch.serve import Engine
+
+    cfg = dataclasses.replace(two_layers(configs.get_config("gemma2-9b")),
+                              compute_dtype="float32", serve_param_dtype="float32")
+    capacity = SHAPES["long_500k"].seq_len
+    first = capacity // 2 - BOUNDARY_PROMPT
+    rng = np.random.RandomState(36)
+    prompt = torch.from_numpy(rng.randint(0, cfg.vocab, (1, BOUNDARY_PROMPT))).cuda()
+    fed = [torch.from_numpy(rng.randint(0, cfg.vocab, (1, 1))).cuda()
+           for _ in range(BOUNDARY_STEPS)]
+    gen = lambda: torch.Generator(device="cuda").manual_seed(36)  # noqa: E731
+
+    def filled():
+        cache = init_cache(cfg, 1, capacity, torch.float32, device="cuda")
+        g = torch.Generator(device="cuda").manual_seed(360)
+        for c in cache["stack"].values():
+            for t in c.values():
+                t.normal_(generator=g)
+        return cache
+
+    def prefill_at(model, tokens, cache, ci, engine="auto"):
+        with torch.no_grad():
+            x, cache, _ = forward(model, {"tokens": tokens}, cache=cache, cache_index=ci,
+                                  mode="prefill", engine=engine)
+            return logits_from_hidden(model, x[:, -1:]), cache
+
+    last = first + BOUNDARY_PROMPT + BOUNDARY_STEPS - 1
+
+    def slots(rows: int) -> list:  # the rows (ring slots) of the positions written
+        return sorted({p % rows for p in range(first, last + 1)})
+
+    ref, ref_kv = {}, {}
+    for key in ("torch", "cuda"):
+        engine = Engine(cfg, init_model_params(cfg, gen(), "cuda"), capacity=capacity, slots=1,
+                        engine=key)
+        logits, cache = prefill_at(engine.model, prompt, filled(), first, engine=key)
+        ref[key] = [logits]
+        for i, tok in enumerate(fed):
+            logits, cache = engine._decode(engine.model, tok, cache, first + BOUNDARY_PROMPT + i)
+            ref[key].append(logits)
+        ref_kv[key] = {pos: {name: t[:, :, slots(t.shape[2])].clone() for name, t in c.items()}
+                       for pos, c in cache["stack"].items()}
+        del engine, cache
+        torch.cuda.empty_cache()
+    want, kernel = ref["torch"], ref["cuda"]
+    cell = build_step(cfg, "long_500k", mesh)
+    step = wrap_with_sharding_ctx(prefill_at, mesh, cell.rules)
+    smodel, _, scache, _ = cell.shard(init_model_params(cfg, gen(), "cuda"), None, filled(), None)
+    torch.cuda.empty_cache()
+    fa.reset_launches()
+    tokens = build_step(cfg, "prefill_32k", mesh).shard(None, {"tokens": prompt}, None)[1]
+    logits, scache = step(smodel, tokens["tokens"], scache, first)
+    launches = fa.launches()
+    got = [logits.full_tensor()]
+    for i, tok in enumerate(fed):
+        logits, scache = cell.step(smodel, cell.shard(None, tok)[1], scache,
+                                   first + BOUNDARY_PROMPT + i)
+        got.append(logits.full_tensor())
+    data = mesh.mesh_dim_names.index("data")
+    kv = scache["stack"]
+    cache_excess, cache_rows = -math.inf, {}
+    for pos, c in kv.items():
+        for name, t in c.items():
+            local, off = t.to_local(), _shard_offsets(t)  # rows along dim 2
+            mine = [slice(o, o + n) for o, n in zip(off, local.shape)]
+            mine[2] = slice(None)
+            whole = ref_kv["torch"][pos][name][tuple(mine)]
+            for j, slot in enumerate(slots(t.shape[2])):
+                if off[2] <= slot < off[2] + local.shape[2]:
+                    cache_excess = max(cache_excess, _past(local.select(2, slot - off[2]),
+                                                           whole.select(2, j)))
+                    cache_rows.setdefault(pos, set()).add(slot)
+    out = {"capacity": capacity, "prefill_from": first, "decode_to": last,
+           "cache_excess": cache_excess,
+           "cache_rows": {pos: sorted(rows) for pos, rows in cache_rows.items()},
+           "cache_sensitivity": max(float((ref_kv["cuda"][pos][n] - t).abs().max())
+                                    for pos, c in ref_kv["torch"].items() for n, t in c.items()),
+           "excess": max(_past(g, w) for g, w in zip(got, want)),
+           "excess_by_step": [_past(g, w) for g, w in zip(got, want)],
+           "worst_abs": max(float((g - w).abs().max()) for g, w in zip(got, want)),
+           "sensitivity": max(float((k - w).abs().max()) for k, w in zip(kernel, want)),
+           "sensitivity_by_step": [float((k - w).abs().max()) for k, w in zip(kernel, want)],
+           "kernel_excess": max(_past(g, k) for g, k in zip(got, kernel)),
+           "finite": all(bool(torch.isfinite(g).all()) for g in got), "launches": launches,
+           "local_rows": {pos: c["k"].to_local().shape[2] for pos, c in kv.items()},
+           "rows": {pos: c["k"].shape[2] for pos, c in kv.items()},
+           "placements": {pos: str(c["k"].placements) for pos, c in kv.items()},
+           "data_split": {pos: c["k"].placements[data] == Shard(2) for pos, c in kv.items()}}
+    del smodel, scache
+    torch.cuda.empty_cache()
+    return out
+
+
+def _shard_offsets(t) -> list:
+    """Each dim's global offset of this rank's shard of the DTensor ``t``
+    (even splits; a dim split over several mesh dims in mesh order, the
+    first the major one)."""
+    from torch.distributed.tensor import Shard
+
+    local = t.to_local()
+    index = [0] * t.dim()
+    for size, coord, p in zip(t.device_mesh.shape, t.device_mesh.get_coordinate(), t.placements):
+        if isinstance(p, Shard):
+            index[p.dim] = index[p.dim] * size + coord
+    return [i * n for i, n in zip(index, local.shape)]
+
+
+def boundary_rank(rank: int, world: int, store: str, out_path: str) -> dict:
+    """Phase 36(c)'s gemma2 boundary on one of 4 ranks, a (1, 2, 2) mesh;
+    rank 0 writes the result to ``out_path``.  Every check raises."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_host_mesh
+
+    torch.cuda.set_device(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(logging.ERROR)
+    _build.load()
+    dist.init_process_group("nccl", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world)
+    try:
+        mesh = make_host_mesh((1, 2, 2), ("pod", "data", "model"), device_type="cuda")
+        res = {"rank": rank, "world": world, "boundary": _gemma2_boundary(mesh)}
+        every = [None] * world
+        dist.all_gather_object(every, {k: res["boundary"][k] for k in ("cache_excess",
+                                                                       "cache_rows")})
+        res["ranks"] = every
+        if rank == 0:
+            print(f"  (c) gemma2-9b across the shard boundary: {res['boundary']}")
+            print(f"  (c) each rank's KV rows of the positions written against the plain "
+                  f"Engine's: {every}")
+        r = res["boundary"]
+        # each step within ROWS_REORDER_FACTOR x its own distance between the kernels and the
+        # plain versions, that distance under its ceiling
+        for i, (excess, sens) in enumerate(zip(r["excess_by_step"], r["sensitivity_by_step"])):
+            assert sens <= BOUNDARY_SENSITIVITY_CEILING[min(i, 1)], (i, r)
+            assert excess <= ROWS_REORDER_FACTOR * sens, (i, r)
+        assert r["finite"], r
+        # the written KV rows on every rank within phase 31's bound of the plain Engine's, and
+        # the global layer's rows 262136 .. 262159 held on both sides of its "data" boundary
+        assert all(e["cache_excess"] <= 0.0 for e in every), every
+        held = set().union(*(e["cache_rows"].get("1", ()) for e in every))
+        assert held == set(range(r["prefill_from"], r["decode_to"] + 1)), (held, every)
+        # the global layer's rows split over "data" at 262144; the prefill ends there
+        assert r["local_rows"]["1"] * 2 == r["rows"]["1"] == r["capacity"], r
+        assert r["prefill_from"] + BOUNDARY_PROMPT == r["capacity"] // 2 < r["decode_to"], r
+        assert r["data_split"]["1"], r
+        assert r["launches"] == 2, r  # one flash launch a layer in the prefill
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:
+        with open(out_path, "w") as f:
+            json.dump(res, f)
+    return res
+
+
+def prefill_rows_worlds() -> list:
+    """Phase 36(b), (c): ``(key, ranks, rank function)`` of each world this
+    machine's cards allow."""
+    world, _ = sharded_world()
+    worlds = [("rows", world, rows_rank)]
+    if torch.cuda.device_count() >= 4:
+        worlds += [("xlstm_regime_b", 3, xlstm_rank), ("boundary", 4, boundary_rank)]
+    return worlds
+
+
+def prefill_rows_world(key: str, ranks: int, rank_fn) -> dict:
+    """One of :func:`prefill_rows_worlds`, run: rank 0's result."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix=f"phase36-{key}-", dir=os.path.join(ROOT, "build"))
+    try:
+        return _run_world(ranks, tmp, rank_fn)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_prefill_rows(pool, pending) -> dict:
+    """Phase 36: a prefill's rows in chunks by the memory rule: (a) llava's
+    512-card ``prefill_32k`` on fake ranks, (b) llava at full width, 2
+    layers, in phase 31's world through the kernels against the unsharded
+    ``Engine``; (c) with 4 cards, xlstm-1.3b's regime (B) on 3 ranks ((1,
+    3): 4 heads do not divide 3) and gemma2-9b's long_500k cache crossing
+    its "data" shard boundary on 4."""
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(logging.ERROR)
+    world, _ = sharded_world()
+    cards = torch.cuda.device_count()
+    print(f"phase 36: a prefill's rows in chunks where the memory rule asks for them; (a) "
+          f"llava-next-34b prefill_32k on 512 fake ranks; (b) llava at full width, "
+          f"{ROWS_LAYERS} layers, float32, {ROWS_B} rows of {ROWS_S} positions in 1 and "
+          f"{ROWS_CHUNKS} chunks a rank, world {world} ({cards} card(s)); (c) with 4 cards "
+          f"xlstm-1.3b's regime (B) on 3 ranks and gemma2-9b's long_500k boundary on 4; "
+          f"{nvidia_smi('name,power.limit')}")
+    out = {key: prefill_rows_world(key, n, fn) for key, n, fn in prefill_rows_worlds()}
+    if cards < 4:
+        print(f"  (c) not run: it needs 4 cards, this machine has {cards}")
+    out["cell"] = _llava_rows_cell(pool, pending)
+    print(f"  {nvidia_smi('name,power.limit')}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every measurement to this JSON file")
@@ -5683,6 +6339,7 @@ def main() -> int:
     phase_s = {"1": time.perf_counter() - t_start}
     xlstm_pool, xlstm_pending = start_xlstm_cells()  # phase 34(a), read there
     moe_pool, moe_pending = start_moe_cell()  # phase 35(d), read there
+    rows_pool, rows_pending = start_llava_rows_cell()  # phase 36(a), read there
 
     def timed(phases: str, fn, *args):
         """``fn(*args)``, its wall seconds printed and kept under ``phases``."""
@@ -5736,6 +6393,7 @@ def main() -> int:
     serve_cache = timed("33", phase_serve_cache)
     xlstm_sharded = timed("34", phase_xlstm_sharded, xlstm_pool, xlstm_pending)
     moe_sharded = timed("35", phase_moe_sharded, moe_pool, moe_pending)
+    prefill_rows = timed("36", phase_prefill_rows, rows_pool, rows_pending)
 
     shape_rows = optimize_rows + wave_rows
     table = wave_rows[-1]  # the score-table build: the kernel's large shape
@@ -5829,6 +6487,9 @@ def main() -> int:
             "flash_attention"],
         "launches_sharded_serve_moe_sort": moe_sharded["sharded"]["serve"]["launches"],
         "dryrun_qwen3_moe_512": moe_sharded["cell"]["ops"]["flash_attention"],
+        "launches_sharded_prefill_rows_llava": {
+            k: r["launches"] for k, r in prefill_rows["rows"]["rows"].items() if k.startswith("R")},
+        "dryrun_llava_prefill_512": prefill_rows["cell"]["flash_ops"],
         "qwen3_moe_prefill": [{k: r[k] for k in ("B", "Sq", "Skv", "ms", "plain_ms", "bound_ms",
                                                  "bound_by", "max_abs_err")}
                               for r in qwen3["flash_rows"]],
@@ -5966,6 +6627,7 @@ def main() -> int:
                        "tune_slices": tune_slices, "sharded": sharded,
                        "op_analysis": op_analysis, "serve_cache": serve_cache,
                        "xlstm_sharded": xlstm_sharded, "moe_sharded": moe_sharded,
+                       "prefill_rows": prefill_rows,
                        "phase_seconds": phase_s,
                        "kernels": kernels}, f,
                       indent=1)

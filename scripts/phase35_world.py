@@ -9,15 +9,25 @@ Phase 31's world is 4 NCCL ranks, one a card, in a (2, 2) ("data",
   at full width, the born-sharded init, the sort dispatch trained and
   served against the unsharded steps, with that phase's checks.
 * ``--adafactor`` runs the thin case (c) (with 4 cards; else (b)) with
-  qwen3-moe's own optimizer, Adafactor at beta1 0, in place of SGD, and
-  checks nothing.  For each parameter with entries past atol + rtol after
-  the steps it prints, at those entries, each step's unsharded gradient
-  against the leaf's largest |gradient| and against the leaf's largest
-  difference between the two paths' gradients, and the share of them
-  whose sign the two paths disagree on; and for each step and microbatch
-  the tokens whose chosen experts differ between the paths.
+  qwen3-moe's own optimizer, Adafactor at beta1 0, in place of SGD.  For
+  each parameter with entries past atol + rtol after the steps it prints,
+  at those entries, each step's unsharded gradient against the leaf's
+  largest |gradient| and against the leaf's largest difference between the
+  two paths' gradients, and the share of them whose sign the two paths
+  disagree on; and for each step and microbatch the tokens whose chosen
+  experts differ between the paths, with each such token's router margin
+  (its k-th largest probability less its (k+1)-th) in both paths.  It
+  checks each step's gradients against ``chip_smoke.grad_bounds`` (4 x the
+  measured sensitivity on several cards, that sensitivity under
+  ``chip_smoke.MOE_SENSITIVITY_CEILING``), except at a step where a token
+  took another expert; there every such token must be a near-tie in both
+  paths (margin under ``FLIP_MARGIN``, the rule of
+  ``tests/test_torch_models.py``): a flip the reference's own function
+  allows.
 
-Writes rank 0's result to ``chiprun_out/phase35_world<ranks>[_adafactor].json``.
+Both print each step's gradient gaps against the sensitivity and the bound,
+and exit 1 if a check fails.  Writes rank 0's result to
+``chiprun_out/phase35_world<ranks>[_adafactor].json``.
 """
 
 from __future__ import annotations
@@ -38,6 +48,10 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import torch  # noqa: E402
 
 import chip_smoke  # noqa: E402
+
+#: a routing flip between the paths is a near-tie when the token's margin is under this in
+#: both (tests/test_torch_models.py's FLIP_MARGIN)
+FLIP_MARGIN = 2e-3
 
 
 def outside_entries(kept: dict) -> dict:
@@ -75,7 +89,9 @@ class _Routes:
         def recorded(fn, key):
             def route(p, x, cfg):
                 probs, w, idx = fn(p, x, cfg)
-                self.calls[key].append(idx.detach().cpu())
+                top = probs.detach().topk(cfg.moe_top_k + 1, dim=-1).values
+                margin = top[:, cfg.moe_top_k - 1] - top[:, cfg.moe_top_k]
+                self.calls[key].append((idx.detach().cpu(), margin.cpu()))
                 return probs, w, idx
 
             return route
@@ -93,10 +109,12 @@ class _Routes:
 
 def routing_gaps(plain: list, ranks: list, world: int, m: int, steps: int) -> list:
     """Each step's tokens whose chosen experts differ between the paths,
-    microbatch by microbatch.  One row a microbatch (the thin layout, or
-    one card): on (2, 2) ("data", "model") iteration ``t`` holds
-    microbatches ``2t`` and ``2t + 1`` on data coordinates 0 and 1 (ranks 0
-    and 2); on one card iteration ``t`` is microbatch ``t``."""
+    microbatch by microbatch, with those tokens' router margins in both
+    (``flips``: ``(token, plain margin, sharded margin)``).  One row a
+    microbatch (the thin layout, or one card): on (2, 2) ("data", "model")
+    iteration ``t`` holds microbatches ``2t`` and ``2t + 1`` on data
+    coordinates 0 and 1 (ranks 0 and 2); on one card iteration ``t`` is
+    microbatch ``t``."""
     per = len(plain) // (steps * m)  # route calls a microbatch: its forward and its remat
     iters = m if world == 1 else m // 2
     out = []
@@ -104,12 +122,31 @@ def routing_gaps(plain: list, ranks: list, world: int, m: int, steps: int) -> li
         for j in range(m):
             rank, t = (0, j) if world == 1 else (2 * (j % 2), j // 2)
             for c in range(per):
-                a = plain[(s * m + j) * per + c]
-                b = ranks[rank][(s * iters + t) * per + c]
-                out.append({"step": s, "microbatch": j, "call": c,
-                            "tokens": int((a.sort(-1).values != b.sort(-1).values).any(-1).sum()),
-                            "pairs": int((a != b).sum()), "of": a.shape[0]})
+                a, ma = plain[(s * m + j) * per + c]
+                b, mb = ranks[rank][(s * iters + t) * per + c]
+                moved = (a.sort(-1).values != b.sort(-1).values).any(-1)
+                out.append({"step": s, "microbatch": j, "call": c, "tokens": int(moved.sum()),
+                            "pairs": int((a != b).sum()), "of": a.shape[0],
+                            "flips": [(int(i), float(ma[i]), float(mb[i]))
+                                      for i in moved.nonzero().flatten().tolist()]})
     return out
+
+
+def adafactor_failures(res: dict) -> list:
+    """The ``--adafactor`` checks that fail: a step's gradients past the
+    bound where no token took another expert; a flip that is no near-tie."""
+    failed = []
+    flipped = {row["step"] for row in res["routing"] if row["tokens"]}
+    bounds = chip_smoke.grad_bounds(res, res["world"])
+    for step, outside in enumerate(chip_smoke.grads_outside(res, res["world"])):
+        if outside and step not in flipped:
+            failed.append(f"step {step + 1}: gradients past {bounds[step]:.3g}: {outside}")
+    for row in res["routing"]:
+        for token, plain, sharded in row["flips"]:
+            if not (plain < FLIP_MARGIN and sharded < FLIP_MARGIN):
+                failed.append(f"step {row['step'] + 1}, microbatch {row['microbatch']}, token "
+                              f"{token}: a flip away from a near-tie ({plain:.3g}, {sharded:.3g})")
+    return failed
 
 
 def adafactor_rank(rank: int, world: int, store: str, out_path: str) -> dict:
@@ -144,8 +181,9 @@ def adafactor_rank(rank: int, world: int, store: str, out_path: str) -> dict:
             res = chip_smoke._moe_train(cfg, mesh, B, m, opt=opt, keep=rank == 0)
         ranks = [None] * world
         dist.all_gather_object(ranks, routes.calls["sharded"])
-        res["routing"] = routing_gaps(routes.calls["plain"], ranks, world, m,
-                                      chip_smoke.SHARDED_STEPS)
+        # the plain calls: the unsharded run's, then the reordered run's (not compared)
+        plain = routes.calls["plain"][:len(routes.calls["plain"]) // 2]
+        res["routing"] = routing_gaps(plain, ranks, world, m, chip_smoke.SHARDED_STEPS)
     finally:
         dist.destroy_process_group()
     if rank == 0:
@@ -173,20 +211,33 @@ def main() -> int:
                                 else chip_smoke.moe_rank)
     print(f"phase 35 {'(c) with Adafactor' if opts.adafactor else '(a)-(c)'}: "
           f"{time.perf_counter() - t0:.1f} s")
+    runs = [res] if opts.adafactor else [res[k] for k in ("train", "thin") if k in res]
+    for r in runs:
+        print(f"  {r['B']} x {r['S']} in {r['microbatch']} microbatches, {r['optimizer']}: "
+              f"gradient gaps {r['grad_worst_rel']}, sensitivity {r['sensitivity']} "
+              f"({r['sensitivity_s']:.1f} s), bounds {chip_smoke.grad_bounds(r, world)}, "
+              f"leaves past them {chip_smoke.grads_outside(r, world)}")
+        for step, (rel, sens) in enumerate(zip(r["grad_rel"], r["sensitivity_rel"])):
+            print(f"    step {step + 1} by leaf (gap, sensitivity): "
+                  f"{ {n: (round(v, 9), round(sens[n], 9)) for n, v in rel.items()} }")
+    failed = []
     if opts.adafactor:
         for key in ("plain_losses", "sharded_losses", "plain_grad_norms", "sharded_grad_norms",
-                    "grad_worst_rel", "grads_outside", "param_excess", "params_outside"):
+                    "param_excess", "params_outside"):
             print(f"  {key}: {res[key]}")
         for name, v in res["outside_entries"].items():
             print(f"  {name}: {v}")
         for row in res["routing"]:
             print(f"  routing: {row}")
+        failed = adafactor_failures(res)
+        for line in failed:
+            print(f"  FAILED: {line}")
     out = os.path.join(ROOT, "chiprun_out",
                        f"phase35_world{world}{'_adafactor' if opts.adafactor else ''}.json")
     os.makedirs(os.path.dirname(out), exist_ok=True)
     with open(out, "w") as f:
         json.dump(res, f)
-    return 0
+    return 1 if failed else 0
 
 
 if __name__ == "__main__":

@@ -26,8 +26,11 @@ Writes one JSON a cell, ``<arch>__<shape>__<mesh>.json``, under ``--out``
 (default ``build/dryrun``, git-ignored), with the reference's keys:
 ``hlo_stats`` is ``op_stats``, and ``build_s`` (fake arguments made and
 sharded) and ``run_s`` (the step counted) replace ``lower_s`` and
-``compile_s``.  ``--all`` also writes ``summary.json``: every cell's OK or
-FAIL and, for a failure, its exception.  Each cell runs in a worker process
+``compile_s``; ``row_chunks`` and ``memory_rule`` are the row chunks a rank
+that a prefill cell's step chose and the memory rule's estimate at them
+(``specs.prefill_peak_bytes``), and a prefill cell on CUDA ranks whose
+estimate is below its measured peak fails.  ``--all`` also writes ``summary.json``: every
+cell's OK or FAIL and, for a failure, its exception.  Each cell runs in a worker process
 (``--jobs`` of them at once; a world of fake ranks is one per process).
 """
 
@@ -91,9 +94,12 @@ def _fake_args(cell, device) -> tuple:
 
 def analyze_cell(cfg, shape: str, multi_pod: bool, device: str = "cuda") -> dict:
     """``cfg``'s cell on the production mesh in a world of fake ranks:
-    ``{"n_chips", "build_s", "run_s", "stats": OpStats}``."""
+    ``{"n_chips", "build_s", "run_s", "stats": OpStats, "plan"}``, ``plan``
+    a prefill step's ``(row chunks a rank, the memory rule's estimate)``
+    (``Cell.plans``), else ``(1, None)``."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
+    from ..models import SHAPES
     from .mesh import PRODUCTION_MESHES, make_production_mesh
     from .op_analysis import analyze_step
     from .specs import build_step
@@ -107,8 +113,9 @@ def analyze_cell(cfg, shape: str, multi_pod: bool, device: str = "cuda") -> dict
             args = _fake_args(cell, device)
             build_s = time.perf_counter() - t0
             stats = analyze_step(cell.step, *args, mesh=mesh)
+    shp = SHAPES[shape]
     return {"n_chips": n, "build_s": build_s, "run_s": time.perf_counter() - t0 - build_s,
-            "stats": stats}
+            "stats": stats, "plan": cell.plans.get((shp.global_batch, shp.seq_len), (1, None))}
 
 
 def run_cell(arch: str, shape: str, multi_pod: bool, out_dir: str = RESULTS_DIR,
@@ -124,6 +131,11 @@ def run_cell(arch: str, shape: str, multi_pod: bool, out_dir: str = RESULTS_DIR,
     stats = res["stats"]
     op_stats = stats.asdict()
     memory = op_stats.pop("memory")
+    chunks, rule = res["plan"]
+    # the rule counts the card's path (the kernels); the plain versions on CPU ranks hold more
+    if device == "cuda" and rule is not None and rule < memory["per_device_total"]:
+        raise AssertionError(f"the memory rule's estimate {rule} B is below the measured peak "
+                             f"{memory['per_device_total']} B")
     record = {
         "arch": arch,
         "shape": shape,
@@ -136,6 +148,8 @@ def run_cell(arch: str, shape: str, multi_pod: bool, out_dir: str = RESULTS_DIR,
         "build_s": round(res["build_s"], 2),
         "run_s": round(res["run_s"], 2),
         "memory": memory,
+        "row_chunks": chunks,
+        "memory_rule": rule,
         "op_stats": op_stats,
     }
     os.makedirs(out_dir, exist_ok=True)
@@ -143,7 +157,8 @@ def run_cell(arch: str, shape: str, multi_pod: bool, out_dir: str = RESULTS_DIR,
         json.dump(record, f, indent=1)
     if verbose:
         print(f"[dryrun] OK {arch:24s} {shape:12s} {mesh_name:7s} run={res['run_s']:6.1f}s "
-              f"mem/dev={memory['per_device_total'] / 2**30:7.2f}GiB flops={stats.flops:.3e} "
+              f"mem/dev={memory['per_device_total'] / 2**30:7.2f}GiB R={chunks} "
+              f"flops={stats.flops:.3e} "
               f"coll={stats.collective_bytes:.3e}B", flush=True)
     return record
 
